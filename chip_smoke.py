@@ -13,9 +13,19 @@ Reddit-shaped SGC pipeline:
     -> _newton_linear_fit(steps=8), gated against the LBFGS oracle
 
 then runs the same hops under the admission rates measured on the card
-(``calibrate=True``), and holds each CUDA kernel against its plain
-PyTorch version on the main path's own inputs. Phases print one JSON line each on stdout; the line
-before the last is ``{"kernels": [...]}`` and the last is
+(``calibrate=True``), and the reference's other formulation on the same
+data, counters zeroed just before it and read just after:
+
+    -> LocalityPlan.build(formulation="onehot")    (hybrid splits)
+    -> khop_traceable(degree=2)                    (kernel C + kernel B)
+    -> _newton_linear_fit(steps=8), gated against the LBFGS oracle
+
+It then holds each CUDA kernel against its plain PyTorch version on the
+paths' own inputs (kernel A in both cell orders and the grouped layout,
+kernel B, kernel C through both entries, kernel D through ``sddmm`` on
+the main operator with two different operands) and drives ``spmm(impl=...)`` for every impl. Phases
+print one JSON line each on stdout; the line before the last is
+``{"kernels": [...]}`` and the last is
 ``{"ok": true, "device": {...}}``. Any failed phase raises, so the script
 exits non-zero and prints no result; so does a run without a CUDA device
 or outside the repository.
@@ -129,36 +139,16 @@ def phase_calibrate(device) -> dict:
     return rates
 
 
-def phase_main_path(args, device) -> dict:
+def drive_plan(plan, device, counters) -> dict:
+    """One user-level run of a plan: ``khop_traceable(degree=2)`` and the
+    8-step Newton head, warm, then timed; the launch counters in
+    ``counters`` ({name: module}) are zeroed just before and read just
+    after the timed run and the timed hops."""
     import torch
 
-    from sgc_tpu_torch.data.synthetic import synthetic_reddit_clustered
-    from sgc_tpu_torch.graph.locality import LocalityPlan
     from sgc_tpu_torch.models.sgc import init_sgc
-    from sgc_tpu_torch.ops import spmm, spmm_blockdense
-    from sgc_tpu_torch.train.loops import (
-        _lbfgs_linear_fit,
-        _newton_linear_fit,
-    )
+    from sgc_tpu_torch.train.loops import _newton_linear_fit
     from sgc_tpu_torch.utils.profiling import sync
-
-    spmm_blockdense.LAUNCHES = 0
-    spmm.LAUNCHES = 0
-    t0 = time.perf_counter()
-    graph, features, labels, idx_train = synthetic_reddit_clustered(
-        args.scale, seed=args.seed, shuffle=True)
-    emit({"phase": "data", "data_s": time.perf_counter() - t0,
-          "nodes": graph.n_rows, "nnz": graph.nnz,
-          "features": int(features.shape[1]),
-          "classes": int(labels.max()) + 1, "train": len(idx_train)})
-
-    t0 = time.perf_counter()
-    plan = LocalityPlan.build(graph, features, labels, idx_train,
-                              formulation="auto", device=device)
-    prep_s = time.perf_counter() - t0
-    s = plan.split_main
-    log(f"plan: {plan.formulation}, dense_frac {plan.dense_fraction:.4f}, "
-        f"cells {s.n_cells}, prep {prep_s:.1f}s {plan.prep_seconds}")
 
     x = torch.as_tensor(plan.features, device=device)
     n_classes = int(plan.labels.max()) + 1
@@ -185,25 +175,60 @@ def phase_main_path(args, device) -> dict:
     tr = khop(x, dev_args)
     sync(device)
     hops_s = time.perf_counter() - t0
-    launches = {"blockdense_cells": spmm_blockdense.LAUNCHES,
-                "csr_spmm": spmm.LAUNCHES}
+    launches = {name: mod.LAUNCHES for name, mod in counters.items()}
+    if tuple(tr.shape) != (len(plan.idx_train), x.shape[1]):
+        raise AssertionError(f"propagated shape {tuple(tr.shape)}")
     edges = plan.graph.nnz + plan.graph_final.nnz
+    return {"x": x, "y": y, "cw": cw, "params0": params0, "tr": tr,
+            "dev_args": dev_args, "launches": launches,
+            "timings": {"warm_s": warm_s, "total_s": total_s,
+                        "hops_s": hops_s, "edges": edges,
+                        "edges_per_s": edges / hops_s}}
+
+
+def phase_main_path(args, device) -> dict:
+    from sgc_tpu_torch.data.synthetic import synthetic_reddit_clustered
+    from sgc_tpu_torch.graph.locality import LocalityPlan
+    from sgc_tpu_torch.ops import spmm, spmm_blockdense
+    from sgc_tpu_torch.train.loops import (
+        _lbfgs_linear_fit,
+        _newton_linear_fit,
+    )
+
+    counters = {"blockdense_cells": spmm_blockdense, "csr_spmm": spmm}
+    for mod in counters.values():
+        mod.LAUNCHES = 0
+    t0 = time.perf_counter()
+    graph, features, labels, idx_train = synthetic_reddit_clustered(
+        args.scale, seed=args.seed, shuffle=True)
+    emit({"phase": "data", "data_s": time.perf_counter() - t0,
+          "nodes": graph.n_rows, "nnz": graph.nnz,
+          "features": int(features.shape[1]),
+          "classes": int(labels.max()) + 1, "train": len(idx_train)})
+
+    t0 = time.perf_counter()
+    plan = LocalityPlan.build(graph, features, labels, idx_train,
+                              formulation="auto", device=device)
+    prep_s = time.perf_counter() - t0
+    s = plan.split_main
+    log(f"plan: {plan.formulation}, dense_frac {plan.dense_fraction:.4f}, "
+        f"cells {s.n_cells}, prep {prep_s:.1f}s {plan.prep_seconds}")
+    run = drive_plan(plan, device, counters)
+    x, tr, launches = run["x"], run["tr"], run["launches"]
 
     # the propagated rows against the plain formulation on the card
-    (a_main, a_final) = dev_args
+    (a_main, a_final) = run["dev_args"]
     plain_tr = spmm_blockdense.spmm_block_dense(
         plan.split_final,
         spmm_blockdense.spmm_block_dense(plan.split_main, x, a_main),
         a_final)
-    if tuple(tr.shape) != (len(plan.idx_train), x.shape[1]):
-        raise AssertionError(f"propagated shape {tuple(tr.shape)}")
     abs_err, err = rel_err(tr, plain_tr)
     if not err <= TOLERANCE:
         raise AssertionError(f"propagation vs plain: rel err {err:.3e}")
     del plain_tr
 
-    parity = train_parity(tr, y, params0, cw, _newton_linear_fit,
-                          _lbfgs_linear_fit)
+    parity = train_parity(tr, run["y"], run["params0"], run["cw"],
+                          _newton_linear_fit, _lbfgs_linear_fit)
     emit({"phase": "main_path", "formulation": plan.formulation,
           "calibrate": False, "min_edges": s.min_edges,
           "dense_frac": plan.dense_fraction,
@@ -211,9 +236,8 @@ def phase_main_path(args, device) -> dict:
           "sparse_edges_main": s.sparse_edges,
           "cell_gb": (s.cell_bytes + plan.split_final.cell_bytes) / 1e9,
           "prep_s": prep_s, "prep_stages": plan.prep_seconds,
-          "warm_s": warm_s, "total_s": total_s, "hops_s": hops_s,
-          "edges": edges, "edges_per_s": edges / hops_s,
-          "launches": launches, "propagation_max_abs_err": abs_err,
+          **run["timings"], "launches": launches,
+          "propagation_max_abs_err": abs_err,
           "propagation_rel_err": err, "train_parity": parity})
     if not parity["parity_ok"]:
         raise AssertionError(f"train parity failed: {parity}")
@@ -221,6 +245,56 @@ def phase_main_path(args, device) -> dict:
         raise AssertionError(f"a kernel never launched: {launches}")
     return {"plan": plan, "x": x, "launches": launches,
             "data": (graph, features, labels, idx_train), "tr": tr}
+
+
+def phase_onehot_path(data, device) -> dict:
+    """The reference's other formulation on the same data:
+    ``LocalityPlan.build(formulation="onehot")`` (hybrid splits), two
+    hops through kernel C (dense cells) and kernel B (remainder), the
+    Newton head; rows held against kernel B alone over the whole
+    operators, and the head against the LBFGS oracle."""
+    from sgc_tpu_torch.graph.locality import LocalityPlan
+    from sgc_tpu_torch.ops import spmm, spmm_tiled
+    from sgc_tpu_torch.train.loops import (
+        _lbfgs_linear_fit,
+        _newton_linear_fit,
+    )
+
+    counters = {"tiled_spmm": spmm_tiled, "csr_spmm": spmm}
+    for mod in counters.values():
+        mod.LAUNCHES = 0
+    t0 = time.perf_counter()
+    plan = LocalityPlan.build(*data, formulation="onehot", device=device)
+    prep_s = time.perf_counter() - t0
+    run = drive_plan(plan, device, counters)
+    x, tr, launches = run["x"], run["tr"], run["launches"]
+
+    # all-segment oracle: kernel B alone over the whole operators
+    g_main = plan.graph.to(device)
+    g_final = plan.graph_final.to(device)
+    oracle = spmm.spmm_segment(g_final, spmm.spmm_segment(g_main, x))
+    abs_err, err = rel_err(tr, oracle)
+    del oracle
+    if not err <= TOLERANCE:
+        raise AssertionError(f"onehot rows vs all-segment: {err:.3e}")
+    parity = train_parity(tr, run["y"], run["params0"], run["cw"],
+                          _newton_linear_fit, _lbfgs_linear_fit)
+    s, sf = plan.split_main, plan.split_final
+    emit({"phase": "onehot_path", "formulation": plan.formulation,
+          "min_fill": s.min_fill, "dense_frac": plan.dense_fraction,
+          "dense_edges_main": s.dense_edges,
+          "sparse_edges_main": s.sparse_edges,
+          "slots_main": int(s.tiled.rows.shape[0]), "pad_main": s.pad,
+          "slots_final": int(sf.tiled.rows.shape[0]), "pad_final": sf.pad,
+          "prep_s": prep_s, "prep_stages": plan.prep_seconds,
+          **run["timings"], "launches": launches,
+          "rows_vs_all_segment_max_abs_err": abs_err,
+          "rows_vs_all_segment_rel_err": err, "train_parity": parity})
+    if not parity["parity_ok"]:
+        raise AssertionError(f"onehot train parity failed: {parity}")
+    if min(launches.values()) <= 0:
+        raise AssertionError(f"a kernel never launched: {launches}")
+    return {"plan": plan, "x": x, "launches": launches, "graph": g_main}
 
 
 def phase_calibrated_path(data, tr_main, device) -> None:
@@ -343,7 +417,7 @@ def phase_kernel_a(plan, x, launches, reps) -> dict:
     b_ms, b_by = bound_ms(ops, nbytes)
     row = {"name": "blockdense_cells", "route": "cuda",
            "source": "sgc_tpu_torch/csrc/blockdense.cu",
-           "replaces": "sgc_tpu/ops/spmm_blockdense.py:353",
+           "replaces": ("sgc_tpu/ops/spmm_blockdense.py:353, :330, :381"),
            "launches": launches["blockdense_cells"],
            "max_abs_err": max(o["max_abs_err"] for o in orders.values()),
            "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
@@ -380,12 +454,7 @@ def phase_kernel_b(plan, x, launches, reps) -> dict:
     final_ms = time_ms(
         lambda: spmm_segment(args_final.rest, x, dense_final), reps)
     nnz = rest.nnz
-    with warnings.catch_warnings():
-        warnings.filterwarnings("ignore", message=".*Sparse CSR tensor")
-        csr = torch.sparse_csr_tensor(rest.row_ptr, rest.cols[:nnz],
-                                      rest.vals[:nnz],
-                                      size=(rest.n_rows, rest.n_cols),
-                                      check_invariants=False)
+    csr = csr_of(rest)
     library_ms = time_ms(lambda: torch.addmm(dense, csr, x), reps)
 
     F = int(x.shape[1])
@@ -406,6 +475,237 @@ def phase_kernel_b(plan, x, launches, reps) -> dict:
           "tolerance_rel": TOLERANCE, "ops": ops, "bytes": nbytes,
           "achieved_gbps": nbytes / ms / 1e6, **row})
     return row
+
+
+def phase_kernel_a_grouped(plan, x, reps) -> None:
+    """Kernel A over the grouped layout (``group_cells=4``) of the last-hop
+    operator: an index whose (panel, stripe) runs are padded with zero
+    hole cells."""
+    import numpy as np
+    import torch
+
+    from sgc_tpu_torch.ops import spmm_blockdense as bd
+
+    R, W, F = 512, 512, int(x.shape[1])
+    split = bd.split_block_dense(
+        plan.graph_final, F, R, W, min_edges=plan.split_final.min_edges,
+        super_rows=8, group_cells=4)
+    dargs = bd.blockdense_device_args(split, x.device)
+    got = bd.apply_cells(split, dargs, x)
+    want = bd.apply_cells_plain(split, dargs, x)
+    abs_err, err = rel_err(got, want)
+    if not err <= TOLERANCE:
+        raise AssertionError(f"kernel A (grouped) vs plain: {err:.3e}")
+    del got, want
+    ms = time_ms(lambda: bd.apply_cells(split, dargs, x), reps)
+    plain_ms = time_ms(lambda: bd.apply_cells_plain(split, dargs, x), 1)
+    # yardstick: the real cells' products as one gathered f32 bmm
+    real = np.flatnonzero(dargs.cells[: split.n_slots].flatten(1).any(1)
+                          .cpu().numpy())
+    xp = x.new_zeros((split.n_stripes * W, F))
+    xp[: x.shape[0]] = x
+    st = torch.as_tensor(split.st_ids[real], device=x.device).long()
+    cells_f32 = dargs.cells[torch.as_tensor(real, device=x.device)].float()
+    xg = xp.view(-1, W, F)[st]
+    library_ms = time_ms(lambda: torch.bmm(cells_f32, xg), reps)
+    del cells_f32, xg, xp, dargs
+    ops = 2.0 * R * W * F * split.n_cells
+    nbytes = (split.n_slots * R * W * 2 + split.n_cols * F * 4
+              + split.n_rows * F * 4
+              + (split.n_row_blocks + 1 + 2 * split.n_slots) * 4)
+    b_ms, b_by = bound_ms(ops, nbytes)
+    emit({"phase": "kernel_a_grouped", "group_cells": 4, "super_rows": 8,
+          "cells": split.n_cells, "slots": split.n_slots,
+          "nonzero_slots": len(real), "F": F, "max_abs_err": abs_err,
+          "rel_err": err, "tolerance_rel": TOLERANCE, "ms": ms,
+          "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
+          "library_ms": library_ms, "ops": ops, "bytes": nbytes})
+
+
+def csr_of(graph):
+    """A torch CSR matrix of a graph on the card (yardsticks only)."""
+    import torch
+
+    nnz = graph.nnz
+    with warnings.catch_warnings():
+        warnings.filterwarnings("ignore", message=".*[Ss]parse")
+        return torch.sparse_csr_tensor(
+            graph.row_ptr, graph.cols[:nnz], graph.vals[:nnz],
+            size=(graph.n_rows, graph.n_cols), check_invariants=False)
+
+
+def phase_kernel_c(onehot, reps) -> dict:
+    """Kernel C through both entries (flat and stripe walk) on the onehot
+    main split, against the plain version."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from sgc_tpu_torch.ops import spmm_tiled as ti
+    from sgc_tpu_torch.ops.spmm import spmm_segment
+
+    plan, x = onehot["plan"], onehot["x"]
+    split = plan.split_main
+    tiled = split.tiled
+    args_flat = plan._device_args()[0].tiled
+    flat, walk = ti.flat_index(tiled), ti.stripe_index(tiled)
+    if not all(np.array_equal(a, b) for a, b in zip(flat, walk)):
+        raise AssertionError("the two kernel C index builders disagree")
+    args_walk = dataclasses.replace(
+        args_flat, rb_chunk_ptr=torch.from_numpy(walk[0]).to(x.device),
+        chunk_st=torch.from_numpy(walk[1]).to(x.device))
+    entries = {}
+    for name, fn, dargs in (("flat", ti.spmm_tiled_flat, args_flat),
+                            ("stripes", ti.spmm_tiled_stripes, args_walk)):
+        got = fn(tiled, x, dargs)
+        want = ti.spmm_tiled_plain(tiled, x, dargs)
+        abs_err, err = rel_err(got, want)
+        if not err <= TOLERANCE:
+            raise AssertionError(f"kernel C ({name}) vs plain: {err:.3e}")
+        del got, want
+        entries[name] = {
+            "max_abs_err": abs_err, "rel_err": err,
+            "ms": time_ms(lambda: fn(tiled, x, dargs), reps),
+            "plain_ms": time_ms(
+                lambda: ti.spmm_tiled_plain(tiled, x, dargs), 2)}
+    final = plan.split_final
+    args_final = plan._device_args()[1].tiled
+    final_ms = time_ms(
+        lambda: ti.spmm_tiled_flat(final.tiled, x, args_final), reps)
+    # the hop's other half: kernel B on each remainder, adding the dense
+    # part in its epilogue
+    rest_ms = {}
+    for name, s, hargs in (("main", split, plan._device_args()[0]),
+                           ("final", final, plan._device_args()[1])):
+        if hargs.rest is not None:
+            dense = ti.spmm_tiled_flat(s.tiled, x, hargs.tiled)
+            rest_ms[name] = time_ms(
+                lambda: spmm_segment(hargs.rest, x, dense), reps)
+            del dense
+
+    # yardstick: the dense part's slots as one coalesced CSR matrix
+    # (duplicates and padding summed: the same operator), torch.addmm
+    csr = torch.sparse_coo_tensor(
+        torch.stack([args_flat.rows, args_flat.cols]).long(),
+        args_flat.vals, (tiled.n_rows, tiled.n_cols)).coalesce()
+    with warnings.catch_warnings():
+        warnings.filterwarnings("ignore", message=".*[Ss]parse")
+        csr = csr.to_sparse_csr()
+    zero = x.new_zeros((tiled.n_rows, x.shape[1]))
+    library_ms = time_ms(lambda: torch.addmm(zero, csr, x, beta=0.0), reps)
+    del csr, zero
+
+    F = int(x.shape[1])
+    slots = int(tiled.rows.shape[0])
+    ops = 2.0 * split.dense_edges * F
+    nbytes = slots * 12 + tiled.n_cols * F * 4 + tiled.n_rows * F * 4
+    b_ms, b_by = bound_ms(ops, nbytes)
+    row = {"name": "tiled_spmm", "route": "cuda",
+           "source": "sgc_tpu_torch/csrc/tiled_spmm.cu",
+           "replaces": "sgc_tpu/ops/spmm_pallas.py:169, :393",
+           "launches": onehot["launches"]["tiled_spmm"],
+           "max_abs_err": max(e["max_abs_err"] for e in entries.values()),
+           "ms": entries["flat"]["ms"],
+           "plain_ms": entries["flat"]["plain_ms"], "bound_ms": b_ms,
+           "bound_by": b_by, "library_ms": library_ms}
+    emit({"phase": "kernel_c", "slots": slots,
+          "dense_edges": split.dense_edges, "pad": split.pad, "F": F,
+          "entries": entries, "final_split_slots":
+          int(final.tiled.rows.shape[0]), "final_split_ms": final_ms,
+          "remainder_nnz": {"main": split.sparse_edges,
+                            "final": final.sparse_edges},
+          "remainder_kernel_b_ms": rest_ms,
+          "tolerance_rel": TOLERANCE, "ops": ops, "bytes": nbytes,
+          "achieved_gbps": nbytes / entries["flat"]["ms"] / 1e6, **row})
+    return row
+
+
+def phase_kernel_d(onehot, reps) -> dict:
+    """``sddmm`` over the whole main operator with two different operands
+    (a = the reordered features, b = one hop of them, so a kernel that
+    swapped rows and cols would disagree): the entry point run once with
+    its counter zeroed, then held against the plain version."""
+    import torch
+
+    from sgc_tpu_torch.ops import spmm
+
+    g, a = onehot["graph"], onehot["x"]
+    b = spmm.spmm_segment(g, a)
+    spmm.SDDMM_LAUNCHES = 0
+    got = spmm.sddmm(g, a, b)
+    torch.cuda.synchronize()
+    launches = spmm.SDDMM_LAUNCHES
+    if launches != 1:
+        raise AssertionError(f"sddmm launched kernel D {launches} times")
+    want = spmm.sddmm_plain(g, a, b)
+    abs_err, err = rel_err(got, want)
+    if not err <= TOLERANCE:
+        raise AssertionError(f"kernel D vs plain: {err:.3e}")
+    if bool(got[g.nnz:].any()):
+        raise AssertionError("kernel D wrote a padding slot")
+    del got, want
+    ms = time_ms(lambda: spmm.sddmm(g, a, b), reps)
+    plain_ms = time_ms(lambda: spmm.sddmm_plain(g, a, b), 1)
+    csr = csr_of(g)
+    bt = b.t()
+    library_ms = time_ms(
+        lambda: torch.sparse.sampled_addmm(csr, a, bt, beta=0.0), reps)
+    del csr, bt, b
+    F = int(a.shape[1])
+    ops = 2.0 * g.nnz * F
+    # a and b read once each, rows and cols of every edge, out written
+    nbytes = 2 * a.numel() * 4 + g.nnz * 8 + g.n_edges_padded * 4
+    b_ms, b_by = bound_ms(ops, nbytes)
+    row = {"name": "sddmm", "route": "cuda",
+           "source": "sgc_tpu_torch/csrc/sddmm.cu",
+           "replaces": "sgc_tpu/ops/spmm_pallas.py:705",
+           "launches": launches, "max_abs_err": abs_err, "ms": ms,
+           "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
+           "library_ms": library_ms}
+    emit({"phase": "kernel_d", "nnz": g.nnz, "e_pad": g.n_edges_padded,
+          "F": F, "operands": "a = x, b = spmm_segment(graph, x)",
+          "rel_err": err, "tolerance_rel": TOLERANCE, "ops": ops,
+          "bytes": nbytes, "achieved_gbps": nbytes / ms / 1e6, **row})
+    return row
+
+
+def phase_dispatcher(onehot, reps) -> None:
+    """``spmm(graph, x, impl=...)`` for every impl, each against kernel
+    B's product; every impl must launch the kernels it stands for."""
+    from sgc_tpu_torch.ops import spmm, spmm_blockdense, spmm_tiled
+    from sgc_tpu_torch.utils.buildcache import clear_placed
+
+    g, x = onehot["graph"], onehot["x"]
+    expect = {"auto": ("csr_spmm",), "segment": ("csr_spmm",),
+              "chunked": ("csr_spmm",), "tiled": ("tiled_spmm",),
+              "hybrid": ("tiled_spmm", "csr_spmm"),
+              "blockdense": ("blockdense_cells", "csr_spmm")}
+    mods = {"csr_spmm": spmm, "tiled_spmm": spmm_tiled,
+            "blockdense_cells": spmm_blockdense}
+    ref = spmm.spmm_segment(g, x)
+    impls = {}
+    for impl in spmm.IMPLS:
+        for mod in mods.values():
+            mod.LAUNCHES = 0
+        t0 = time.perf_counter()
+        out = spmm.spmm(g, x, impl=impl)
+        first_s = time.perf_counter() - t0
+        launches = {k: m.LAUNCHES for k, m in mods.items()}
+        _, err = rel_err(out, ref)
+        del out
+        tol = BF16_TOLERANCE if impl == "blockdense" else TOLERANCE
+        if not err <= tol:
+            raise AssertionError(f"spmm(impl={impl!r}) vs kernel B: "
+                                 f"{err:.3e} > {tol}")
+        if any(launches[k] <= 0 for k in expect[impl]):
+            raise AssertionError(f"spmm(impl={impl!r}) launched {launches}")
+        impls[impl] = {"rel_err": err, "tolerance_rel": tol,
+                       "first_call_s": first_s, "launches": launches,
+                       "ms": time_ms(lambda: spmm.spmm(g, x, impl=impl),
+                                     reps)}
+    clear_placed()
+    emit({"phase": "dispatcher", "impls": impls})
 
 
 def main() -> int:
@@ -436,11 +736,19 @@ def main() -> int:
     phase_build()
     phase_calibrate(device)
     main = phase_main_path(args, device)
-    phase_calibrated_path(main.pop("data"), main.pop("tr"), device)
+    data = main.pop("data")
+    phase_calibrated_path(data, main.pop("tr"), device)
+    onehot = phase_onehot_path(data, device)
+    del data
     rows = [phase_kernel_a(main["plan"], main["x"], main["launches"],
-                           args.reps),
-            phase_kernel_b(main["plan"], main["x"], main["launches"],
                            args.reps)]
+    phase_kernel_a_grouped(main["plan"], main["x"], args.reps)
+    rows.append(phase_kernel_b(main["plan"], main["x"], main["launches"],
+                               args.reps))
+    del main
+    rows.append(phase_kernel_c(onehot, args.reps))
+    rows.append(phase_kernel_d(onehot, args.reps))
+    phase_dispatcher(onehot, args.reps)
     log(f"chip_smoke: {time.perf_counter() - t_start:.1f}s")
     emit({"kernels": rows})
     emit({"ok": True, "device": {"platform": "gpu",

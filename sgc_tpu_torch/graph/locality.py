@@ -8,8 +8,10 @@ Discover a graph's community structure, then exploit it:
 * node reordering by LPA (:func:`sgc_tpu_torch.graph.reorder.lpa_order`),
 * exact dead-row elimination for the last hop (``row_subgraph``: the
   last hop computes only the ``idx_train`` rows),
-* a block-dense split per hop operator (dense bf16 cells + sparse
-  remainder, ops/spmm_blockdense.py), placed on the device once per plan.
+* a split per hop operator, placed on the device once per plan: a
+  block-dense split (dense bf16 cells + sparse remainder,
+  ops/spmm_blockdense.py) or, under ``onehot``, a hybrid split (tiled
+  dense cells + sparse remainder, ops/spmm_hybrid.py).
 
 Formulations of the hop:
 
@@ -18,9 +20,16 @@ Formulations of the hop:
   remainder, with cells in the super-row order (``super_rows=8``) as in
   the reference.
 * ``blockdense`` is the plain PyTorch version (the reference's scan form).
-* ``auto`` resolves to ``blockdense_kernel`` on a CUDA device, after the
-  kernels' capability check, which raises when it fails; on the CPU it
-  resolves to ``blockdense``.
+* ``onehot`` is the reference's one-hot/hybrid formulation: cells that
+  fill at least ``min_fill`` of their padded chunks go through kernel C
+  (the counterpart of ``spmm_pallas_flat``), the rest through kernel B.
+  The name is kept for parity; kernel C gathers directly and does no
+  one-hot matmul. Its values stay f32 (no bf16 cells).
+* ``auto`` resolves to ``blockdense_kernel`` on a CUDA device and to
+  ``blockdense`` on the CPU.
+
+``blockdense_kernel`` and ``onehot`` on a CUDA device first run the
+kernels' capability check, which raises when it fails.
 
 The reference's TPU-VM page-fault probe and its memory arenas are not
 carried over; the stage timings ``order_s``, ``subgraph_s`` and
@@ -39,13 +48,13 @@ from sgc_tpu_torch.graph.reorder import reorder_graph_arrays
 from sgc_tpu_torch.graph.sparse import SparseGraph
 from sgc_tpu_torch.utils.device import resolve_device
 
-FORMULATIONS = ("auto", "blockdense", "blockdense_kernel")
+FORMULATIONS = ("auto", "blockdense", "blockdense_kernel", "onehot")
 SUPER_ROWS = 8
 
 
 @dataclasses.dataclass(frozen=True)
 class LocalityPlan:
-    """Reordered graph + block-dense splits, ready for K-hop propagation."""
+    """Reordered graph + per-hop splits, ready for K-hop propagation."""
 
     graph: SparseGraph            # reordered, normalized operator (host)
     graph_final: SparseGraph      # row-subset operator for the last hop
@@ -53,7 +62,7 @@ class LocalityPlan:
     labels: np.ndarray
     idx_train: np.ndarray         # positions in the reordered numbering
     order: np.ndarray             # order[new_pos] = old id
-    split_main: object            # BlockDenseSplit (full hops)
+    split_main: object            # BlockDenseSplit / HybridSplit (full hops)
     split_final: object           # the same, for the train-row hop
     prep_seconds: dict            # per-stage host prep timing
     device: torch.device
@@ -71,6 +80,7 @@ class LocalityPlan:
         ordering: str = "lpa",
         row_block: int = 512,
         stripe: int = 512,
+        min_fill: float | None = None,
         formulation: str = "auto",
         calibrate: bool = False,
         device=None,
@@ -78,10 +88,13 @@ class LocalityPlan:
         """Host-side prep, once per graph. ``device=None`` means the CUDA
         card (raises without one); ``device="cpu"`` runs the plain forms.
 
-        ``calibrate=True`` replaces the committed admission rates with
-        rates measured on ``device`` through the kernels
+        ``calibrate=True`` replaces the committed block-dense admission
+        rates with rates measured on ``device`` through the kernels
         (:func:`sgc_tpu_torch.ops.calibrate.measured_rates`); on the CPU it
-        keeps the committed rates.
+        keeps the committed rates. ``min_fill`` is the ``onehot``
+        admission threshold (default :func:`min_fill_for`, uncalibrated as
+        in the reference); passing it with a block-dense formulation
+        raises, as in the reference.
         """
         from sgc_tpu_torch.ops.spmm_blockdense import (
             min_edges_for,
@@ -95,7 +108,13 @@ class LocalityPlan:
         if formulation == "auto":
             formulation = ("blockdense_kernel" if dev.type == "cuda"
                            else "blockdense")
-        if formulation == "blockdense_kernel" and dev.type == "cuda":
+        if min_fill is not None and formulation.startswith("blockdense"):
+            raise ValueError(
+                "min_fill is the one-hot admission knob; blockdense "
+                "admission is the per-cell edge-count crossover "
+                "(min_edges_for) — pass formulation='onehot' to use "
+                "min_fill")
+        if formulation != "blockdense" and dev.type == "cuda":
             from sgc_tpu_torch.ops.capability import require_cuda_kernels
 
             require_cuda_kernels(dev)
@@ -112,22 +131,31 @@ class LocalityPlan:
 
         t0 = time.perf_counter()
         nf = int(features_p.shape[1])
-        min_edges = None
-        if calibrate:
-            from sgc_tpu_torch.ops.calibrate import measured_rates
+        if formulation == "onehot":
+            from sgc_tpu_torch.ops.spmm_hybrid import split_dense_cells
 
-            rates = measured_rates(dev)
-            min_edges = min_edges_for(
-                row_block, stripe, nf,
-                eff_flops=rates["blockdense_eff_flops"],
-                xla_edges_per_s=rates["xla_edges_per_s"])
-        superp = SUPER_ROWS if formulation == "blockdense_kernel" else None
-        split_main = split_block_dense(graph_p, nf, row_block, stripe,
-                                       min_edges=min_edges,
-                                       super_rows=superp)
-        split_final = split_block_dense(graph_final, nf, row_block, stripe,
-                                        min_edges=min_edges,
-                                        super_rows=superp)
+            split_main = split_dense_cells(graph_p, nf, row_block, stripe,
+                                           min_fill=min_fill)
+            split_final = split_dense_cells(graph_final, nf, row_block,
+                                            stripe, min_fill=min_fill)
+        else:
+            min_edges = None
+            if calibrate:
+                from sgc_tpu_torch.ops.calibrate import measured_rates
+
+                rates = measured_rates(dev)
+                min_edges = min_edges_for(
+                    row_block, stripe, nf,
+                    eff_flops=rates["blockdense_eff_flops"],
+                    xla_edges_per_s=rates["xla_edges_per_s"])
+            superp = (SUPER_ROWS if formulation == "blockdense_kernel"
+                      else None)
+            split_main = split_block_dense(graph_p, nf, row_block, stripe,
+                                           min_edges=min_edges,
+                                           super_rows=superp)
+            split_final = split_block_dense(graph_final, nf, row_block,
+                                            stripe, min_edges=min_edges,
+                                            super_rows=superp)
         t["split_s"] = time.perf_counter() - t0
 
         return cls(
@@ -142,13 +170,16 @@ class LocalityPlan:
     def _device_args(self):
         """Both splits placed on the plan's device, once per plan."""
         if "args" not in self._cache:
-            from sgc_tpu_torch.ops.spmm_blockdense import (
-                blockdense_device_args,
-            )
-
-            self._cache["args"] = (
-                blockdense_device_args(self.split_main, self.device),
-                blockdense_device_args(self.split_final, self.device))
+            if self.formulation == "onehot":
+                from sgc_tpu_torch.ops.spmm_hybrid import (
+                    hybrid_device_args as place,
+                )
+            else:
+                from sgc_tpu_torch.ops.spmm_blockdense import (
+                    blockdense_device_args as place,
+                )
+            self._cache["args"] = (place(self.split_main, self.device),
+                                   place(self.split_final, self.device))
         return self._cache["args"]
 
     def _spmm_form(self, split):
@@ -157,9 +188,11 @@ class LocalityPlan:
             spmm_block_dense,
             spmm_blockdense,
         )
+        from sgc_tpu_torch.ops.spmm_hybrid import spmm_hybrid_split
 
-        op = (spmm_blockdense if self.formulation == "blockdense_kernel"
-              else spmm_block_dense)
+        op = {"blockdense_kernel": spmm_blockdense,
+              "blockdense": spmm_block_dense,
+              "onehot": spmm_hybrid_split}[self.formulation]
         return lambda x, a: op(split, x, a)
 
     def hop_fns(self):

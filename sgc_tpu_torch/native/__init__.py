@@ -2,9 +2,9 @@
 
 The port's copy of the reference's C++ host library, built with ``g++``
 at first use into ``build/sgc_tpu_torch/`` (utils/buildlib.py). Only the
-calls the LPA + block-dense path uses are bound: ``sort_edges``,
-``row_ptr_from_sorted``, ``coalesce``, ``lpa_labels`` and
-``cell_scatter``.
+calls the ported paths use are bound: ``sort_edges``,
+``row_ptr_from_sorted``, ``coalesce``, ``lpa_labels``, ``cell_scatter``
+(block-dense split) and ``tile_fill`` (the tiled one-hot layout).
 
 There are no numpy fallbacks: when the library cannot be built every
 call raises. The reference falls back silently (to a synchronous numpy
@@ -33,6 +33,7 @@ LIB_SPEC = LibSpec(
 _lib = None
 
 _I64P = ctypes.POINTER(ctypes.c_int64)
+_I32P = ctypes.POINTER(ctypes.c_int32)
 _F32P = ctypes.POINTER(ctypes.c_float)
 _U16P = ctypes.POINTER(ctypes.c_uint16)
 _U8P = ctypes.POINTER(ctypes.c_uint8)
@@ -60,6 +61,10 @@ def _load():
     lib.cell_scatter_bf16.argtypes = [_I64P, _I64P, _F32P, _I64, _I64P,
                                       _I64, _I64, _I64, _U16P, _U8P]
     lib.cell_scatter_bf16.restype = ctypes.c_int
+    lib.tile_fill.argtypes = [_I64P, _I64P, _F32P, _I64, _I64P, _I64P,
+                              _I64P, _I64, _I64, _I64, _I64, _I64, _I32P,
+                              _I32P, _F32P]
+    lib.tile_fill.restype = ctypes.c_int
     _lib = lib
     return lib
 
@@ -153,3 +158,43 @@ def cell_scatter(rows, cols, vals, compact, n_st: int, row_block: int,
                           len(rows), _p(compact, _I64P), int(n_st),
                           int(row_block), int(stripe),
                           _p(cells_flat, _U16P), _p(mask, _U8P))
+
+
+def tile_fill(rows, cols, vals, cell, cell_start, counts, chunk: int,
+              n_st: int, row_block: int, stripe: int, total_chunks: int):
+    """Scatter (row, col)-sorted edges into the padded per-cell chunk
+    layout of ``tile_graph`` (a stable counting sort by ``cell``, so the
+    order within a cell is the input's). ``cell_start`` is in chunks,
+    ``counts`` is each cell's edge count. Returns ``(rows int32, cols
+    int32, vals f32)`` of length ``total_chunks * chunk``; padding slots
+    carry the cell's base (row, col) and val 0."""
+    lib = _load()
+    rows = np.ascontiguousarray(rows, dtype=np.int64)
+    cols = np.ascontiguousarray(cols, dtype=np.int64)
+    vals = np.ascontiguousarray(vals, dtype=np.float32)
+    cell = np.ascontiguousarray(cell, dtype=np.int64)
+    cell_start = np.ascontiguousarray(cell_start, dtype=np.int64)
+    counts = np.ascontiguousarray(counts, dtype=np.int64)
+    if not (len(rows) == len(cols) == len(vals) == len(cell)):
+        raise ValueError("rows, cols, vals and cell must have one entry "
+                         "per edge")
+    if len(cell_start) != len(counts):
+        raise ValueError("cell_start and counts must have one entry per "
+                         "cell")
+    if len(cell) and (cell.min() < 0 or cell.max() >= len(counts)):
+        raise ValueError(f"cell ids must lie in [0, {len(counts)})")
+    if not np.array_equal(np.bincount(cell, minlength=len(counts)), counts):
+        raise ValueError("counts must be the edge count of each cell")
+    n_out = int(total_chunks) * int(chunk)
+    if len(counts) and int(
+            ((cell_start + -(-counts // chunk)) * chunk).max()) > n_out:
+        raise ValueError("the cells' chunks overrun total_chunks")
+    r_out = np.zeros(n_out, np.int32)
+    c_out = np.zeros(n_out, np.int32)
+    v_out = np.zeros(n_out, np.float32)
+    lib.tile_fill(
+        _p(rows, _I64P), _p(cols, _I64P), _p(vals, _F32P), len(rows),
+        _p(cell, _I64P), _p(cell_start, _I64P), _p(counts, _I64P),
+        len(counts), int(chunk), int(n_st), int(row_block), int(stripe),
+        _p(r_out, _I32P), _p(c_out, _I32P), _p(v_out, _F32P))
+    return r_out, c_out, v_out

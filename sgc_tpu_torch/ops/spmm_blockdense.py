@@ -19,6 +19,9 @@ Device side:
   function (the reference's scan form): :func:`apply_cells_plain`, a loop
   over the cells with f32 matmuls and a fixed-order row-block add, plus
   :func:`spmm_segment_plain`.
+* :func:`spmm_blockdense_graph` is the drop-in behind
+  ``spmm(impl="blockdense")`` (the reference's ``spmm_blockdense(graph,
+  x)``): split on first use and place the split once, both cached.
 
 Cells are kept as raw bf16 bits in ``np.uint16`` on the host (as the
 native ``cell_scatter`` writes them) and viewed as ``torch.bfloat16`` on
@@ -38,6 +41,7 @@ from sgc_tpu_torch import native
 from sgc_tpu_torch.graph.sparse import SparseGraph, host
 from sgc_tpu_torch.ops import kernels
 from sgc_tpu_torch.ops.spmm import spmm_segment, spmm_segment_plain
+from sgc_tpu_torch.utils.buildcache import placed
 
 # Admission-model rates measured by the reference on a TPU v5e (its
 # einsum cell path, and its XLA segment path, sgc_tpu/ops/spmm_hybrid.py).
@@ -386,3 +390,18 @@ def spmm_block_dense(split: BlockDenseSplit, x: torch.Tensor,
     if dense is not None:
         return dense
     return x.new_zeros((split.n_rows, x.shape[1]))
+
+
+def spmm_blockdense_graph(graph: SparseGraph, x: torch.Tensor,
+                          row_block: int = DEFAULT_ROW_BLOCK,
+                          stripe: int = DEFAULT_STRIPE) -> torch.Tensor:
+    """Drop-in block-dense SpMM: split with the committed admission and
+    place it on x's device on first use (cached with
+    ``utils.buildcache.placed``: the split is O(E) host work plus GBs of
+    cells), then :func:`spmm_blockdense`."""
+    F = int(x.shape[1])
+    split, args = placed(
+        graph, ("blockdense", F, row_block, stripe), x.device,
+        lambda: split_block_dense(graph, F, row_block, stripe),
+        blockdense_device_args)
+    return spmm_blockdense(split, x, args)

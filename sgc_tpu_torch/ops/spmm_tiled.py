@@ -1,0 +1,361 @@
+"""Tiled SpMM over a cell-chunk layout (the counterpart of
+sgc_tpu/ops/spmm_pallas.py).
+
+Host side, bit for bit the reference's: :class:`TiledGraph` and
+:func:`tile_graph` sort the edges into (row block R x stripe W) cells and
+pad each cell to whole chunks of C slots, through the native counting
+sort (``native.tile_fill``); :func:`tile_graph_plain` is the reference's
+numpy lexsort twin, kept as the plain version the tests hold the native
+path against. :func:`_flat_schedule` and :func:`_tile_cached` are the
+reference's. ``chunk`` is kept as given, 1024 included, so the layouts
+compare bit for bit; the reference's ``chunk % 1024`` rule for compiled
+runs was a Mosaic floor, and kernel C takes any chunk >= 1. The
+reference's ``DEFAULT_FEATURE_TILE`` has no counterpart: kernel C tiles
+the features by 32, one per lane.
+
+Device side: kernel C (``csrc/tiled_spmm.cu``) computes, for every row
+block, the sum over its chunks in layout order of ``vals[e] *
+x[cols[e]]`` into row ``rows[e]``; it serves both TPU kernels through one
+per-row-block chunk index ``(rb_chunk_ptr, chunk_st)``:
+
+* :func:`spmm_tiled_flat` <-> ``spmm_pallas_flat`` (index from the flat
+  chunk schedule, :func:`flat_index`);
+* :func:`spmm_tiled_stripes` <-> ``spmm_pallas_tiled`` (index from the
+  stripe walk over ``cell_start``/``cell_nchunks``, :func:`stripe_index`);
+* :func:`spmm_tiled` <-> ``spmm_pallas``: tile and place on first use
+  (cached with :func:`sgc_tpu_torch.utils.buildcache.placed`), then the
+  flat entry.
+
+The kernel skips each cell's padding tail by :func:`chunk_nnz`, the
+edges per chunk, placed beside the index.
+
+Each returns f32 ``[n_rows, F]``; the reference's padded ``[n_rb * R,
+F_pad]`` output and its 128-lane feature tile were TPU layout. On a CUDA
+tensor the wrappers launch kernel C or raise; on a CPU tensor they run
+:func:`spmm_tiled_plain`, the plain PyTorch version (an ``index_add_``
+over the slots in layout order).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+import torch
+
+from sgc_tpu_torch import native
+from sgc_tpu_torch.graph.sparse import SparseGraph, host
+from sgc_tpu_torch.ops import kernels
+from sgc_tpu_torch.utils.buildcache import placed
+
+DEFAULT_ROW_BLOCK = 2048     # R
+DEFAULT_STRIPE = 2048        # W
+DEFAULT_CHUNK = 1024         # C (slots per chunk)
+
+# slots per index_add_ in the plain version: bounds its (slots, F)
+# gather to ~2.5 GB at F = 602
+PLAIN_SLOTS = 1 << 20
+
+# launches of the CUDA kernel behind the tiled wrappers (kernel C)
+LAUNCHES = 0
+
+
+@dataclasses.dataclass(frozen=True)
+class TiledGraph:
+    """Cell-tiled edge layout.
+
+    Edge arrays are the cells' chunk slices, concatenated cell-major
+    (cells ordered by ``rb * n_st + st``); ``cell_start[rb, st]`` (in
+    chunks) and ``cell_nchunks[rb, st]`` index them. Padding slots have
+    ``val == 0`` and the cell's base (row, col). ``cell_nnz`` (the edges
+    of each cell, so the rest of its last chunk is padding) is the port's
+    addition; every other field is the reference's.
+    """
+
+    rows: np.ndarray          # int32[n_chunks * C]
+    cols: np.ndarray          # int32[n_chunks * C]
+    vals: np.ndarray          # float32[n_chunks * C]
+    cell_start: np.ndarray    # int32[n_rb, n_st]
+    cell_nchunks: np.ndarray  # int32[n_rb, n_st]
+    cell_nnz: np.ndarray      # int32[n_rb, n_st]
+    n_rows: int
+    n_cols: int
+    row_block: int
+    stripe: int
+    chunk: int
+
+    @property
+    def n_row_blocks(self) -> int:
+        return self.cell_start.shape[0]
+
+    @property
+    def n_stripes(self) -> int:
+        return self.cell_start.shape[1]
+
+    @property
+    def n_chunks(self) -> int:
+        return int(self.rows.shape[0]) // self.chunk
+
+
+def _cells(graph: SparseGraph, row_block: int, stripe: int, chunk: int):
+    """The shared prologue of both tilers: edges, cell ids, per-cell
+    counts and chunk offsets."""
+    if min(row_block, stripe, chunk) < 1:
+        raise ValueError("row_block, stripe and chunk must be >= 1")
+    rows = host(graph.rows)[: graph.nnz].astype(np.int64)
+    cols = host(graph.cols)[: graph.nnz].astype(np.int64)
+    vals = host(graph.vals)[: graph.nnz].astype(np.float32)
+    n_rb = -(-graph.n_rows // row_block)
+    n_st = -(-graph.n_cols // stripe)
+    cell = (rows // row_block) * n_st + (cols // stripe)
+    counts = np.bincount(cell, minlength=n_rb * n_st)
+    nchunks = -(-counts // chunk)
+    cell_start = np.zeros(n_rb * n_st, np.int64)
+    np.cumsum(nchunks[:-1], out=cell_start[1:])
+    return rows, cols, vals, cell, counts, nchunks, cell_start, n_rb, n_st
+
+
+def _tiled(graph, arrays, counts, nchunks, cell_start, n_rb, n_st,
+           row_block, stripe, chunk) -> TiledGraph:
+    r_out, c_out, v_out = arrays
+    return TiledGraph(
+        rows=r_out, cols=c_out, vals=v_out,
+        cell_start=cell_start.astype(np.int32).reshape(n_rb, n_st),
+        cell_nchunks=nchunks.astype(np.int32).reshape(n_rb, n_st),
+        cell_nnz=counts.astype(np.int32).reshape(n_rb, n_st),
+        n_rows=graph.n_rows, n_cols=graph.n_cols,
+        row_block=row_block, stripe=stripe, chunk=chunk,
+    )
+
+
+def tile_graph(graph: SparseGraph, row_block: int = DEFAULT_ROW_BLOCK,
+               stripe: int = DEFAULT_STRIPE,
+               chunk: int = DEFAULT_CHUNK) -> TiledGraph:
+    """Sort edges into (row block, stripe) cells and pad each cell to
+    chunks, through the native counting sort (raises when the host
+    library cannot be built). Host-side, done once per graph."""
+    rows, cols, vals, cell, counts, nchunks, cell_start, n_rb, n_st = (
+        _cells(graph, row_block, stripe, chunk))
+    arrays = native.tile_fill(rows, cols, vals, cell, cell_start, counts,
+                              chunk, n_st, row_block, stripe,
+                              int(nchunks.sum()))
+    return _tiled(graph, arrays, counts, nchunks, cell_start, n_rb, n_st,
+                  row_block, stripe, chunk)
+
+
+def tile_graph_plain(graph: SparseGraph,
+                     row_block: int = DEFAULT_ROW_BLOCK,
+                     stripe: int = DEFAULT_STRIPE,
+                     chunk: int = DEFAULT_CHUNK) -> TiledGraph:
+    """The same layout with the reference's numpy lexsort and scatter
+    (the plain version of :func:`tile_graph`)."""
+    rows, cols, vals, cell, counts, nchunks, cell_start, n_rb, n_st = (
+        _cells(graph, row_block, stripe, chunk))
+    n_slots = int(nchunks.sum()) * chunk
+    order = np.lexsort((rows, cell))
+    rows, cols, vals, cl = rows[order], cols[order], vals[order], cell[order]
+    r_out = np.zeros(n_slots, np.int32)
+    c_out = np.zeros(n_slots, np.int32)
+    v_out = np.zeros(n_slots, np.float32)
+    in_cell_pos = np.arange(len(rows)) - np.concatenate(
+        ([0], np.cumsum(counts)))[cl]
+    dst = cell_start[cl] * chunk + in_cell_pos
+    r_out[dst] = rows
+    c_out[dst] = cols
+    v_out[dst] = vals
+    pad_mask = np.ones(n_slots, bool)
+    pad_mask[dst] = False
+    if pad_mask.any():
+        pad_cell = np.repeat(np.arange(n_rb * n_st),
+                             nchunks * chunk)[pad_mask]
+        r_out[pad_mask] = (pad_cell // n_st) * row_block
+        c_out[pad_mask] = (pad_cell % n_st) * stripe
+    return _tiled(graph, (r_out, c_out, v_out), counts, nchunks,
+                  cell_start, n_rb, n_st, row_block, stripe, chunk)
+
+
+def _flat_schedule(tiled: TiledGraph) -> tuple[np.ndarray, np.ndarray]:
+    """Per-chunk (row block, stripe) ids in the chunks' order; chunks are
+    cell-major, so ``chunk_rb`` is non-decreasing."""
+    n_st = tiled.n_stripes
+    cell_ids = np.repeat(np.arange(tiled.n_row_blocks * n_st),
+                         tiled.cell_nchunks.reshape(-1))
+    return ((cell_ids // n_st).astype(np.int32),
+            (cell_ids % n_st).astype(np.int32))
+
+
+def flat_index(tiled: TiledGraph) -> tuple[np.ndarray, np.ndarray]:
+    """Kernel C's index from the flat schedule (the ``spmm_pallas_flat``
+    entry): ``(rb_chunk_ptr int32[n_rb + 1], chunk_st int32[n_chunks])``;
+    row block rb's chunks are ``[rb_chunk_ptr[rb], rb_chunk_ptr[rb+1])``."""
+    chunk_rb, chunk_st = _flat_schedule(tiled)
+    ptr = np.zeros(tiled.n_row_blocks + 1, np.int64)
+    np.cumsum(np.bincount(chunk_rb, minlength=tiled.n_row_blocks),
+              out=ptr[1:])
+    return ptr.astype(np.int32), chunk_st
+
+
+def stripe_index(tiled: TiledGraph) -> tuple[np.ndarray, np.ndarray]:
+    """Kernel C's index from the stripe walk over ``cell_start`` and
+    ``cell_nchunks`` (the ``spmm_pallas_tiled`` entry): the same arrays
+    as :func:`flat_index`. Raises when the chunks are not cell-major."""
+    start = tiled.cell_start.reshape(-1).astype(np.int64)
+    n = tiled.cell_nchunks.reshape(-1).astype(np.int64)
+    first = np.concatenate(([0], np.cumsum(n)[:-1]))
+    if not np.array_equal(start, first):
+        raise ValueError("the tiled layout's chunks are not cell-major")
+    total = int(n.sum())
+    chunk_st = np.empty(total, np.int32)
+    slot = np.repeat(start, n) + np.arange(total) - np.repeat(first, n)
+    chunk_st[slot] = np.repeat(
+        np.tile(np.arange(tiled.n_stripes), tiled.n_row_blocks), n)
+    ptr = np.append(tiled.cell_start[:, 0].astype(np.int64), total)
+    return ptr.astype(np.int32), chunk_st
+
+
+def chunk_nnz(tiled: TiledGraph) -> np.ndarray:
+    """Edges per chunk, int32[n_chunks] in layout order: every chunk of a
+    cell is full but the last, whose remaining slots are padding."""
+    n = tiled.cell_nchunks.reshape(-1).astype(np.int64)
+    nnz = np.repeat(tiled.cell_nnz.reshape(-1).astype(np.int64), n)
+    in_cell = np.arange(int(n.sum())) - np.repeat(np.cumsum(n) - n, n)
+    return np.clip(nnz - in_cell * tiled.chunk, 0,
+                   tiled.chunk).astype(np.int32)
+
+
+@dataclasses.dataclass(frozen=True)
+class TiledArgs:
+    """A tiled layout and one kernel-C index placed on one device."""
+
+    rows: torch.Tensor            # int32 [n_chunks * C]
+    cols: torch.Tensor            # int32 [n_chunks * C]
+    vals: torch.Tensor            # f32 [n_chunks * C]
+    rb_chunk_ptr: torch.Tensor    # int32 [n_rb + 1]
+    chunk_st: torch.Tensor        # int32 [n_chunks]
+    chunk_nnz: torch.Tensor       # int32 [n_chunks]
+
+    @property
+    def device(self) -> torch.device:
+        return self.rows.device
+
+
+def tiled_device_args(tiled: TiledGraph, device,
+                      index=flat_index) -> TiledArgs:
+    """Place ``tiled``, ``index(tiled)`` and :func:`chunk_nnz` on
+    ``device`` (an explicit device, no default)."""
+    dev = torch.device(device)
+    ptr, chunk_st = index(tiled)
+    return TiledArgs(
+        rows=torch.as_tensor(tiled.rows, device=dev),
+        cols=torch.as_tensor(tiled.cols, device=dev),
+        vals=torch.as_tensor(tiled.vals, device=dev),
+        rb_chunk_ptr=torch.from_numpy(ptr).to(dev),
+        chunk_st=torch.from_numpy(chunk_st).to(dev),
+        chunk_nnz=torch.from_numpy(chunk_nnz(tiled)).to(dev),
+    )
+
+
+def spmm_tiled_plain(tiled: TiledGraph, x: torch.Tensor,
+                     args: TiledArgs | None = None) -> torch.Tensor:
+    """The tiled SpMM in plain PyTorch: ``index_add_`` of ``vals *
+    x[cols]`` at ``rows`` over every slot in layout order (padding slots
+    add 0). Row blocks with no chunk stay zero."""
+    _check_x(tiled, x)
+    src = args if args is not None else tiled
+    rows, cols, vals = (torch.as_tensor(a, device=x.device)
+                        for a in (src.rows, src.cols, src.vals))
+    out = torch.zeros((tiled.n_rows, x.shape[1]), dtype=torch.float32,
+                      device=x.device)
+    for s in range(0, int(rows.shape[0]), PLAIN_SLOTS):
+        e = slice(s, s + PLAIN_SLOTS)
+        out.index_add_(0, rows[e].long(),
+                       x[cols[e].long()] * vals[e, None])
+    return out
+
+
+def _check_x(tiled: TiledGraph, x: torch.Tensor) -> None:
+    if x.dim() != 2 or x.shape[0] != tiled.n_cols:
+        raise ValueError(f"x must be [{tiled.n_cols}, F], got "
+                         f"{tuple(x.shape)}")
+
+
+def _apply(tiled: TiledGraph, x: torch.Tensor,
+           args: TiledArgs) -> torch.Tensor:
+    """Kernel C on a CUDA tensor (or raise), the plain version on a CPU
+    tensor."""
+    _check_x(tiled, x)
+    if args.device != x.device:
+        raise ValueError(f"args on {args.device}, x on {x.device}")
+    if x.device.type == "cpu":
+        return spmm_tiled_plain(tiled, x, args)
+    global LAUNCHES
+    kernels.require_cuda_f32(x, "x")
+    for name, t, dt in (("rows", args.rows, torch.int32),
+                        ("cols", args.cols, torch.int32),
+                        ("vals", args.vals, torch.float32),
+                        ("rb_chunk_ptr", args.rb_chunk_ptr, torch.int32),
+                        ("chunk_st", args.chunk_st, torch.int32),
+                        ("chunk_nnz", args.chunk_nnz, torch.int32)):
+        if t.dtype != dt or not t.is_contiguous():
+            raise ValueError(f"args.{name} must be contiguous {dt}")
+    n_slots = int(args.rows.shape[0])
+    if (args.rb_chunk_ptr.shape[0] != tiled.n_row_blocks + 1
+            or args.chunk_st.shape[0] * tiled.chunk != n_slots
+            or args.chunk_nnz.shape[0] * tiled.chunk != n_slots
+            or args.cols.shape[0] != n_slots
+            or args.vals.shape[0] != n_slots):
+        raise ValueError("args do not match the tiled layout")
+    F = int(x.shape[1])
+    if n_slots == 0 or tiled.n_rows == 0 or F == 0:
+        return torch.zeros((tiled.n_rows, F), dtype=torch.float32,
+                           device=x.device)
+    out = torch.empty((tiled.n_rows, F), dtype=torch.float32,
+                      device=x.device)
+    rc = kernels.entry("tiled_spmm")(
+        args.rows.data_ptr(), args.cols.data_ptr(), args.vals.data_ptr(),
+        args.rb_chunk_ptr.data_ptr(), args.chunk_st.data_ptr(),
+        args.chunk_nnz.data_ptr(), x.data_ptr(), out.data_ptr(),
+        tiled.n_row_blocks, tiled.n_rows, tiled.n_cols, F, tiled.row_block,
+        tiled.stripe, tiled.chunk, kernels.stream_of(x))
+    kernels.check_launch(rc, "tiled_spmm")
+    LAUNCHES += 1
+    return out
+
+
+def spmm_tiled_flat(tiled: TiledGraph, x: torch.Tensor,
+                    args: TiledArgs | None = None) -> torch.Tensor:
+    """``S @ x`` over a tiled layout, f32 ``[n_rows, F]``, by the flat
+    chunk schedule (the counterpart of ``spmm_pallas_flat``)."""
+    if args is None:
+        args = tiled_device_args(tiled, x.device, flat_index)
+    return _apply(tiled, x, args)
+
+
+def spmm_tiled_stripes(tiled: TiledGraph, x: torch.Tensor,
+                       args: TiledArgs | None = None) -> torch.Tensor:
+    """``S @ x`` over a tiled layout, f32 ``[n_rows, F]``, by the stripe
+    walk (the counterpart of ``spmm_pallas_tiled``)."""
+    if args is None:
+        args = tiled_device_args(tiled, x.device, stripe_index)
+    return _apply(tiled, x, args)
+
+
+def _tile_cached(graph: SparseGraph, row_block: int, stripe: int,
+                 chunk: int, device) -> tuple[TiledGraph, TiledArgs]:
+    """The tiling of ``graph`` and its placement on ``device``, built on
+    first use (``utils.buildcache.placed``): tiling is O(E) host work and
+    placing it uploads every slot, and a K-hop loop must do neither per
+    hop."""
+    return placed(graph, ("tiled", row_block, stripe, chunk), device,
+                  lambda: tile_graph(graph, row_block, stripe, chunk),
+                  tiled_device_args)
+
+
+def spmm_tiled(graph: SparseGraph, x: torch.Tensor,
+               row_block: int = DEFAULT_ROW_BLOCK,
+               stripe: int = DEFAULT_STRIPE,
+               chunk: int = DEFAULT_CHUNK) -> torch.Tensor:
+    """Drop-in tiled SpMM (the counterpart of ``spmm_pallas``): tile and
+    place on x's device on first use (cached), then the flat entry."""
+    tiled, args = _tile_cached(graph, row_block, stripe, chunk, x.device)
+    return spmm_tiled_flat(tiled, x, args)

@@ -1,4 +1,7 @@
-"""The CUDA kernels against their plain PyTorch versions, on the card.
+"""The CUDA kernels (A: block-dense cells, B: CSR remainder, C: tiled
+SpMM, D: SDDMM) against their plain PyTorch versions, on the card, on
+ragged cases; each kernel's test also checks that two launches give
+identical bits.
 
 These tests need a CUDA device and skip without one (the kernels have no
 CPU mode). The file imports neither JAX nor the reference package, so it
@@ -105,4 +108,132 @@ def test_cuda_blockdense_op_and_capability(cuda):
     xd = x.to(cuda)
     got = port_bd.spmm_blockdense(split, xd)
     want = port_bd.spmm_block_dense(split, xd)
+    assert_close_rel(got.cpu().numpy(), want.cpu().numpy())
+
+
+# --------------------------------------------------------------- kernel C
+
+def _tiled_case(n_rows, n_cols, f, R, W, C, seed, dense=True, n_edges=30000):
+    from sgc_tpu_torch.ops import spmm_tiled as port_tiled
+
+    rng = np.random.default_rng(seed)
+    if dense:   # most edges in a few cells, so chunks fill and pad
+        rows = np.concatenate([rng.integers(0, min(R, n_rows), n_edges),
+                               rng.integers(0, n_rows, n_edges // 10)])
+        cols = np.concatenate([rng.integers(0, min(W, n_cols), n_edges),
+                               rng.integers(0, n_cols, n_edges // 10)])
+    else:
+        rows = rng.integers(0, n_rows, n_edges)
+        cols = rng.integers(0, n_cols, n_edges)
+    vals = rng.standard_normal(len(rows)).astype(np.float32)
+    g = PortGraph.from_coo(rows, cols, vals, n_rows, n_cols)
+    tiled = port_tiled.tile_graph(g, R, W, C)
+    x = rng.standard_normal((n_cols, f)).astype(np.float32)
+    return g, tiled, torch.from_numpy(x)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("entry", ["flat", "stripes"])
+@pytest.mark.parametrize("n_rows,n_cols,f,R,W,C", [
+    (1300, 1300, 602, 512, 512, 1024),    # ragged F, short last stripe
+    (700, 1900, 45, 512, 512, 1024),      # rectangular operator
+    (3000, 3000, 70, 2048, 2048, 1024),   # row tiles, unstaged stripes
+    (900, 900, 33, 256, 128, 2048),       # chunks of two pieces
+    (600, 600, 16, 64, 64, 16),           # small cells and chunks
+])
+def test_cuda_tiled_spmm_matches_plain(cuda, entry, n_rows, n_cols, f, R,
+                                       W, C):
+    from sgc_tpu_torch.ops import spmm_tiled as port_tiled
+
+    g, tiled, x = _tiled_case(n_rows, n_cols, f, R, W, C, seed=R + C)
+    index = (port_tiled.flat_index if entry == "flat"
+             else port_tiled.stripe_index)
+    args = port_tiled.tiled_device_args(tiled, cuda, index)
+    xd = x.to(cuda)
+    fn = (port_tiled.spmm_tiled_flat if entry == "flat"
+          else port_tiled.spmm_tiled_stripes)
+    before = port_tiled.LAUNCHES
+    got = fn(tiled, xd, args)
+    again = fn(tiled, xd, args)
+    assert port_tiled.LAUNCHES == before + 2
+    want = port_tiled.spmm_tiled_plain(tiled, xd, args)
+    torch.cuda.synchronize()
+    assert torch.equal(got, again)          # deterministic
+    assert got.shape == (n_rows, f)
+    assert_close_rel(got.cpu().numpy(), want.cpu().numpy())
+    # the layout's product is the graph's product
+    assert_close_rel(got.cpu().numpy(),
+                     port_spmm.spmm_segment_plain(g.to("cpu"), x).numpy())
+
+
+@pytest.mark.cuda
+def test_cuda_tiled_spmm_empty_graph_and_row_blocks(cuda):
+    from sgc_tpu_torch.ops import spmm_tiled as port_tiled
+
+    empty = PortGraph.from_coo(np.zeros(0, np.int64), np.zeros(0, np.int64),
+                               np.zeros(0, np.float32), 700, 700)
+    tiled = port_tiled.tile_graph(empty, 512, 512, 1024)
+    x = torch.randn(700, 40, device=cuda)
+    before = port_tiled.LAUNCHES
+    out = port_tiled.spmm_tiled_flat(tiled, x)
+    assert port_tiled.LAUNCHES == before       # no launch for no edges
+    assert out.shape == (700, 40) and not out.any()
+    # edges only in the first row block: the others come back zero
+    rng = np.random.default_rng(3)
+    g = PortGraph.from_coo(rng.integers(0, 100, 900),
+                           rng.integers(0, 1500, 900),
+                           rng.random(900).astype(np.float32), 1500, 1500)
+    tiled = port_tiled.tile_graph(g, 512, 512, 64)
+    out = port_tiled.spmm_tiled_flat(tiled, torch.randn(1500, 40,
+                                                        device=cuda))
+    assert out[:100].any() and not out[100:].any()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("min_fill", [0.5, 2.0])   # 2.0: no dense part
+def test_cuda_hybrid_split_matches_segment(cuda, min_fill):
+    from sgc_tpu_torch.ops import spmm_hybrid as port_hybrid
+    from sgc_tpu_torch.ops import spmm_tiled as port_tiled
+
+    g, _, x = _tiled_case(1300, 1300, 602, 512, 512, 1024, seed=11)
+    split = port_hybrid.split_dense_cells(g, 602, 512, 512, 1024,
+                                          min_fill=min_fill)
+    assert (split.tiled is None) == (min_fill > 1)
+    xd = x.to(cuda)
+    before = (port_tiled.LAUNCHES, port_spmm.LAUNCHES)
+    got = port_hybrid.spmm_hybrid_split(split, xd)
+    assert port_spmm.LAUNCHES == before[1] + 1
+    assert port_tiled.LAUNCHES == before[0] + (split.tiled is not None)
+    want = port_spmm.spmm_segment(g.to(cuda), xd)
+    assert_close_rel(got.cpu().numpy(), want.cpu().numpy())
+
+
+# --------------------------------------------------------------- kernel D
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_rows,n_cols,f", [(1000, 1000, 602),
+                                             (48, 80, 16), (300, 50, 33)])
+def test_cuda_sddmm_matches_plain(cuda, n_rows, n_cols, f):
+    rng = np.random.default_rng(n_rows + f)
+    e = 5000
+    vals = rng.random(e).astype(np.float32)
+    vals[:50] = 0.0                       # genuine zero-weight edges
+    g = PortGraph.from_coo(rng.integers(0, n_rows, e),
+                           rng.integers(0, n_cols, e), vals, n_rows,
+                           n_cols).to(cuda)
+    a = torch.from_numpy(
+        rng.standard_normal((n_rows, f)).astype(np.float32)).to(cuda)
+    b = torch.from_numpy(
+        rng.standard_normal((n_cols, f)).astype(np.float32)).to(cuda)
+    before = port_spmm.SDDMM_LAUNCHES
+    got = port_spmm.sddmm(g, a, b)
+    again = port_spmm.sddmm(g, a, b)
+    assert port_spmm.SDDMM_LAUNCHES == before + 2
+    want = port_spmm.sddmm_plain(g, a, b)
+    torch.cuda.synchronize()
+    assert torch.equal(got, again)
+    assert got.shape == (g.n_edges_padded,)
+    assert not got[g.nnz:].any()          # padding slots exactly 0
+    zero_w = (g.vals[: g.nnz] == 0).nonzero().flatten()
+    assert len(zero_w) and got[zero_w].abs().min() > 0
     assert_close_rel(got.cpu().numpy(), want.cpu().numpy())

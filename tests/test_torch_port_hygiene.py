@@ -19,7 +19,9 @@ def test_port_imports_neither_jax_nor_reference():
     code = """
 import importlib.util, pkgutil, sys
 import sgc_tpu_torch
-for m in pkgutil.walk_packages(sgc_tpu_torch.__path__, "sgc_tpu_torch."):
+walked = list(pkgutil.walk_packages(sgc_tpu_torch.__path__,
+                                    "sgc_tpu_torch."))
+for m in walked:
     __import__(m.name)
 spec = importlib.util.spec_from_file_location("chip_smoke", "chip_smoke.py")
 spec.loader.exec_module(importlib.util.module_from_spec(spec))
@@ -28,12 +30,14 @@ bad = sorted(n for n in sys.modules
              or n.startswith("sgc_tpu."))
 print(",".join(bad))
 print(sum(1 for n in sys.modules if n.startswith("sgc_tpu_torch.")))
+print(len(walked))
 """
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
                          capture_output=True, text=True, timeout=120,
                          check=True).stdout.splitlines()
     assert out[0] == "", f"port imported {out[0]}"
-    assert int(out[1]) >= 15        # every module really was imported
+    # every module, the slices' new ones included, really was imported
+    assert int(out[1]) >= int(out[2]) >= 26
 
 
 def _entry_points():
@@ -54,6 +58,9 @@ def _entry_points():
         "params_from_jax": lambda: params_from_jax(np.zeros((3, 2)), None),
         "LocalityPlan.build": lambda: LocalityPlan.build(
             g, feats, np.zeros(2, np.int32), np.arange(2)),
+        "LocalityPlan.build onehot": lambda: LocalityPlan.build(
+            g, feats, np.zeros(2, np.int32), np.arange(2),
+            formulation="onehot"),
         "measured_rates": lambda: measured_rates(),
         "require_cuda_kernels": lambda: require_cuda_kernels(),
     }
@@ -61,7 +68,8 @@ def _entry_points():
 
 @pytest.mark.parametrize("name", [
     "resolve_device", "SparseGraph.to", "init_sgc", "params_from_jax",
-    "LocalityPlan.build", "measured_rates", "require_cuda_kernels"])
+    "LocalityPlan.build", "LocalityPlan.build onehot", "measured_rates",
+    "require_cuda_kernels"])
 def test_default_device_raises_without_cuda(monkeypatch, name):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA"):
