@@ -9,7 +9,7 @@ Reddit-shaped SGC pipeline:
 
     synthetic_reddit_clustered(scale, shuffle=True)
     -> LocalityPlan.build(formulation="auto")      (LPA order + splits)
-    -> khop_traceable(degree=2)                    (kernel A + kernel B)
+    -> khop_traceable(degree=2, precision="f32")   (kernel A + kernel B)
     -> _newton_linear_fit(steps=8), gated against the LBFGS oracle
 
 then runs the same hops under the admission rates measured on the card
@@ -21,9 +21,12 @@ data, counters zeroed just before it and read just after:
     -> _newton_linear_fit(steps=8), gated against the LBFGS oracle
 
 It then holds each CUDA kernel against its plain PyTorch version on the
-paths' own inputs (kernel A in both cell orders and the grouped layout,
-kernel B, kernel C through both entries, kernel D through ``sddmm`` on
-the main operator with two different operands) and drives ``spmm(impl=...)`` for every impl. Phases
+paths' own inputs (kernel A at both precisions in both cell orders and
+in the grouped layout, kernel B, kernel C through both entries (kernel
+B's CUDA kernel on the tiled layout's edges re-sorted by row), kernel D
+through ``sddmm`` on the main operator with two different operands),
+checks that kernels A and C give identical bits across two launches, and
+drives ``spmm(impl=...)`` for every impl. Phases
 print one JSON line each on stdout; the line before the last is
 ``{"kernels": [...]}`` and the last is
 ``{"ok": true, "device": {...}}``. Any failed phase raises, so the script
@@ -42,8 +45,9 @@ import time
 import warnings
 
 # device peaks of one H100 SXM (NVIDIA data sheet): FP32 outside the
-# tensor cores, and HBM bandwidth
+# tensor cores, dense bf16 on the tensor cores, and HBM bandwidth
 PEAK_FP32_FLOPS = 67e12
+PEAK_BF16_TC_FLOPS = 989e12
 PEAK_HBM_BYTES = 3.35e12
 # relative to max|plain|: kernel and plain differ only in f32 sum order
 TOLERANCE = 1e-5
@@ -84,8 +88,9 @@ def rel_err(got, want) -> tuple[float, float]:
     return abs_err, abs_err / max(float(want.abs().max()), 1e-30)
 
 
-def bound_ms(ops: float, nbytes: float) -> tuple[float, str]:
-    t_ops = ops / PEAK_FP32_FLOPS
+def bound_ms(ops: float, nbytes: float,
+             peak_flops: float = PEAK_FP32_FLOPS) -> tuple[float, str]:
+    t_ops = ops / peak_flops
     t_bytes = nbytes / PEAK_HBM_BYTES
     return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes
                                        else "bytes")
@@ -156,7 +161,7 @@ def drive_plan(plan, device, counters) -> dict:
                        n_classes, device=device)
     y = torch.as_tensor(plan.labels[plan.idx_train], device=device).long()
     cw = torch.ones(n_classes, device=device)
-    khop, dev_args = plan.khop_traceable(degree=2)
+    khop, dev_args = plan.khop_traceable(degree=2, precision="f32")
 
     def step():
         tr = khop(x, dev_args)
@@ -220,8 +225,9 @@ def phase_main_path(args, device) -> dict:
     (a_main, a_final) = run["dev_args"]
     plain_tr = spmm_blockdense.spmm_block_dense(
         plan.split_final,
-        spmm_blockdense.spmm_block_dense(plan.split_main, x, a_main),
-        a_final)
+        spmm_blockdense.spmm_block_dense(plan.split_main, x, a_main,
+                                         precision="f32"),
+        a_final, precision="f32")
     abs_err, err = rel_err(tr, plain_tr)
     if not err <= TOLERANCE:
         raise AssertionError(f"propagation vs plain: rel err {err:.3e}")
@@ -230,6 +236,7 @@ def phase_main_path(args, device) -> dict:
     parity = train_parity(tr, run["y"], run["params0"], run["cw"],
                           _newton_linear_fit, _lbfgs_linear_fit)
     emit({"phase": "main_path", "formulation": plan.formulation,
+          "precision": "f32",
           "calibrate": False, "min_edges": s.min_edges,
           "dense_frac": plan.dense_fraction,
           "cells_main": s.n_cells, "cells_final": plan.split_final.n_cells,
@@ -310,7 +317,7 @@ def phase_calibrated_path(data, tr_main, device) -> None:
     plan = LocalityPlan.build(*data, formulation="auto", calibrate=True,
                               device=device)
     prep_s = time.perf_counter() - t0
-    khop, dev_args = plan.khop_traceable(degree=2)
+    khop, dev_args = plan.khop_traceable(degree=2, precision="f32")
     x = torch.as_tensor(plan.features, device=device)
     khop(x, dev_args)
     sync(device)
@@ -325,7 +332,8 @@ def phase_calibrated_path(data, tr_main, device) -> None:
     if not err <= BF16_TOLERANCE:
         raise AssertionError(f"calibrated vs main path rows: {err:.3e}")
     edges = plan.graph.nnz + plan.graph_final.nnz
-    emit({"phase": "calibrated_path", "min_edges": plan.split_main.min_edges,
+    emit({"phase": "calibrated_path", "precision": "f32",
+          "min_edges": plan.split_main.min_edges,
           "dense_frac": plan.dense_fraction,
           "cells_main": plan.split_main.n_cells,
           "cells_final": plan.split_final.n_cells, "prep_s": prep_s,
@@ -362,7 +370,54 @@ def train_parity(tr, y, params0, cw, newton_fit, lbfgs_fit) -> dict:
             "parity_ok": parity_ok, "converged_retry": converged_retry}
 
 
+def cells_csr(split, dargs, n_real):
+    """The real cells' nonzero entries (their bf16 values, widened) as one
+    CSR matrix on the card: kernel A's function at precision "f32" as a
+    sparse matrix (yardstick only)."""
+    import torch
+
+    R, W = split.row_block, split.stripe
+    cells = dargs.cells[:n_real]
+    k, r, w = cells.nonzero(as_tuple=True)
+    rb = torch.as_tensor(split.rb_ids[:n_real], device=cells.device)
+    st = torch.as_tensor(split.st_ids[:n_real], device=cells.device)
+    with warnings.catch_warnings():
+        warnings.filterwarnings("ignore", message=".*[Ss]parse")
+        return torch.sparse_coo_tensor(
+            torch.stack([rb[k].long() * R + r, st[k].long() * W + w]),
+            cells[k, r, w].float(),
+            (split.n_rows, split.n_cols)).coalesce().to_sparse_csr()
+
+
+def kernel_a_bound(split, dargs, n_cells, F, passes) -> dict:
+    """Kernel A's bound on this run's cells: 2 F flops per nonzero cell
+    entry and pass at the bf16 tensor-core peak (the work the function
+    needs), against the cells, x, out and the index read or written once.
+    Beside it, the one-pass bound and the dense form's bound (2 R W F
+    flops per real cell and pass, what the kernel does)."""
+    R, W = split.row_block, split.stripe
+    nnz = int(dargs.cells[: split.n_slots].count_nonzero())
+    ops = 2.0 * nnz * F
+    dense_ops = 2.0 * R * W * F * n_cells
+    nbytes = (split.n_slots * R * W * 2 + split.n_cols * F * 4
+              + split.n_rows * F * 4
+              + (split.n_row_blocks + 1 + 2 * split.n_slots) * 4)
+    b_ms, b_by = bound_ms(ops * passes, nbytes, PEAK_BF16_TC_FLOPS)
+    one_ms, _ = bound_ms(ops, nbytes, PEAK_BF16_TC_FLOPS)
+    dense_ms, dense_by = bound_ms(dense_ops * passes, nbytes,
+                                  PEAK_BF16_TC_FLOPS)
+    return {"bound_ms": b_ms, "bound_by": b_by, "bound_one_pass_ms": one_ms,
+            "cell_nonzeros": nnz, "ops": ops * passes, "bytes": nbytes,
+            "dense_form_ops": dense_ops * passes,
+            "dense_form_bound_ms": dense_ms,
+            "dense_form_bound_by": dense_by}
+
+
 def phase_kernel_a(plan, x, launches, reps) -> dict:
+    """Kernel A in both cell orders at both precisions on the main split,
+    and at both precisions on the last-hop split: two launches equal bit
+    for bit, "f32" held against the plain f32 product and "bf16" against
+    the plain product on bf16-rounded x, both at 1e-5."""
     import torch
 
     from sgc_tpu_torch.ops import spmm_blockdense as bd
@@ -380,53 +435,79 @@ def phase_kernel_a(plan, x, launches, reps) -> dict:
     orders = {}
     for name, split, dargs in (("super_rows_8", split_super, args_super),
                                ("classic", split_classic, args_classic)):
-        got = bd.apply_cells(split, dargs, x)
-        want = bd.apply_cells_plain(split, dargs, x)
-        abs_err, err = rel_err(got, want)
-        if not err <= TOLERANCE:
-            raise AssertionError(f"kernel A ({name}) vs plain: {err:.3e}")
-        del got, want
-        orders[name] = {
-            "max_abs_err": abs_err, "rel_err": err,
-            "ms": time_ms(lambda: bd.apply_cells(split, dargs, x), reps),
-            "plain_ms": time_ms(
-                lambda: bd.apply_cells_plain(split, dargs, x), 2)}
+        for precision in bd.PRECISIONS:
+            got = bd.apply_cells(split, dargs, x, precision)
+            again = bd.apply_cells(split, dargs, x, precision)
+            want = bd.apply_cells_plain(split, dargs, x, precision)
+            abs_err, err = rel_err(got, want)
+            if not err <= TOLERANCE:
+                raise AssertionError(
+                    f"kernel A ({name}, {precision}) vs plain: {err:.3e}")
+            if not torch.equal(got, again):
+                raise AssertionError(f"kernel A ({name}, {precision}): two "
+                                     "launches differ")
+            del got, again, want
+            orders[f"{name}/{precision}"] = {
+                "max_abs_err": abs_err, "rel_err": err,
+                "ms": time_ms(
+                    lambda: bd.apply_cells(split, dargs, x, precision), reps),
+                "plain_ms": time_ms(
+                    lambda: bd.apply_cells_plain(split, dargs, x, precision),
+                    2)}
     del args_classic
-    ms = orders["super_rows_8"]["ms"]
-    plain_ms = orders["super_rows_8"]["plain_ms"]
     # the last hop's split (train rows only), for the hop-time breakdown
     args_final = plan._device_args()[1]
-    final_ms = time_ms(
-        lambda: bd.apply_cells(plan.split_final, args_final, x), reps)
+    final_ms = {p: time_ms(
+        lambda: bd.apply_cells(plan.split_final, args_final, x, p), reps)
+        for p in bd.PRECISIONS}
 
-    # yardstick: one gathered f32 bmm of every cell against its stripe
-    # (the per-cell products, without the row-block sum)
     n_real = split_super.n_cells
+    # yardstick 1 (not the same function): one gathered f32 bmm of every
+    # cell against its stripe, the per-cell products without the sum
     xp = x.new_zeros((split_super.n_stripes * W, F))
     xp[: x.shape[0]] = x
     st = torch.as_tensor(split_super.st_ids[:n_real], device=x.device).long()
     cells_f32 = args_super.cells[:n_real].float()
     xg = xp.view(-1, W, F)[st]
-    library_ms = time_ms(lambda: torch.bmm(cells_f32, xg), reps)
+    bmm_ms = time_ms(lambda: torch.bmm(cells_f32, xg), reps)
     del cells_f32, xg, xp
+    # yardstick 2 (the same function as precision "f32"): the cells'
+    # nonzero entries as one CSR matrix, torch.addmm
+    csr = cells_csr(split_super, args_super, n_real)
+    zero = x.new_zeros((split_super.n_rows, F))
+    library_ms = time_ms(lambda: torch.addmm(zero, csr, x, beta=0.0), reps)
+    csr_nnz = int(csr._nnz())
+    del csr, zero
 
-    ops = 2.0 * R * W * F * n_real
-    nbytes = (n_real * R * W * 2 + split_super.n_cols * F * 4
-              + split_super.n_rows * F * 4
-              + (split_super.n_row_blocks + 1 + 2 * n_real) * 4)
-    b_ms, b_by = bound_ms(ops, nbytes)
+    main = "super_rows_8/f32"
+    passes = bd.n_passes("f32")
+    bound = kernel_a_bound(split_super, args_super, n_real, F, passes)
+    if bound["cell_nonzeros"] != csr_nnz:
+        raise AssertionError("kernel A's bound and its CSR yardstick count "
+                             "different nonzeros")
+    bf16_ms = orders["super_rows_8/bf16"]["ms"]
     row = {"name": "blockdense_cells", "route": "cuda",
            "source": "sgc_tpu_torch/csrc/blockdense.cu",
            "replaces": ("sgc_tpu/ops/spmm_blockdense.py:353, :330, :381"),
+           "precision": "f32", "passes": passes,
            "launches": launches["blockdense_cells"],
            "max_abs_err": max(o["max_abs_err"] for o in orders.values()),
-           "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
-           "bound_by": b_by, "library_ms": library_ms}
+           "ms": orders[main]["ms"], "plain_ms": orders[main]["plain_ms"],
+           "bound_ms": bound["bound_ms"], "bound_by": bound["bound_by"],
+           "library_ms": library_ms}
     emit({"phase": "kernel_a", "cells": n_real, "F": F, "orders": orders,
           "final_split_cells": plan.split_final.n_cells,
-          "final_split_ms": final_ms,
-          "tolerance_rel": TOLERANCE, "ops": ops, "bytes": nbytes,
-          "achieved_tflops": ops / ms / 1e9, **row})
+          "final_split_ms": final_ms, "bf16_ms": bf16_ms,
+          "launches_note": "calls of kernel A's entry; each is two CUDA "
+                           "launches (x_terms_kernel, then the MMA kernel)",
+          "library": "torch.addmm, the cells' nonzeros as one CSR matrix "
+                     f"({csr_nnz} entries): the same function as 'f32'",
+          "bmm_f32_yardstick_ms": bmm_ms, "tolerance_rel": TOLERANCE,
+          **bound,
+          "dense_form_achieved_tflops":
+              bound["dense_form_ops"] / orders[main]["ms"] / 1e9,
+          "bf16_dense_form_achieved_tflops":
+              bound["dense_form_ops"] / passes / bf16_ms / 1e9, **row})
     return row
 
 
@@ -440,7 +521,7 @@ def phase_kernel_b(plan, x, launches, reps) -> dict:
     split = plan.split_main
     dargs = plan._device_args()[0]
     rest = dargs.rest
-    dense = bd.apply_cells(split, dargs, x)
+    dense = bd.apply_cells(split, dargs, x, "f32")
     got = spmm_segment(rest, x, dense)
     want = spmm_segment_plain(rest, x, dense)
     abs_err, err = rel_err(got, want)
@@ -450,7 +531,7 @@ def phase_kernel_b(plan, x, launches, reps) -> dict:
     ms = time_ms(lambda: spmm_segment(rest, x, dense), reps)
     plain_ms = time_ms(lambda: spmm_segment_plain(rest, x, dense), 2)
     args_final = plan._device_args()[1]
-    dense_final = bd.apply_cells(plan.split_final, args_final, x)
+    dense_final = bd.apply_cells(plan.split_final, args_final, x, "f32")
     final_ms = time_ms(
         lambda: spmm_segment(args_final.rest, x, dense_final), reps)
     nnz = rest.nnz
@@ -491,14 +572,15 @@ def phase_kernel_a_grouped(plan, x, reps) -> None:
         plan.graph_final, F, R, W, min_edges=plan.split_final.min_edges,
         super_rows=8, group_cells=4)
     dargs = bd.blockdense_device_args(split, x.device)
-    got = bd.apply_cells(split, dargs, x)
-    want = bd.apply_cells_plain(split, dargs, x)
+    got = bd.apply_cells(split, dargs, x, "f32")
+    want = bd.apply_cells_plain(split, dargs, x, "f32")
     abs_err, err = rel_err(got, want)
     if not err <= TOLERANCE:
         raise AssertionError(f"kernel A (grouped) vs plain: {err:.3e}")
     del got, want
-    ms = time_ms(lambda: bd.apply_cells(split, dargs, x), reps)
-    plain_ms = time_ms(lambda: bd.apply_cells_plain(split, dargs, x), 1)
+    ms = time_ms(lambda: bd.apply_cells(split, dargs, x, "f32"), reps)
+    plain_ms = time_ms(
+        lambda: bd.apply_cells_plain(split, dargs, x, "f32"), 1)
     # yardstick: the real cells' products as one gathered f32 bmm
     real = np.flatnonzero(dargs.cells[: split.n_slots].flatten(1).any(1)
                           .cpu().numpy())
@@ -508,18 +590,16 @@ def phase_kernel_a_grouped(plan, x, reps) -> None:
     cells_f32 = dargs.cells[torch.as_tensor(real, device=x.device)].float()
     xg = xp.view(-1, W, F)[st]
     library_ms = time_ms(lambda: torch.bmm(cells_f32, xg), reps)
-    del cells_f32, xg, xp, dargs
-    ops = 2.0 * R * W * F * split.n_cells
-    nbytes = (split.n_slots * R * W * 2 + split.n_cols * F * 4
-              + split.n_rows * F * 4
-              + (split.n_row_blocks + 1 + 2 * split.n_slots) * 4)
-    b_ms, b_by = bound_ms(ops, nbytes)
+    del cells_f32, xg, xp
+    bound = kernel_a_bound(split, dargs, split.n_cells, F,
+                           bd.n_passes("f32"))
+    del dargs
     emit({"phase": "kernel_a_grouped", "group_cells": 4, "super_rows": 8,
+          "precision": "f32", "passes": bd.n_passes("f32"),
           "cells": split.n_cells, "slots": split.n_slots,
           "nonzero_slots": len(real), "F": F, "max_abs_err": abs_err,
           "rel_err": err, "tolerance_rel": TOLERANCE, "ms": ms,
-          "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
-          "library_ms": library_ms, "ops": ops, "bytes": nbytes})
+          "plain_ms": plain_ms, "library_ms": library_ms, **bound})
 
 
 def csr_of(graph):
@@ -535,10 +615,9 @@ def csr_of(graph):
 
 
 def phase_kernel_c(onehot, reps) -> dict:
-    """Kernel C through both entries (flat and stripe walk) on the onehot
-    main split, against the plain version."""
-    import dataclasses
-
+    """Kernel C (the CSR kernel on the layout's edges re-sorted by row)
+    through both entries (flat and stripe walk) on the onehot main split,
+    against the plain version."""
     import numpy as np
     import torch
 
@@ -551,24 +630,38 @@ def phase_kernel_c(onehot, reps) -> dict:
     args_flat = plan._device_args()[0].tiled
     flat, walk = ti.flat_index(tiled), ti.stripe_index(tiled)
     if not all(np.array_equal(a, b) for a, b in zip(flat, walk)):
-        raise AssertionError("the two kernel C index builders disagree")
-    args_walk = dataclasses.replace(
-        args_flat, rb_chunk_ptr=torch.from_numpy(walk[0]).to(x.device),
-        chunk_st=torch.from_numpy(walk[1]).to(x.device))
+        raise AssertionError("the two chunk schedules disagree")
+    # the plan's row index is the native one (built in prep); the stripe
+    # entry runs on the numpy twin's, which must be the same arrays
+    t0 = time.perf_counter()
+    plain_index = ti.row_index_plain(tiled)
+    plain_index_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    native_index = ti.row_index(tiled)
+    native_index_s = time.perf_counter() - t0
+    if not all(np.array_equal(a, b) for a, b in zip(native_index,
+                                                     plain_index)):
+        raise AssertionError("kernel C's native and plain row index differ")
+    args_walk = ti.tiled_device_args(tiled, x.device,
+                                     ti.row_csr(tiled, plain_index))
     entries = {}
     for name, fn, dargs in (("flat", ti.spmm_tiled_flat, args_flat),
                             ("stripes", ti.spmm_tiled_stripes, args_walk)):
         got = fn(tiled, x, dargs)
-        want = ti.spmm_tiled_plain(tiled, x, dargs)
+        again = fn(tiled, x, dargs)
+        want = ti.spmm_tiled_plain(tiled, x)
         abs_err, err = rel_err(got, want)
         if not err <= TOLERANCE:
             raise AssertionError(f"kernel C ({name}) vs plain: {err:.3e}")
-        del got, want
+        if not torch.equal(got, again):
+            raise AssertionError(f"kernel C ({name}): two launches differ")
+        del got, again, want
         entries[name] = {
             "max_abs_err": abs_err, "rel_err": err,
             "ms": time_ms(lambda: fn(tiled, x, dargs), reps),
             "plain_ms": time_ms(
-                lambda: ti.spmm_tiled_plain(tiled, x, dargs), 2)}
+                lambda: ti.spmm_tiled_plain(tiled, x), 2)}
+    del args_walk
     final = plan.split_final
     args_final = plan._device_args()[1].tiled
     final_ms = time_ms(
@@ -586,9 +679,12 @@ def phase_kernel_c(onehot, reps) -> dict:
 
     # yardstick: the dense part's slots as one coalesced CSR matrix
     # (duplicates and padding summed: the same operator), torch.addmm
+    rows, cols, vals = (torch.as_tensor(a, device=x.device)
+                        for a in (tiled.rows, tiled.cols, tiled.vals))
     csr = torch.sparse_coo_tensor(
-        torch.stack([args_flat.rows, args_flat.cols]).long(),
-        args_flat.vals, (tiled.n_rows, tiled.n_cols)).coalesce()
+        torch.stack([rows, cols]).long(), vals,
+        (tiled.n_rows, tiled.n_cols)).coalesce()
+    del rows, cols, vals
     with warnings.catch_warnings():
         warnings.filterwarnings("ignore", message=".*[Ss]parse")
         csr = csr.to_sparse_csr()
@@ -598,18 +694,24 @@ def phase_kernel_c(onehot, reps) -> dict:
 
     F = int(x.shape[1])
     slots = int(tiled.rows.shape[0])
+    edges = int(args_flat.cols.shape[0])
     ops = 2.0 * split.dense_edges * F
-    nbytes = slots * 12 + tiled.n_cols * F * 4 + tiled.n_rows * F * 4
+    # the edges' (col, val), the row pointer, x and out, once each
+    nbytes = (edges * 8 + (tiled.n_rows + 1) * 4 + tiled.n_cols * F * 4
+              + tiled.n_rows * F * 4)
     b_ms, b_by = bound_ms(ops, nbytes)
     row = {"name": "tiled_spmm", "route": "cuda",
-           "source": "sgc_tpu_torch/csrc/tiled_spmm.cu",
+           "source": "sgc_tpu_torch/csrc/spmm_csr.cu",
            "replaces": "sgc_tpu/ops/spmm_pallas.py:169, :393",
            "launches": onehot["launches"]["tiled_spmm"],
            "max_abs_err": max(e["max_abs_err"] for e in entries.values()),
            "ms": entries["flat"]["ms"],
            "plain_ms": entries["flat"]["plain_ms"], "bound_ms": b_ms,
            "bound_by": b_by, "library_ms": library_ms}
-    emit({"phase": "kernel_c", "slots": slots,
+    emit({"phase": "kernel_c", "kernel": "csr_spmm on the re-sorted layout",
+          "slots": slots, "index_edges": edges,
+          "row_index_native_s": native_index_s,
+          "row_index_plain_s": plain_index_s,
           "dense_edges": split.dense_edges, "pad": split.pad, "F": F,
           "entries": entries, "final_split_slots":
           int(final.tiled.rows.shape[0]), "final_split_ms": final_ms,

@@ -24,9 +24,14 @@ Formulations of the hop:
   fill at least ``min_fill`` of their padded chunks go through kernel C
   (the counterpart of ``spmm_pallas_flat``), the rest through kernel B.
   The name is kept for parity; kernel C gathers directly and does no
-  one-hot matmul. Its values stay f32 (no bf16 cells).
+  one-hot matmul. Its values stay f32 (no bf16 cells), and it has no
+  ``precision="bf16"`` mode: asking for one raises.
 * ``auto`` resolves to ``blockdense_kernel`` on a CUDA device and to
   ``blockdense`` on the CPU.
+
+The hop functions take the reference's ``precision`` (default ``"f32"``,
+as the reference's bench runs): how x meets the bf16 cells of the
+block-dense term (ops/spmm_blockdense.py).
 
 ``blockdense_kernel`` and ``onehot`` on a CUDA device first run the
 kernels' capability check, which raises when it fails.
@@ -182,36 +187,49 @@ class LocalityPlan:
                                    place(self.split_final, self.device))
         return self._cache["args"]
 
-    def _spmm_form(self, split):
-        """(x, args) -> S @ x for one split, under the plan's formulation."""
+    def _spmm_form(self, split, precision: str):
+        """(x, args) -> S @ x for one split, under the plan's formulation
+        and the dense term's ``precision`` (ops/spmm_blockdense.py)."""
         from sgc_tpu_torch.ops.spmm_blockdense import (
+            check_precision,
             spmm_block_dense,
             spmm_blockdense,
         )
         from sgc_tpu_torch.ops.spmm_hybrid import spmm_hybrid_split
 
+        check_precision(precision)
+        if self.formulation == "onehot":
+            if precision != "f32":
+                raise ValueError(
+                    "formulation='onehot' has no bf16 mode in the port: "
+                    "kernels C and D compute in FP32 (ROADMAP, open items "
+                    "1, module 4: bf16 for kernels C and D)")
+            return lambda x, a: spmm_hybrid_split(split, x, a)
         op = {"blockdense_kernel": spmm_blockdense,
-              "blockdense": spmm_block_dense,
-              "onehot": spmm_hybrid_split}[self.formulation]
-        return lambda x, a: op(split, x, a)
+              "blockdense": spmm_block_dense}[self.formulation]
+        return lambda x, a: op(split, x, a, precision)
 
-    def hop_fns(self):
+    def hop_fns(self, precision: str = "f32"):
         """``(full_hop, final_hop)``: x -> S @ x on the plan's device,
-        with the edge data already placed."""
-        args_main, args_final = self._device_args()
-        full = self._spmm_form(self.split_main)
-        final = self._spmm_form(self.split_final)
-        return (lambda x: full(x, args_main), lambda x: final(x, args_final))
+        with the edge data already placed; cached per ``precision``."""
+        key = ("fns", precision)
+        if key not in self._cache:
+            args_main, args_final = self._device_args()
+            full = self._spmm_form(self.split_main, precision)
+            final = self._spmm_form(self.split_final, precision)
+            self._cache[key] = (lambda x: full(x, args_main),
+                                lambda x: final(x, args_final))
+        return self._cache[key]
 
-    def khop_traceable(self, degree: int = 2):
+    def khop_traceable(self, degree: int = 2, precision: str = "f32"):
         """``(khop, device_args)``: ``khop(x, device_args)`` computes
         ``(S^degree X)[idx_train]``, the last hop on the train-row
         operator."""
         if degree < 1:
             raise ValueError("degree must be >= 1 (S^0 is a row gather)")
+        full_f = self._spmm_form(self.split_main, precision)
+        final_f = self._spmm_form(self.split_final, precision)
         device_args = self._device_args()
-        full_f = self._spmm_form(self.split_main)
-        final_f = self._spmm_form(self.split_final)
 
         def khop(x, args):
             main_args, final_args = args
@@ -225,19 +243,20 @@ class LocalityPlan:
         f = self.features if features is None else features
         return torch.as_tensor(f, dtype=torch.float32, device=self.device)
 
-    def propagate_train(self, degree: int = 2,
-                        features=None) -> torch.Tensor:
+    def propagate_train(self, degree: int = 2, features=None,
+                        precision: str = "f32") -> torch.Tensor:
         """``(S^degree X)[idx_train]``, f32 on the plan's device."""
-        khop, args = self.khop_traceable(degree)
+        khop, args = self.khop_traceable(degree, precision)
         return khop(self._features_on_device(features), args)
 
     def propagate_all(self, degree: int = 2, features=None,
+                      precision: str = "f32",
                       restore: bool = True) -> torch.Tensor:
         """``S^degree X`` for all rows through the full-hop operator; with
         ``restore=True`` rows come back in the original node numbering."""
         if degree < 1:
             raise ValueError("degree must be >= 1")
-        full, _ = self.hop_fns()
+        full, _ = self.hop_fns(precision)
         x = self._features_on_device(features)
         for _ in range(degree):
             x = full(x)

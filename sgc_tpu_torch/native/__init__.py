@@ -4,7 +4,8 @@ The port's copy of the reference's C++ host library, built with ``g++``
 at first use into ``build/sgc_tpu_torch/`` (utils/buildlib.py). Only the
 calls the ported paths use are bound: ``sort_edges``,
 ``row_ptr_from_sorted``, ``coalesce``, ``lpa_labels``, ``cell_scatter``
-(block-dense split) and ``tile_fill`` (the tiled one-hot layout).
+(block-dense split), ``tile_fill`` (the tiled one-hot layout) and
+``slot_row_index`` (kernel C's row index of that layout, the port's own).
 
 There are no numpy fallbacks: when the library cannot be built every
 call raises. The reference falls back silently (to a synchronous numpy
@@ -65,6 +66,9 @@ def _load():
                               _I64P, _I64, _I64, _I64, _I64, _I64, _I32P,
                               _I32P, _F32P]
     lib.tile_fill.restype = ctypes.c_int
+    lib.slot_row_index.argtypes = [_I32P, _I32P, _I64, _I64, _I64, _I32P,
+                                   _I32P]
+    lib.slot_row_index.restype = ctypes.c_int
     _lib = lib
     return lib
 
@@ -198,3 +202,28 @@ def tile_fill(rows, cols, vals, cell, cell_start, counts, chunk: int,
         len(counts), int(chunk), int(n_st), int(row_block), int(stripe),
         _p(r_out, _I32P), _p(c_out, _I32P), _p(v_out, _F32P))
     return r_out, c_out, v_out
+
+
+def slot_row_index(rows, chunk_nnz, chunk: int, n_rows: int):
+    """The edge slots of a tiled layout (each chunk's first
+    ``chunk_nnz[k]`` slots) in (row, layout position) order, by a stable
+    counting sort on the row. Returns ``(row_ptr int32[n_rows + 1], perm
+    int32[edges])``."""
+    lib = _load()
+    rows = np.ascontiguousarray(rows, dtype=np.int32)
+    chunk_nnz = np.ascontiguousarray(chunk_nnz, dtype=np.int32)
+    if len(rows) != len(chunk_nnz) * chunk:
+        raise ValueError("rows must hold len(chunk_nnz) * chunk slots")
+    if len(chunk_nnz) and (chunk_nnz.min() < 0 or chunk_nnz.max() > chunk):
+        raise ValueError(f"chunk_nnz must lie in [0, {chunk}]")
+    if len(rows) >= 2**31:
+        raise ValueError("slot ids must fit int32")
+    if len(rows) and (rows.min() < 0 or rows.max() >= n_rows):
+        raise ValueError(f"row ids must lie in [0, {n_rows})")
+    edges = int(chunk_nnz.sum(dtype=np.int64))
+    row_ptr = np.zeros(n_rows + 1, np.int32)
+    perm = np.zeros(edges, np.int32)
+    lib.slot_row_index(_p(rows, _I32P), _p(chunk_nnz, _I32P),
+                       len(chunk_nnz), int(chunk), int(n_rows),
+                       _p(row_ptr, _I32P), _p(perm, _I32P))
+    return row_ptr, perm

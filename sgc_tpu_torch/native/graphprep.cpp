@@ -378,4 +378,24 @@ int partition_fill(const int64_t* rows, const int64_t* cols,
   return 0;
 }
 
+// Row index of a tiled layout for kernel C (ops/spmm_tiled.py::row_index):
+// the edge slots (the first chunk_nnz[k] slots of each chunk k) in (row,
+// layout position) order, by a stable counting sort on the row. Writes
+// row_ptr[n_rows + 1] and perm[sum(chunk_nnz)]; row ids must lie in
+// [0, n_rows).
+int slot_row_index(const int32_t* rows, const int32_t* chunk_nnz,
+                   int64_t n_chunks, int64_t chunk, int64_t n_rows,
+                   int32_t* row_ptr, int32_t* perm) {
+  std::vector<int64_t> next((size_t)n_rows + 1, 0);
+  for (int64_t k = 0; k < n_chunks; ++k)
+    for (int64_t s = k * chunk; s < k * chunk + chunk_nnz[k]; ++s)
+      ++next[(size_t)rows[s] + 1];
+  for (int64_t r = 0; r < n_rows; ++r) next[r + 1] += next[r];
+  for (int64_t r = 0; r <= n_rows; ++r) row_ptr[r] = (int32_t)next[r];
+  for (int64_t k = 0; k < n_chunks; ++k)
+    for (int64_t s = k * chunk; s < k * chunk + chunk_nnz[k]; ++s)
+      perm[next[rows[s]]++] = (int32_t)s;
+  return 0;
+}
+
 }  // extern "C"

@@ -52,8 +52,8 @@ def _best_ms(fn, reps: int = 5) -> float:
 
 def _probe_blockdense_eff_flops(device, row_block: int = 512,
                                 stripe: int = 512) -> float:
-    """Effective flop rate of the cell path (kernel A), differenced over
-    two cell counts."""
+    """Effective flop rate of the cell path (kernel A) at the main path's
+    precision, ``"f32"``, differenced over two cell counts."""
     from sgc_tpu_torch.graph.sparse import SparseGraph
     from sgc_tpu_torch.ops.spmm_blockdense import (
         blockdense_device_args,
@@ -80,7 +80,8 @@ def _probe_blockdense_eff_flops(device, row_block: int = 512,
         args = blockdense_device_args(split, device)
         x = torch.from_numpy(
             rng.random((n, PROBE_F)).astype(np.float32)).to(device)
-        times.append(_best_ms(lambda: spmm_blockdense(split, x, args)))
+        times.append(_best_ms(
+            lambda: spmm_blockdense(split, x, args, precision="f32")))
         flops.append(2.0 * split.n_cells * row_block * stripe * f_pad)
     dt = (times[1] - times[0]) * 1e-3
     if dt <= 0:

@@ -3,10 +3,11 @@ sgc_tpu/ops/spmm_pallas.py::scalar_prefetch_compiles probe).
 
 The check passes when a CUDA device is present, every kernel library
 builds, and three tiny cases through the kernels match their plain
-PyTorch versions: a block-dense SpMM (kernels A and B), a hybrid SpMM
-(kernels C and B) and an SDDMM (kernel D). It does not return False: it
-raises with the reason, so a formulation that needs the kernels never
-quietly runs without them. The verdict is cached per process and device.
+PyTorch versions: a block-dense SpMM (kernels A and B, at both
+precisions), a hybrid SpMM (kernels C and B) and an SDDMM (kernel D).
+It does not return False: it raises with the reason, so a formulation
+that needs the kernels never quietly runs without them. The verdict is
+cached per process and device.
 """
 
 from __future__ import annotations
@@ -102,13 +103,15 @@ def require_cuda_kernels(device=None) -> torch.device:
         raise AssertionError("capability case must exercise both kernels")
     x = torch.from_numpy(
         rng.standard_normal((n, f)).astype(np.float32)).to(dev)
-    _check("A + B", spmm_blockdense(split, x), spmm_block_dense(split, x),
-           dev)
+    for precision in ("f32", "bf16"):
+        _check(f"A + B, {precision}",
+               spmm_blockdense(split, x, precision=precision),
+               spmm_block_dense(split, x, precision=precision), dev)
 
     graph, hsplit, x = hybrid_case()
     x = x.to(dev)
     args = hybrid_device_args(hsplit, dev)
-    want = spmm_tiled_plain(hsplit.tiled, x, args.tiled)
+    want = spmm_tiled_plain(hsplit.tiled, x)
     want = want + spmm_segment_plain(args.rest, x)
     _check("C + B", spmm_hybrid_split(hsplit, x, args), want, dev)
 

@@ -26,7 +26,7 @@ from sgc_tpu_torch.utils.buildlib import (
 )
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
-KERNEL_SOURCES = ("blockdense", "spmm_csr", "tiled_spmm", "sddmm")
+KERNEL_SOURCES = ("blockdense", "spmm_csr", "sddmm")
 
 _V = ctypes.c_void_p
 _I = ctypes.c_int
@@ -34,10 +34,9 @@ _L = ctypes.c_int64
 # C signature of each library's entry point: (symbol, argtypes)
 _ENTRY = {
     "blockdense": ("blockdense_cells",
-                   [_V, _V, _V, _V, _V, _V, _I, _I, _I, _I, _I, _I, _V]),
+                   [_V, _V, _V, _V, _V, _V, _V, _I, _I, _I, _I, _I, _I, _I,
+                    _I, _I, _V]),
     "spmm_csr": ("csr_spmm", [_V, _V, _V, _V, _V, _V, _I, _I, _V]),
-    "tiled_spmm": ("tiled_spmm", [_V, _V, _V, _V, _V, _V, _V, _V, _I, _I,
-                                  _I, _I, _I, _I, _I, _V]),
     "sddmm": ("sddmm", [_V, _V, _V, _V, _V, _L, _L, _I, _V]),
 }
 

@@ -3,7 +3,8 @@ sgc_tpu/ops/spmm.py).
 
 ``spmm_segment`` is kernel B of the port (``csrc/spmm_csr.cu``): a
 deterministic CSR SpMM that can also add a dense term in its epilogue
-(the block-dense and hybrid ops' ``dense + rest``). On a CUDA tensor it
+(the block-dense and hybrid ops' ``dense + rest``); ``ops/spmm_tiled.py``
+launches the same CUDA kernel as kernel C. On a CUDA tensor it
 launches the kernel or raises; on a CPU tensor it runs
 :func:`spmm_segment_plain`, the plain PyTorch version, a sequential
 ``index_add_`` in sorted edge order.
@@ -142,8 +143,10 @@ def spmm(graph: SparseGraph, x: torch.Tensor, impl: str = "auto",
     * ``hybrid``: kernel C on the dense cells + kernel B
       (ops/spmm_hybrid.py::spmm_hybrid);
     * ``blockdense``: bf16 cells through kernel A + kernel B
-      (ops/spmm_blockdense.py::spmm_blockdense_graph); it agrees to the
-      bf16 rounding of the cells, not to f32.
+      (ops/spmm_blockdense.py::spmm_blockdense_graph) at the reference's
+      default ``precision="bf16"`` (x rounded to bf16 in the dense term);
+      it agrees with the reference to f32 rounding, and with the f32
+      product to the bf16 rounding of the cells and of x.
 
     ``tiled``, ``hybrid`` and ``blockdense`` build their host layout and
     place it on x's device on first use, cached by the graph's arrays

@@ -25,9 +25,22 @@ Device side:
 
 Cells are kept as raw bf16 bits in ``np.uint16`` on the host (as the
 native ``cell_scatter`` writes them) and viewed as ``torch.bfloat16`` on
-the device. The kernel computes in FP32 on the CUDA cores (cells widened
-from bf16, x in f32, no TF32), so it agrees with the plain version to f32
-rounding.
+the device.
+
+``precision`` (the reference's argument, same defaults) sets how x meets
+the bf16 cells in the dense term; the remainder is f32 either way:
+
+* ``"bf16"``: ``cell @ bf16(x)`` with f32 accumulation, what the
+  reference computes (its MXU rounded x to bf16 even at ``"f32"``);
+* ``"f32"``: the product agrees with an f32 product to f32 rounding.
+
+Kernel A runs on the bf16 tensor cores and takes x as bf16 terms, which
+its first stage writes into a scratch the wrapper allocates
+(:func:`bf16_terms` is the plain twin): :func:`n_passes` terms, one for
+``"bf16"`` and two for ``"f32"``, each a pass into the same f32
+accumulator. The cells are exact in bf16, so only x is split. The plain
+version computes ``cell.float() @ x`` in f32, on ``bf16(x)`` for
+``"bf16"``.
 """
 
 from __future__ import annotations
@@ -57,8 +70,13 @@ DEFAULT_BYTE_BUDGET = 4 << 30   # bf16 cell bytes per split
 # tail padding granularity of the cell list (the reference's scan step)
 CELL_CHUNK = 256
 
-# launches of the CUDA kernel behind apply_cells (kernel A)
+# calls of kernel A's entry by apply_cells; each call is two CUDA
+# launches, the operand stage (x_terms_kernel) and then the MMA kernel
 LAUNCHES = 0
+
+PRECISIONS = ("f32", "bf16")
+# kernel A's feature tile: the bf16 scratch of x is padded to a multiple
+FEATURE_TILE = 128
 
 
 def _scan_chunk(n_cells: int) -> int:
@@ -300,15 +318,47 @@ def blockdense_device_args(split: BlockDenseSplit,
     return BlockDenseArgs(rest=rest, **dense)
 
 
+def check_precision(precision: str) -> None:
+    if precision not in PRECISIONS:
+        raise ValueError(f"unknown precision {precision!r}; one of "
+                         f"{PRECISIONS}")
+
+
+def n_passes(precision: str) -> int:
+    """Kernel A's bf16 terms of x, one MMA pass each: 1 for ``"bf16"``, 2
+    for ``"f32"`` (``|x - (hi + lo)| <= 2**-16 |x|``)."""
+    check_precision(precision)
+    return 1 if precision == "bf16" else 2
+
+
+def bf16_terms(x: torch.Tensor, n_terms: int) -> list[torch.Tensor]:
+    """x as ``n_terms`` bf16 tensors whose f32 sum approximates it:
+    ``hi = bf16(x)``, ``lo = bf16(x - hi)``, ... (round to nearest even),
+    the plain twin of kernel A's operand stage. Each term is exact in f32
+    and each remainder is exact, so the error after ``n`` terms is at
+    most ``2**(-8n) |x|``; three terms hold an f32 value exactly (bf16
+    keeps 8 of f32's 24 significand bits)."""
+    terms, r = [], x
+    for t in range(n_terms):
+        terms.append(r.to(torch.bfloat16))
+        if t + 1 < n_terms:
+            r = r - terms[-1].float()
+    return terms
+
+
 def apply_cells_plain(split: BlockDenseSplit, args: BlockDenseArgs,
-                      x: torch.Tensor) -> torch.Tensor:
+                      x: torch.Tensor,
+                      precision: str = "bf16") -> torch.Tensor:
     """The dense-cell term in plain PyTorch: for each row block, its
-    cells in index order, ``acc += cell.float() @ x[stripe]`` in f32.
-    Row blocks with no cells stay zero."""
+    cells in index order, ``acc += cell.float() @ x[stripe]`` in f32, on
+    ``bf16(x)`` for ``precision="bf16"``. Row blocks with no cells stay
+    zero."""
+    check_precision(precision)
     R, W = split.row_block, split.stripe
     F = x.shape[1]
     xp = x.new_zeros((split.n_stripes * W, F))
-    xp[: x.shape[0]] = x
+    xp[: x.shape[0]] = (bf16_terms(x, 1)[0].float() if precision == "bf16"
+                        else x)
     out = x.new_zeros((split.n_row_blocks * R, F))
     rb_ptr, cell_of = host(args.rb_ptr), host(args.cell_of)
     for rb in range(split.n_row_blocks):
@@ -320,14 +370,17 @@ def apply_cells_plain(split: BlockDenseSplit, args: BlockDenseArgs,
 
 
 def apply_cells(split: BlockDenseSplit, args: BlockDenseArgs,
-                x: torch.Tensor) -> torch.Tensor:
+                x: torch.Tensor, precision: str = "bf16") -> torch.Tensor:
     """The dense-cell term, f32 ``[n_rows, F]``: kernel A on a CUDA
-    tensor (or raise), :func:`apply_cells_plain` on a CPU tensor."""
+    tensor (or raise), :func:`apply_cells_plain` on a CPU tensor. One
+    call of kernel A's entry, counted once in ``LAUNCHES``, launches its
+    operand stage and its MMA kernel."""
+    check_precision(precision)
     if x.dim() != 2 or x.shape[0] != split.n_cols:
         raise ValueError(f"x must be [{split.n_cols}, F], got "
                          f"{tuple(x.shape)}")
     if x.device.type == "cpu":
-        return apply_cells_plain(split, args, x)
+        return apply_cells_plain(split, args, x, precision)
     global LAUNCHES
     kernels.require_cuda_f32(x, "x")
     if args.cells is None or args.cells.device != x.device:
@@ -341,11 +394,18 @@ def apply_cells(split: BlockDenseSplit, args: BlockDenseArgs,
                       device=x.device)
     if split.n_rows == 0 or F == 0:
         return out
+    n_terms = n_passes(precision)
+    f_pad = -(-F // FEATURE_TILE) * FEATURE_TILE
+    n_x_rows = split.n_stripes * W
+    # the kernel writes x's bf16 terms here (zero-padded), then reads them
+    xs = torch.empty((n_terms, n_x_rows, f_pad), dtype=torch.bfloat16,
+                     device=x.device)
     rc = kernels.entry("blockdense")(
-        args.cells.data_ptr(), x.data_ptr(), out.data_ptr(),
+        args.cells.data_ptr(), x.data_ptr(), xs.data_ptr(), out.data_ptr(),
         args.rb_ptr.data_ptr(), args.cell_of.data_ptr(),
         args.st_ids.data_ptr(), split.n_row_blocks, split.n_rows,
-        split.n_cols, F, R, W, kernels.stream_of(x))
+        split.n_cols, n_x_rows, F, f_pad, R, W, n_terms,
+        kernels.stream_of(x))
     kernels.check_launch(rc, "blockdense_cells")
     LAUNCHES += 1
     return out
@@ -362,14 +422,17 @@ def _check_args(split: BlockDenseSplit, args: BlockDenseArgs,
 
 
 def spmm_blockdense(split: BlockDenseSplit, x: torch.Tensor,
-                    args: BlockDenseArgs | None = None) -> torch.Tensor:
+                    args: BlockDenseArgs | None = None,
+                    precision: str = "bf16") -> torch.Tensor:
     """``S @ x`` as dense-cell term + remainder through the kernels
     (kernel A, then kernel B adding the dense term in its epilogue).
     The counterpart of the reference's ``spmm_blockdense_pallas``."""
+    check_precision(precision)
     if args is None:
         args = blockdense_device_args(split, x.device)
     _check_args(split, args, x)
-    dense = apply_cells(split, args, x) if split.n_cells else None
+    dense = (apply_cells(split, args, x, precision) if split.n_cells
+             else None)
     if args.rest is not None:
         return spmm_segment(args.rest, x, dense)
     if dense is not None:
@@ -378,13 +441,16 @@ def spmm_blockdense(split: BlockDenseSplit, x: torch.Tensor,
 
 
 def spmm_block_dense(split: BlockDenseSplit, x: torch.Tensor,
-                     args: BlockDenseArgs | None = None) -> torch.Tensor:
+                     args: BlockDenseArgs | None = None,
+                     precision: str = "bf16") -> torch.Tensor:
     """The plain PyTorch version of :func:`spmm_blockdense` (the
     reference's scan form): the same function with no kernel."""
+    check_precision(precision)
     if args is None:
         args = blockdense_device_args(split, x.device)
     _check_args(split, args, x)
-    dense = apply_cells_plain(split, args, x) if split.n_cells else None
+    dense = (apply_cells_plain(split, args, x, precision) if split.n_cells
+             else None)
     if args.rest is not None:
         return spmm_segment_plain(args.rest, x, dense)
     if dense is not None:
@@ -394,7 +460,8 @@ def spmm_block_dense(split: BlockDenseSplit, x: torch.Tensor,
 
 def spmm_blockdense_graph(graph: SparseGraph, x: torch.Tensor,
                           row_block: int = DEFAULT_ROW_BLOCK,
-                          stripe: int = DEFAULT_STRIPE) -> torch.Tensor:
+                          stripe: int = DEFAULT_STRIPE,
+                          precision: str = "bf16") -> torch.Tensor:
     """Drop-in block-dense SpMM: split with the committed admission and
     place it on x's device on first use (cached with
     ``utils.buildcache.placed``: the split is O(E) host work plus GBs of
@@ -404,4 +471,4 @@ def spmm_blockdense_graph(graph: SparseGraph, x: torch.Tensor,
         graph, ("blockdense", F, row_block, stripe), x.device,
         lambda: split_block_dense(graph, F, row_block, stripe),
         blockdense_device_args)
-    return spmm_blockdense(split, x, args)
+    return spmm_blockdense(split, x, args, precision)

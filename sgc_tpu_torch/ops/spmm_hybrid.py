@@ -30,6 +30,7 @@ from sgc_tpu_torch.ops.spmm import spmm_segment
 from sgc_tpu_torch.ops.spmm_tiled import (
     TiledArgs,
     TiledGraph,
+    row_csr,
     spmm_tiled_flat,
     tile_graph,
     tiled_device_args,
@@ -50,7 +51,9 @@ class HybridSplit:
     """Host-side split of a graph into tiled dense cells + remainder.
 
     ``tiled`` is None when no cell met the fill threshold, ``rest`` is
-    None when every edge landed in a dense cell.
+    None when every edge landed in a dense cell. ``csr`` is kernel C's
+    operand, ``tiled``'s edges re-sorted by row (``spmm_tiled.row_csr``),
+    built with the split so that it counts in the plan's prep time.
     """
 
     tiled: TiledGraph | None
@@ -61,6 +64,7 @@ class HybridSplit:
     sparse_edges: int
     pad: float                  # slots / dense edges (1.0 if none)
     min_fill: float
+    csr: tuple | None = None    # (row_ptr, cols, vals) of tiled
 
 
 def min_fill_for(row_block: int, stripe: int, n_features: int,
@@ -96,13 +100,14 @@ def split_dense_cells(graph: SparseGraph, n_features: int,
     n_dense = int(dense_mask.sum())
     n_sparse = len(rows) - n_dense
 
-    tiled = None
+    tiled = csr = None
     pad = 1.0
     if n_dense:
         dense_graph = SparseGraph.from_coo(
             rows[dense_mask], cols[dense_mask], vals[dense_mask],
             n_rows=graph.n_rows, n_cols=graph.n_cols, presorted=True)
         tiled = tile_graph(dense_graph, row_block, stripe, chunk)
+        csr = row_csr(tiled)
         pad = tiled.rows.shape[0] / n_dense
     rest = None
     if n_sparse:
@@ -112,7 +117,7 @@ def split_dense_cells(graph: SparseGraph, n_features: int,
     return HybridSplit(
         tiled=tiled, rest=rest, n_rows=graph.n_rows, n_cols=graph.n_cols,
         dense_edges=n_dense, sparse_edges=n_sparse, pad=pad,
-        min_fill=min_fill)
+        min_fill=min_fill, csr=csr)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -133,7 +138,7 @@ def hybrid_device_args(split: HybridSplit, device) -> HybridArgs:
     """Place ``split`` on ``device`` (an explicit device, no default)."""
     dev = torch.device(device)
     return HybridArgs(
-        tiled=(tiled_device_args(split.tiled, dev)
+        tiled=(tiled_device_args(split.tiled, dev, split.csr)
                if split.tiled is not None else None),
         rest=split.rest.to(dev) if split.rest is not None else None)
 

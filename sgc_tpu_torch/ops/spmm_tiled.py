@@ -10,30 +10,37 @@ path against. :func:`_flat_schedule` and :func:`_tile_cached` are the
 reference's. ``chunk`` is kept as given, 1024 included, so the layouts
 compare bit for bit; the reference's ``chunk % 1024`` rule for compiled
 runs was a Mosaic floor, and kernel C takes any chunk >= 1. The
-reference's ``DEFAULT_FEATURE_TILE`` has no counterpart: kernel C tiles
-the features by 32, one per lane.
+reference's ``DEFAULT_FEATURE_TILE`` has no counterpart: a warp of
+kernel C holds a whole row's features.
 
-Device side: kernel C (``csrc/tiled_spmm.cu``) computes, for every row
-block, the sum over its chunks in layout order of ``vals[e] *
-x[cols[e]]`` into row ``rows[e]``; it serves both TPU kernels through one
-per-row-block chunk index ``(rb_chunk_ptr, chunk_st)``:
+Device side: kernel C computes, for every row, the sum over its edge
+slots in layout order of ``vals[e] * x[cols[e]]``. Both TPU kernels
+visit the chunks in layout order, so the host re-sorts the layout's edges
+once per layout into that order per row (:func:`row_index`, native
+counting sort, and :func:`row_index_plain`, its numpy twin, give the
+permutation; :func:`row_csr` gathers the edges through it). Padding slots
+(the rest of each cell's last chunk, :func:`chunk_nnz`) are left out.
+The result is a CSR matrix whose product, summed row by row in order, is
+the tiled SpMM, so kernel C is the port's CSR kernel
+(``csrc/spmm_csr.cu``, kernel B's) launched on it, counted in this
+module's ``LAUNCHES``. One placement serves both entries:
 
-* :func:`spmm_tiled_flat` <-> ``spmm_pallas_flat`` (index from the flat
-  chunk schedule, :func:`flat_index`);
-* :func:`spmm_tiled_stripes` <-> ``spmm_pallas_tiled`` (index from the
-  stripe walk over ``cell_start``/``cell_nchunks``, :func:`stripe_index`);
+* :func:`spmm_tiled_flat` <-> ``spmm_pallas_flat`` (the flat chunk
+  schedule; :func:`flat_index` is that schedule, which the tests hold
+  against the reference's);
+* :func:`spmm_tiled_stripes` <-> ``spmm_pallas_tiled`` (the stripe walk
+  over ``cell_start``/``cell_nchunks``, :func:`stripe_index`): the same
+  launch, after checking that the layout is cell-major, as that walk
+  needs;
 * :func:`spmm_tiled` <-> ``spmm_pallas``: tile and place on first use
   (cached with :func:`sgc_tpu_torch.utils.buildcache.placed`), then the
   flat entry.
-
-The kernel skips each cell's padding tail by :func:`chunk_nnz`, the
-edges per chunk, placed beside the index.
 
 Each returns f32 ``[n_rows, F]``; the reference's padded ``[n_rb * R,
 F_pad]`` output and its 128-lane feature tile were TPU layout. On a CUDA
 tensor the wrappers launch kernel C or raise; on a CPU tensor they run
 :func:`spmm_tiled_plain`, the plain PyTorch version (an ``index_add_``
-over the slots in layout order).
+over the layout's slots in layout order).
 """
 
 from __future__ import annotations
@@ -56,7 +63,7 @@ DEFAULT_CHUNK = 1024         # C (slots per chunk)
 # gather to ~2.5 GB at F = 602
 PLAIN_SLOTS = 1 << 20
 
-# launches of the CUDA kernel behind the tiled wrappers (kernel C)
+# launches of kernel C by the tiled wrappers
 LAUNCHES = 0
 
 
@@ -185,9 +192,10 @@ def _flat_schedule(tiled: TiledGraph) -> tuple[np.ndarray, np.ndarray]:
 
 
 def flat_index(tiled: TiledGraph) -> tuple[np.ndarray, np.ndarray]:
-    """Kernel C's index from the flat schedule (the ``spmm_pallas_flat``
-    entry): ``(rb_chunk_ptr int32[n_rb + 1], chunk_st int32[n_chunks])``;
-    row block rb's chunks are ``[rb_chunk_ptr[rb], rb_chunk_ptr[rb+1])``."""
+    """The flat chunk schedule as a per-row-block chunk index (the
+    ``spmm_pallas_flat`` entry): ``(rb_chunk_ptr int32[n_rb + 1],
+    chunk_st int32[n_chunks])``; row block rb's chunks are
+    ``[rb_chunk_ptr[rb], rb_chunk_ptr[rb+1])``."""
     chunk_rb, chunk_st = _flat_schedule(tiled)
     ptr = np.zeros(tiled.n_row_blocks + 1, np.int64)
     np.cumsum(np.bincount(chunk_rb, minlength=tiled.n_row_blocks),
@@ -196,9 +204,9 @@ def flat_index(tiled: TiledGraph) -> tuple[np.ndarray, np.ndarray]:
 
 
 def stripe_index(tiled: TiledGraph) -> tuple[np.ndarray, np.ndarray]:
-    """Kernel C's index from the stripe walk over ``cell_start`` and
-    ``cell_nchunks`` (the ``spmm_pallas_tiled`` entry): the same arrays
-    as :func:`flat_index`. Raises when the chunks are not cell-major."""
+    """The stripe walk over ``cell_start`` and ``cell_nchunks`` as the
+    same chunk index (the ``spmm_pallas_tiled`` entry): the arrays of
+    :func:`flat_index`. Raises when the chunks are not cell-major."""
     start = tiled.cell_start.reshape(-1).astype(np.int64)
     n = tiled.cell_nchunks.reshape(-1).astype(np.int64)
     first = np.concatenate(([0], np.cumsum(n)[:-1]))
@@ -223,53 +231,76 @@ def chunk_nnz(tiled: TiledGraph) -> np.ndarray:
                    tiled.chunk).astype(np.int32)
 
 
+def row_index(tiled: TiledGraph) -> tuple[np.ndarray, np.ndarray]:
+    """The layout's row order: ``(row_ptr int32[n_rows + 1], perm
+    int32[edges])``, the edge slots of every chunk (padding left out) in
+    (row, layout position) order, so row r's edges are
+    ``perm[row_ptr[r]:row_ptr[r + 1]]`` in the order both TPU schedules
+    sum them. Native counting sort (raises when the host library cannot
+    be built)."""
+    return native.slot_row_index(tiled.rows, chunk_nnz(tiled), tiled.chunk,
+                                 tiled.n_rows)
+
+
+def row_index_plain(tiled: TiledGraph) -> tuple[np.ndarray, np.ndarray]:
+    """:func:`row_index` with numpy's stable argsort (its plain twin)."""
+    real = (np.arange(tiled.chunk)[None, :]
+            < chunk_nnz(tiled)[:, None]).reshape(-1)
+    slots = np.flatnonzero(real)
+    rows = tiled.rows[slots]
+    perm = slots[np.argsort(rows, kind="stable")].astype(np.int32)
+    row_ptr = np.zeros(tiled.n_rows + 1, np.int64)
+    np.cumsum(np.bincount(rows, minlength=tiled.n_rows), out=row_ptr[1:])
+    return row_ptr.astype(np.int32), perm
+
+
+def row_csr(tiled: TiledGraph,
+            index: tuple[np.ndarray, np.ndarray] | None = None
+            ) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """Kernel C's operand: ``(row_ptr, cols, vals)``, the layout's edges
+    as a CSR matrix in (row, layout position) order, gathered through
+    ``index`` (default :func:`row_index`)."""
+    row_ptr, perm = row_index(tiled) if index is None else index
+    return row_ptr, tiled.cols[perm], tiled.vals[perm]
+
+
 @dataclasses.dataclass(frozen=True)
 class TiledArgs:
-    """A tiled layout and one kernel-C index placed on one device."""
+    """Kernel C's operand (:func:`row_csr`) placed on one device."""
 
-    rows: torch.Tensor            # int32 [n_chunks * C]
-    cols: torch.Tensor            # int32 [n_chunks * C]
-    vals: torch.Tensor            # f32 [n_chunks * C]
-    rb_chunk_ptr: torch.Tensor    # int32 [n_rb + 1]
-    chunk_st: torch.Tensor        # int32 [n_chunks]
-    chunk_nnz: torch.Tensor       # int32 [n_chunks]
+    row_ptr: torch.Tensor         # int32 [n_rows + 1]
+    cols: torch.Tensor            # int32 [edges]
+    vals: torch.Tensor            # f32 [edges]
 
     @property
     def device(self) -> torch.device:
-        return self.rows.device
+        return self.row_ptr.device
 
 
 def tiled_device_args(tiled: TiledGraph, device,
-                      index=flat_index) -> TiledArgs:
-    """Place ``tiled``, ``index(tiled)`` and :func:`chunk_nnz` on
-    ``device`` (an explicit device, no default)."""
+                      csr: tuple[np.ndarray, ...] | None = None
+                      ) -> TiledArgs:
+    """Place ``csr`` (default ``row_csr(tiled)``) on ``device`` (an
+    explicit device, no default)."""
     dev = torch.device(device)
-    ptr, chunk_st = index(tiled)
-    return TiledArgs(
-        rows=torch.as_tensor(tiled.rows, device=dev),
-        cols=torch.as_tensor(tiled.cols, device=dev),
-        vals=torch.as_tensor(tiled.vals, device=dev),
-        rb_chunk_ptr=torch.from_numpy(ptr).to(dev),
-        chunk_st=torch.from_numpy(chunk_st).to(dev),
-        chunk_nnz=torch.from_numpy(chunk_nnz(tiled)).to(dev),
-    )
+    row_ptr, cols, vals = row_csr(tiled) if csr is None else csr
+    return TiledArgs(row_ptr=torch.as_tensor(row_ptr, device=dev),
+                     cols=torch.as_tensor(cols, device=dev),
+                     vals=torch.as_tensor(vals, device=dev))
 
 
-def spmm_tiled_plain(tiled: TiledGraph, x: torch.Tensor,
-                     args: TiledArgs | None = None) -> torch.Tensor:
+def spmm_tiled_plain(tiled: TiledGraph, x: torch.Tensor) -> torch.Tensor:
     """The tiled SpMM in plain PyTorch: ``index_add_`` of ``vals *
-    x[cols]`` at ``rows`` over every slot in layout order (padding slots
-    add 0). Row blocks with no chunk stay zero."""
+    x[cols]`` at ``rows`` over every slot of the host layout in layout
+    order (padding slots add 0). Row blocks with no chunk stay zero."""
     _check_x(tiled, x)
-    src = args if args is not None else tiled
-    rows, cols, vals = (torch.as_tensor(a, device=x.device)
-                        for a in (src.rows, src.cols, src.vals))
     out = torch.zeros((tiled.n_rows, x.shape[1]), dtype=torch.float32,
                       device=x.device)
-    for s in range(0, int(rows.shape[0]), PLAIN_SLOTS):
+    for s in range(0, int(tiled.rows.shape[0]), PLAIN_SLOTS):
         e = slice(s, s + PLAIN_SLOTS)
-        out.index_add_(0, rows[e].long(),
-                       x[cols[e].long()] * vals[e, None])
+        rows, cols, vals = (torch.as_tensor(a[e], device=x.device)
+                            for a in (tiled.rows, tiled.cols, tiled.vals))
+        out.index_add_(0, rows.long(), x[cols.long()] * vals[:, None])
     return out
 
 
@@ -287,37 +318,30 @@ def _apply(tiled: TiledGraph, x: torch.Tensor,
     if args.device != x.device:
         raise ValueError(f"args on {args.device}, x on {x.device}")
     if x.device.type == "cpu":
-        return spmm_tiled_plain(tiled, x, args)
+        return spmm_tiled_plain(tiled, x)
     global LAUNCHES
     kernels.require_cuda_f32(x, "x")
-    for name, t, dt in (("rows", args.rows, torch.int32),
+    for name, t, dt in (("row_ptr", args.row_ptr, torch.int32),
                         ("cols", args.cols, torch.int32),
-                        ("vals", args.vals, torch.float32),
-                        ("rb_chunk_ptr", args.rb_chunk_ptr, torch.int32),
-                        ("chunk_st", args.chunk_st, torch.int32),
-                        ("chunk_nnz", args.chunk_nnz, torch.int32)):
+                        ("vals", args.vals, torch.float32)):
         if t.dtype != dt or not t.is_contiguous():
             raise ValueError(f"args.{name} must be contiguous {dt}")
-    n_slots = int(args.rows.shape[0])
-    if (args.rb_chunk_ptr.shape[0] != tiled.n_row_blocks + 1
-            or args.chunk_st.shape[0] * tiled.chunk != n_slots
-            or args.chunk_nnz.shape[0] * tiled.chunk != n_slots
-            or args.cols.shape[0] != n_slots
-            or args.vals.shape[0] != n_slots):
+    edges = int(args.cols.shape[0])
+    if (args.row_ptr.shape[0] != tiled.n_rows + 1
+            or args.vals.shape[0] != edges
+            or edges > tiled.n_chunks * tiled.chunk):
         raise ValueError("args do not match the tiled layout")
     F = int(x.shape[1])
-    if n_slots == 0 or tiled.n_rows == 0 or F == 0:
+    if edges == 0 or tiled.n_rows == 0 or F == 0:
         return torch.zeros((tiled.n_rows, F), dtype=torch.float32,
                            device=x.device)
     out = torch.empty((tiled.n_rows, F), dtype=torch.float32,
                       device=x.device)
-    rc = kernels.entry("tiled_spmm")(
-        args.rows.data_ptr(), args.cols.data_ptr(), args.vals.data_ptr(),
-        args.rb_chunk_ptr.data_ptr(), args.chunk_st.data_ptr(),
-        args.chunk_nnz.data_ptr(), x.data_ptr(), out.data_ptr(),
-        tiled.n_row_blocks, tiled.n_rows, tiled.n_cols, F, tiled.row_block,
-        tiled.stripe, tiled.chunk, kernels.stream_of(x))
-    kernels.check_launch(rc, "tiled_spmm")
+    rc = kernels.entry("spmm_csr")(
+        args.row_ptr.data_ptr(), args.cols.data_ptr(), args.vals.data_ptr(),
+        x.data_ptr(), None, out.data_ptr(), tiled.n_rows, F,
+        kernels.stream_of(x))
+    kernels.check_launch(rc, "csr_spmm (kernel C)")
     LAUNCHES += 1
     return out
 
@@ -327,17 +351,17 @@ def spmm_tiled_flat(tiled: TiledGraph, x: torch.Tensor,
     """``S @ x`` over a tiled layout, f32 ``[n_rows, F]``, by the flat
     chunk schedule (the counterpart of ``spmm_pallas_flat``)."""
     if args is None:
-        args = tiled_device_args(tiled, x.device, flat_index)
+        args = tiled_device_args(tiled, x.device)
     return _apply(tiled, x, args)
 
 
 def spmm_tiled_stripes(tiled: TiledGraph, x: torch.Tensor,
                        args: TiledArgs | None = None) -> torch.Tensor:
     """``S @ x`` over a tiled layout, f32 ``[n_rows, F]``, by the stripe
-    walk (the counterpart of ``spmm_pallas_tiled``)."""
-    if args is None:
-        args = tiled_device_args(tiled, x.device, stripe_index)
-    return _apply(tiled, x, args)
+    walk (the counterpart of ``spmm_pallas_tiled``): the flat entry's
+    launch on a layout checked to be cell-major."""
+    stripe_index(tiled)   # raises unless the chunks are cell-major
+    return spmm_tiled_flat(tiled, x, args)
 
 
 def _tile_cached(graph: SparseGraph, row_block: int, stripe: int,

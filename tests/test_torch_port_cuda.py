@@ -10,7 +10,10 @@ runs on a machine that has only PyTorch and the CUDA toolkit:
     python -m pytest --noconftest -m cuda tests/test_torch_port_cuda.py
 
 Tolerance: rtol = atol = 1e-5 relative to max|plain|, since kernel and
-plain version differ only in the order of the f32 sums.
+plain version differ only in the order of the f32 sums. Kernel A at
+``precision="bf16"`` is held against the plain version on bf16-rounded
+x; at ``"f32"`` against the plain f32 product (its two bf16 terms of x
+leave at most 2**-16 |x|).
 """
 
 import numpy as np
@@ -53,12 +56,13 @@ def cuda():
     return torch.device("cuda")
 
 
-def _main_path_like_split(super_rows):
+def _main_path_like_split(super_rows, group_cells=None):
     n, f = 1300, 602      # ragged row blocks and feature tiles
     rows, cols, vals = community_coo(6, n, 512, 2, 30000, 20000)
     pg = PortGraph.from_coo(rows, cols, vals, n, n)
     split = port_bd.split_block_dense(pg, f, min_edges=5000.0,
-                                      super_rows=super_rows)
+                                      super_rows=super_rows,
+                                      group_cells=group_cells)
     x = np.random.default_rng(7).standard_normal((n, f)).astype(np.float32)
     return split, torch.from_numpy(x)
 
@@ -84,6 +88,38 @@ def test_cuda_dense_term_matches_plain(cuda, super_rows):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("super_rows,group_cells", [(None, None), (8, None),
+                                                    (8, 4)])
+@pytest.mark.parametrize("precision", ["f32", "bf16"])
+def test_cuda_dense_term_precision_matches_plain(cuda, precision, super_rows,
+                                                 group_cells):
+    """Kernel A at each precision, in both index orders and the grouped
+    layout (zero hole cells): two launches give identical bits, row blocks
+    without cells are zero, and the result holds the plain version."""
+    split, x = _main_path_like_split(super_rows, group_cells)
+    if group_cells is not None:
+        assert split.n_slots > split.n_cells         # holes in the index
+    args = port_bd.blockdense_device_args(split, cuda)
+    xd = x.to(cuda)
+    before = port_bd.LAUNCHES
+    got = port_bd.apply_cells(split, args, xd, precision)
+    again = port_bd.apply_cells(split, args, xd, precision)
+    assert port_bd.LAUNCHES == before + 2
+    want = port_bd.apply_cells_plain(split, args, xd, precision)
+    torch.cuda.synchronize()
+    assert torch.equal(got, again)
+    assert_close_rel(got.cpu().numpy(), want.cpu().numpy())
+    idle = sorted(set(range(split.n_row_blocks)) - set(split.rb_ids.tolist()))
+    assert idle
+    for rb in idle:
+        assert not got[rb * 512:(rb + 1) * 512].any()
+    if precision == "f32":   # the bf16 mode is a different function
+        coarse = port_bd.apply_cells_plain(split, args, xd, "bf16")
+        err = float((coarse - want).abs().max()) / float(want.abs().max())
+        assert err > 100 * TOL
+
+
+@pytest.mark.cuda
 def test_cuda_remainder_matches_plain(cuda):
     split, x = _main_path_like_split(8)
     args = port_bd.blockdense_device_args(split, cuda)
@@ -96,6 +132,22 @@ def test_cuda_remainder_matches_plain(cuda):
     want = port_spmm.spmm_segment_plain(args.rest, xd, dense)
     torch.cuda.synchronize()
     assert torch.equal(got, again)
+    assert_close_rel(got.cpu().numpy(), want.cpu().numpy())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("f,offset", [(33, 0), (602, 1)])
+def test_cuda_remainder_scalar_path_matches_plain(cuda, f, offset):
+    """Kernel B's scalar path: an odd feature count, and an even one whose
+    x starts 4 bytes past an 8-byte boundary (no float2 loads)."""
+    rows, cols, vals = community_coo(8, 900, 128, 2, 4000, 6000)
+    g = PortGraph.from_coo(rows, cols, vals, 900, 900).to(cuda)
+    buf = torch.randn(900 * f + offset, device=cuda)
+    xd = buf[offset:].view(900, f)
+    dense = torch.randn(900, f, device=cuda)
+    got = port_spmm.spmm_segment(g, xd, dense)
+    assert torch.equal(got, port_spmm.spmm_segment(g, xd, dense))
+    want = port_spmm.spmm_segment_plain(g, xd, dense)
     assert_close_rel(got.cpu().numpy(), want.cpu().numpy())
 
 
@@ -146,9 +198,7 @@ def test_cuda_tiled_spmm_matches_plain(cuda, entry, n_rows, n_cols, f, R,
     from sgc_tpu_torch.ops import spmm_tiled as port_tiled
 
     g, tiled, x = _tiled_case(n_rows, n_cols, f, R, W, C, seed=R + C)
-    index = (port_tiled.flat_index if entry == "flat"
-             else port_tiled.stripe_index)
-    args = port_tiled.tiled_device_args(tiled, cuda, index)
+    args = port_tiled.tiled_device_args(tiled, cuda)
     xd = x.to(cuda)
     fn = (port_tiled.spmm_tiled_flat if entry == "flat"
           else port_tiled.spmm_tiled_stripes)
@@ -156,7 +206,7 @@ def test_cuda_tiled_spmm_matches_plain(cuda, entry, n_rows, n_cols, f, R,
     got = fn(tiled, xd, args)
     again = fn(tiled, xd, args)
     assert port_tiled.LAUNCHES == before + 2
-    want = port_tiled.spmm_tiled_plain(tiled, xd, args)
+    want = port_tiled.spmm_tiled_plain(tiled, xd)
     torch.cuda.synchronize()
     assert torch.equal(got, again)          # deterministic
     assert got.shape == (n_rows, f)
@@ -164,6 +214,27 @@ def test_cuda_tiled_spmm_matches_plain(cuda, entry, n_rows, n_cols, f, R,
     # the layout's product is the graph's product
     assert_close_rel(got.cpu().numpy(),
                      port_spmm.spmm_segment_plain(g.to("cpu"), x).numpy())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("index", ["native", "plain"])
+def test_cuda_tiled_spmm_index_paths(cuda, index):
+    """Kernel C from the native row index and from its numpy twin, on
+    rows that straddle 16-slot chunks and an odd feature count (the
+    scalar-load path): the same bits either way, and the plain product."""
+    from sgc_tpu_torch.ops import spmm_tiled as port_tiled
+
+    g, tiled, x = _tiled_case(900, 900, 33, 256, 128, 16, seed=5)
+    build = (port_tiled.row_index if index == "native"
+             else port_tiled.row_index_plain)
+    args = port_tiled.tiled_device_args(
+        tiled, cuda, port_tiled.row_csr(tiled, build(tiled)))
+    other = port_tiled.tiled_device_args(tiled, cuda)
+    xd = x.to(cuda)
+    got = port_tiled.spmm_tiled_flat(tiled, xd, args)
+    assert torch.equal(got, port_tiled.spmm_tiled_stripes(tiled, xd, other))
+    want = port_tiled.spmm_tiled_plain(tiled, xd)
+    assert_close_rel(got.cpu().numpy(), want.cpu().numpy())
 
 
 @pytest.mark.cuda

@@ -5,9 +5,9 @@ Both packages get the same numpy inputs. Host layouts (``tile_graph``,
 port's kernel wrappers run their plain versions on the CPU and are held
 against the reference's Pallas kernels in interpret mode at precision
 "f32" and its XLA ops: rtol = atol = 1e-5 relative to max|ref|, since
-only the f32 summation order differs. ``spmm(impl="blockdense")`` keeps
-the reference's bf16 rounding of x, which the port does not do, so it is
-held at 1e-2 relative (bf16 has 8 mantissa bits).
+only the f32 summation order differs. ``spmm(impl="blockdense")`` runs
+at the reference's default ``precision="bf16"`` on both sides (x rounded
+to bf16 the same way), so it is held at 1e-5 too.
 """
 
 import dataclasses
@@ -34,7 +34,6 @@ from sgc_tpu_torch.ops import spmm_tiled as port_tiled
 from sgc_tpu_torch.utils.buildcache import clear_placed
 
 TOL = 1e-5
-BF16_TOL = 1e-2
 TILED_FIELDS = ("rows", "cols", "vals", "cell_start", "cell_nchunks")
 
 
@@ -120,6 +119,68 @@ def test_tile_graph_matches_reference(case):
     np.testing.assert_array_equal(
         native.rows.reshape(-1, native.chunk)[pad],
         np.broadcast_to(chunk_rb[:, None] * R, pad.shape)[pad])
+
+
+# kernel C's row index, (n_rows, n_cols, R, W, C, uniform edges, row_hi,
+# dense cells of 64 x 64 with 2,000 edges each): 16-slot chunks under
+# dense cells, so rows straddle chunks; edges only in the first row
+# block; row blocks taller than 512 rows; stripes wider than 1024
+INDEX_CASES = {
+    "straddling_rows": (300, 300, 64, 64, 16, 1000, None, ((0, 0), (2, 3))),
+    "empty_row_blocks": (600, 600, 128, 256, 64, 900, 100, ()),
+    "tall_row_blocks": (2500, 700, 1024, 512, 256, 6000, None, ((20, 3),)),
+    "wide_stripes": (700, 3000, 512, 2048, 512, 6000, None, ((1, 40),)),
+}
+
+
+def kernel_c_walk(n_rows, x, row_ptr, cols, vals):
+    """A numpy emulation of kernel C: one f32 accumulator per row, its
+    edges summed in CSR order."""
+    out = np.zeros((n_rows, x.shape[1]), np.float32)
+    for r in range(n_rows):
+        acc = np.zeros(x.shape[1], np.float32)
+        for e in range(row_ptr[r], row_ptr[r + 1]):
+            acc += vals[e] * x[cols[e]]
+        out[r] = acc
+    return out
+
+
+@pytest.mark.parametrize("case", sorted(INDEX_CASES))
+def test_kernel_c_row_index_walk_matches_plain(case):
+    """The native row index equals its numpy twin and lists every edge
+    slot once (no padding) in (row, layout position) order; the CSR
+    gathered through it, walked the way kernel C walks it, gives
+    spmm_tiled_plain's product."""
+    n_rows, n_cols, R, W, C, e, row_hi, cells = INDEX_CASES[case]
+    _, pg = both(*coo(11, n_rows, n_cols, e, cells, 2000, row_hi=row_hi),
+                 n_rows, n_cols)
+    tiled = port_tiled.tile_graph(pg, R, W, C)
+    row_ptr, perm = port_tiled.row_index(tiled)
+    plain = port_tiled.row_index_plain(tiled)
+    assert row_ptr.dtype == perm.dtype == np.int32
+    np.testing.assert_array_equal(row_ptr, plain[0])
+    np.testing.assert_array_equal(perm, plain[1])
+    nnz = port_tiled.chunk_nnz(tiled)
+    assert len(perm) == nnz.sum() == pg.nnz == row_ptr[-1]
+    assert (perm % C < nnz[perm // C]).all()          # no padding slot
+    r_of = tiled.rows[perm]
+    assert (np.diff(r_of) >= 0).all()
+    assert (np.diff(perm)[np.diff(r_of) == 0] > 0).all()  # layout order
+    if case == "straddling_rows":   # some row's slots span two chunks
+        first = np.searchsorted(r_of, r_of, side="left")
+        assert (perm // C != perm[first] // C).any()
+    if row_hi is not None:
+        assert (row_ptr[row_hi:] == row_ptr[-1]).all()   # empty row blocks
+    x = features(12, n_cols, 9)
+    csr = port_tiled.row_csr(tiled)
+    np.testing.assert_array_equal(csr[1], tiled.cols[perm])
+    np.testing.assert_array_equal(csr[2], tiled.vals[perm])
+    assert csr[1].dtype == np.int32 and csr[2].dtype == np.float32
+    got = kernel_c_walk(tiled.n_rows, x, *csr)
+    want = port_tiled.spmm_tiled_plain(tiled, torch.from_numpy(x)).numpy()
+    assert_close_rel(got, want)
+    if row_hi is not None:
+        assert not got[row_hi:].any()
 
 
 def test_stripe_index_rejects_a_non_cell_major_layout():
@@ -292,6 +353,18 @@ def test_onehot_propagate_all_matches_reference(onehot_plans):
     assert_close_rel(got, want)
 
 
+def test_onehot_has_no_bf16_mode(onehot_plans):
+    """Kernels C and D compute in FP32, so the onehot plan refuses
+    precision="bf16" instead of quietly computing f32."""
+    port = onehot_plans[1]
+    for call in (lambda: port.hop_fns("bf16"),
+                 lambda: port.khop_traceable(2, precision="bf16"),
+                 lambda: port.propagate_train(2, precision="bf16"),
+                 lambda: port.propagate_all(1, precision="bf16")):
+        with pytest.raises(ValueError, match="ROADMAP"):
+            call()
+
+
 @pytest.mark.parametrize("formulation", ["auto", "blockdense",
                                          "blockdense_kernel"])
 def test_min_fill_with_blockdense_raises(formulation):
@@ -324,8 +397,7 @@ def test_spmm_dispatcher_matches_reference(dispatch_problem, impl,
     want = np.asarray(ref_spmm(rg, jnp.asarray(x), impl=ref_impl))
     got = port_spmm.spmm(pg, torch.from_numpy(x), impl=impl)
     assert got.shape == (pg.n_rows, x.shape[1])
-    assert_close_rel(got.numpy(), want,
-                     BF16_TOL if impl == "blockdense" else TOL)
+    assert_close_rel(got.numpy(), want, TOL)
 
 
 def test_segment_and_chunked_agree_bitwise(dispatch_problem):

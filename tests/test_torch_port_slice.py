@@ -95,6 +95,42 @@ def test_khop_degrees_match_reference(plans, degree):
     assert rel_err(port.propagate_train(degree).numpy(), want) <= TOL
 
 
+@pytest.mark.parametrize("precision", ["f32", "bf16"])
+def test_hop_fns_match_reference_at_precision(plans, precision):
+    """Both hop operators and ``khop_traceable`` at each precision
+    against the reference's (``blockdense_pallas`` in interpret mode), on
+    the same inputs, so both sides round the same x to bf16; the closures
+    are cached per precision. At bf16 the second hop is held on the
+    first-hop rows of the reference's own ``khop`` (its un-jitted hop
+    form): rows whose last bits differ, as the port's do, or the
+    reference's jitted hop's (1.6e-7 of max apart), flip some bf16(x)
+    values by a bf16 ulp (2**-8), which moves the reference's own
+    two-hop rows by 4.2e-5 of max here."""
+    ref, port = plans
+    x_ref = jnp.asarray(ref.features)
+    x = torch.as_tensor(port.features)
+    ref_fns = ref.hop_fns(precision=precision, interpret=True)
+    port_fns = port.hop_fns(precision)
+    assert port.hop_fns(precision) is port_fns
+    for want_fn, got_fn in zip(ref_fns, port_fns):
+        assert rel_err(got_fn(x).numpy(), np.asarray(want_fn(x_ref))) <= TOL
+    khop, args = ref.khop_traceable(degree=1, precision=precision,
+                                    interpret=True)
+    want = np.asarray(khop(x_ref, args))
+    got = port.propagate_train(1, precision=precision)
+    assert rel_err(got.numpy(), want) <= TOL
+    khop, args = ref.khop_traceable(degree=2, precision=precision,
+                                    interpret=True)
+    want = np.asarray(khop(x_ref, args))
+    if precision == "f32":
+        got = port.propagate_train(2, precision=precision)
+    else:
+        full = ref._spmm_form(ref.split_main, precision, True)
+        x1 = np.asarray(full(x_ref, args[0]))
+        got = port_fns[1](torch.from_numpy(x1))
+    assert rel_err(got.numpy(), want) <= TOL
+
+
 def test_plain_formulation_matches_kernel_form(plans):
     """``blockdense`` (plain) and ``blockdense_kernel`` give the same rows;
     ``auto`` resolves to the plain form on the CPU."""
