@@ -23,9 +23,11 @@ data, counters zeroed just before it and read just after:
 It then holds each CUDA kernel against its plain PyTorch version on the
 paths' own inputs (kernel A at both precisions in both cell orders and
 in the grouped layout, kernel B, kernel C through both entries (kernel
-B's CUDA kernel on the tiled layout's edges re-sorted by row), kernel D
-through ``sddmm`` on the main operator with two different operands),
-checks that kernels A and C give identical bits across two launches, and
+B's CUDA kernel on the tiled layout's edges re-sorted by row; "f32" and
+"bf16"), kernel D through ``sddmm`` with two different operands on the
+main operator (both precisions) and on the same graph in its shuffled
+order), checks that kernels A, C and D give identical bits across two
+launches, and
 drives ``spmm(impl=...)`` for every impl. Phases
 print one JSON line each on stdout; the line before the last is
 ``{"kernels": [...]}`` and the last is
@@ -53,6 +55,8 @@ PEAK_HBM_BYTES = 3.35e12
 TOLERANCE = 1e-5
 # relative to max|main path|: bf16 cells vs f32 edges (2^-8 per value)
 BF16_TOLERANCE = 1e-2
+# edges per warp of kernel D (csrc/sddmm.cu's SEG), to count its row runs
+SDDMM_SEG = 64
 
 
 def emit(obj: dict) -> None:
@@ -662,6 +666,23 @@ def phase_kernel_c(onehot, reps) -> dict:
             "plain_ms": time_ms(
                 lambda: ti.spmm_tiled_plain(tiled, x), 2)}
     del args_walk
+    # the reference's precision="bf16" through the flat entry
+    got = ti.spmm_tiled_flat(tiled, x, args_flat, "bf16")
+    again = ti.spmm_tiled_flat(tiled, x, args_flat, "bf16")
+    want = ti.spmm_tiled_plain(tiled, x, "bf16")
+    bf16_abs_err, bf16_err = rel_err(got, want)
+    if not bf16_err <= TOLERANCE:
+        raise AssertionError(f"kernel C (flat, bf16) vs plain: "
+                             f"{bf16_err:.3e}")
+    if not torch.equal(got, again):
+        raise AssertionError("kernel C (flat, bf16): two launches differ")
+    del got, again, want
+    entries["flat_bf16"] = {
+        "max_abs_err": bf16_abs_err, "rel_err": bf16_err,
+        "ms": time_ms(lambda: ti.spmm_tiled_flat(tiled, x, args_flat,
+                                                 "bf16"), reps),
+        "plain_ms": time_ms(lambda: ti.spmm_tiled_plain(tiled, x, "bf16"),
+                            2)}
     final = plan.split_final
     args_final = plan._device_args()[1].tiled
     final_ms = time_ms(
@@ -703,11 +724,14 @@ def phase_kernel_c(onehot, reps) -> dict:
     row = {"name": "tiled_spmm", "route": "cuda",
            "source": "sgc_tpu_torch/csrc/spmm_csr.cu",
            "replaces": "sgc_tpu/ops/spmm_pallas.py:169, :393",
+           "precision": "f32",
            "launches": onehot["launches"]["tiled_spmm"],
            "max_abs_err": max(e["max_abs_err"] for e in entries.values()),
            "ms": entries["flat"]["ms"],
            "plain_ms": entries["flat"]["plain_ms"], "bound_ms": b_ms,
-           "bound_by": b_by, "library_ms": library_ms}
+           "bound_by": b_by, "library_ms": library_ms,
+           "bf16_ms": entries["flat_bf16"]["ms"],
+           "bf16_max_abs_err": entries["flat_bf16"]["max_abs_err"]}
     emit({"phase": "kernel_c", "kernel": "csr_spmm on the re-sorted layout",
           "slots": slots, "index_edges": edges,
           "row_index_native_s": native_index_s,
@@ -723,52 +747,121 @@ def phase_kernel_c(onehot, reps) -> dict:
     return row
 
 
-def phase_kernel_d(onehot, reps) -> dict:
-    """``sddmm`` over the whole main operator with two different operands
-    (a = the reordered features, b = one hop of them, so a kernel that
-    swapped rows and cols would disagree): the entry point run once with
-    its counter zeroed, then held against the plain version."""
+def sddmm_bound(g, a, itemsize: int) -> tuple[float, str, float, float]:
+    """Kernel D's bound at one operand width: 2 F flops per edge at the
+    FP32 peak, against a and b read once each at ``itemsize`` bytes, the
+    edges' rows and cols and the output."""
+    F = int(a.shape[1])
+    ops = 2.0 * g.nnz * F
+    nbytes = ((g.n_rows + g.n_cols) * F * itemsize + g.nnz * 8
+              + g.n_edges_padded * 4)
+    return (*bound_ms(ops, nbytes), ops, nbytes)
+
+
+def sddmm_on(g, a, b, reps, precisions) -> dict:
+    """Kernel D through ``sddmm`` on one graph: its warps' segments, the
+    runs of one row within them (one read of a's row each) and the bytes
+    the kernel gathers, and per precision one counted call (counter zeroed
+    just before, read just after), two launches equal bit for bit,
+    padding 0, the error against the plain version, and the times of
+    kernel, plain and library. The library call is
+    ``torch.sparse.sampled_addmm`` in f32, at "bf16" on f32 copies of a
+    and b rounded to bf16 (made outside the timed call): a product of two
+    bf16 values is exact in f32, so it computes the same function."""
+    import torch
+
+    from sgc_tpu_torch.ops import spmm
+
+    F, nnz = int(a.shape[1]), g.nnz
+    rows = g.rows[:nnz]
+    starts = torch.ones(nnz, dtype=torch.bool, device=a.device)
+    starts[1:] = rows[1:] != rows[:-1]
+    starts[::SDDMM_SEG] = True
+    runs = int(starts.sum())
+    out = {"nnz": nnz, "e_pad": g.n_edges_padded, "F": F,
+           "edges_per_warp": SDDMM_SEG, "segments": -(-nnz // SDDMM_SEG),
+           "row_runs": runs}
+    csr = csr_of(g)
+    for precision in precisions:
+        spmm.SDDMM_LAUNCHES = 0
+        got = spmm.sddmm(g, a, b, precision)
+        torch.cuda.synchronize()
+        launches = spmm.SDDMM_LAUNCHES
+        if launches != 1:
+            raise AssertionError(f"sddmm launched kernel D {launches} "
+                                 "times")
+        again = spmm.sddmm(g, a, b, precision)
+        want = spmm.sddmm_plain(g, a, b, precision)
+        abs_err, err = rel_err(got, want)
+        if not err <= TOLERANCE:
+            raise AssertionError(f"kernel D ({precision}) vs plain: "
+                                 f"{err:.3e}")
+        if not torch.equal(got, again):
+            raise AssertionError(f"kernel D ({precision}): two launches "
+                                 "differ")
+        if bool(got[nnz:].any()):
+            raise AssertionError("kernel D wrote a padding slot")
+        del got, again, want
+        itemsize = 2 if precision == "bf16" else 4
+        b_ms, b_by, ops, nbytes = sddmm_bound(g, a, itemsize)
+        if precision == "bf16":
+            ac, bct = spmm.bf16_round(a), spmm.bf16_round(b).t()
+        else:
+            ac, bct = a, b.t()
+        library_ms = time_ms(
+            lambda: torch.sparse.sampled_addmm(csr, ac, bct, beta=0.0), reps)
+        del ac, bct
+        ms = time_ms(lambda: spmm.sddmm(g, a, b, precision), reps)
+        out[precision] = {
+            "launches": launches, "max_abs_err": abs_err, "rel_err": err,
+            "ms": ms,
+            "plain_ms": time_ms(
+                lambda: spmm.sddmm_plain(g, a, b, precision), 1),
+            "library_ms": library_ms,
+            "bound_ms": b_ms, "bound_by": b_by, "ops": ops, "bytes": nbytes,
+            "gathered_b_bytes": nnz * F * itemsize,
+            "a_row_bytes": runs * F * 4,
+            "achieved_gbps": nbytes / ms / 1e6}
+    return out
+
+
+def phase_kernel_d(onehot, shuffled, reps) -> dict:
+    """``sddmm`` over the whole main operator in the LPA order at both
+    precisions and over the same graph in its shuffled order at "f32",
+    each with two different operands (a = the features, b = one hop of
+    them, so a kernel that swapped rows and cols would disagree)."""
     import torch
 
     from sgc_tpu_torch.ops import spmm
 
     g, a = onehot["graph"], onehot["x"]
     b = spmm.spmm_segment(g, a)
-    spmm.SDDMM_LAUNCHES = 0
-    got = spmm.sddmm(g, a, b)
-    torch.cuda.synchronize()
-    launches = spmm.SDDMM_LAUNCHES
-    if launches != 1:
-        raise AssertionError(f"sddmm launched kernel D {launches} times")
-    want = spmm.sddmm_plain(g, a, b)
-    abs_err, err = rel_err(got, want)
-    if not err <= TOLERANCE:
-        raise AssertionError(f"kernel D vs plain: {err:.3e}")
-    if bool(got[g.nnz:].any()):
-        raise AssertionError("kernel D wrote a padding slot")
-    del got, want
-    ms = time_ms(lambda: spmm.sddmm(g, a, b), reps)
-    plain_ms = time_ms(lambda: spmm.sddmm_plain(g, a, b), 1)
-    csr = csr_of(g)
-    bt = b.t()
-    library_ms = time_ms(
-        lambda: torch.sparse.sampled_addmm(csr, a, bt, beta=0.0), reps)
-    del csr, bt, b
-    F = int(a.shape[1])
-    ops = 2.0 * g.nnz * F
-    # a and b read once each, rows and cols of every edge, out written
-    nbytes = 2 * a.numel() * 4 + g.nnz * 8 + g.n_edges_padded * 4
-    b_ms, b_by = bound_ms(ops, nbytes)
+    lpa = sddmm_on(g, a, b, reps, ("f32", "bf16"))
+    del b
+    gs = shuffled[0].to(a.device)
+    xs = torch.as_tensor(shuffled[1], device=a.device)
+    shuffled_order = sddmm_on(gs, xs, spmm.spmm_segment(gs, xs), reps,
+                              ("f32",))
+    del gs, xs
+    f32, bf16 = lpa["f32"], lpa["bf16"]
     row = {"name": "sddmm", "route": "cuda",
            "source": "sgc_tpu_torch/csrc/sddmm.cu",
            "replaces": "sgc_tpu/ops/spmm_pallas.py:705",
-           "launches": launches, "max_abs_err": abs_err, "ms": ms,
-           "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
-           "library_ms": library_ms}
-    emit({"phase": "kernel_d", "nnz": g.nnz, "e_pad": g.n_edges_padded,
-          "F": F, "operands": "a = x, b = spmm_segment(graph, x)",
-          "rel_err": err, "tolerance_rel": TOLERANCE, "ops": ops,
-          "bytes": nbytes, "achieved_gbps": nbytes / ms / 1e6, **row})
+           "precision": "f32", "launches": f32["launches"],
+           "max_abs_err": f32["max_abs_err"], "ms": f32["ms"],
+           "plain_ms": f32["plain_ms"], "bound_ms": f32["bound_ms"],
+           "bound_by": f32["bound_by"], "library_ms": f32["library_ms"],
+           "bf16_launches": bf16["launches"],
+           "bf16_max_abs_err": bf16["max_abs_err"], "bf16_ms": bf16["ms"],
+           "bf16_plain_ms": bf16["plain_ms"],
+           "bf16_bound_ms": bf16["bound_ms"],
+           "bf16_bound_by": bf16["bound_by"],
+           "bf16_library_ms": bf16["library_ms"],
+           "shuffled_order_ms": shuffled_order["f32"]["ms"]}
+    emit({"phase": "kernel_d", "operands": "a = x, b = spmm_segment(graph, "
+          "x)", "launches_note": "calls of sddmm; each is one CUDA launch "
+          "after a memset of the padding", "tolerance_rel": TOLERANCE,
+          "lpa_order": lpa, "shuffled_order": shuffled_order, **row})
     return row
 
 
@@ -841,6 +934,7 @@ def main() -> int:
     data = main.pop("data")
     phase_calibrated_path(data, main.pop("tr"), device)
     onehot = phase_onehot_path(data, device)
+    shuffled = data[:2]
     del data
     rows = [phase_kernel_a(main["plan"], main["x"], main["launches"],
                            args.reps)]
@@ -849,7 +943,8 @@ def main() -> int:
                                args.reps))
     del main
     rows.append(phase_kernel_c(onehot, args.reps))
-    rows.append(phase_kernel_d(onehot, args.reps))
+    rows.append(phase_kernel_d(onehot, shuffled, args.reps))
+    del shuffled
     phase_dispatcher(onehot, args.reps)
     log(f"chip_smoke: {time.perf_counter() - t_start:.1f}s")
     emit({"kernels": rows})

@@ -36,8 +36,14 @@
 //
 // Deterministic: a fixed per-row edge order, no atomics; every run gives
 // identical bits (the reference's convention, sgc_tpu/ops/spmm.py:18-24).
-// Precision: FP32 products and sums on the CUDA cores.
+// Precision: FP32 products and sums on the CUDA cores. Kernel C also has
+// the reference's precision="bf16" (compile-time mode BX, chosen by the
+// `x_bf16` flag): x is a bf16 copy, and each slot adds bf16(val * x[col])
+// to the f32 sum, the product rounded to bf16 (nearest even) as the
+// reference's one-hot scatter matmul takes it (spmm_pallas.py:415-421).
+// Kernel B always runs FP32.
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include <cstdint>
@@ -48,9 +54,18 @@ constexpr int WARPS = 8;    // rows per CTA, one warp each
 constexpr int NV = 5;       // vector accumulators per lane
 constexpr unsigned kFull = 0xffffffffu;
 
-template <int VEC> struct Vec;
-template <> struct Vec<1> { using T = float; };
-template <> struct Vec<2> { using T = float2; };
+// x's element and vector types: f32, or bf16 in mode BX
+template <int VEC, bool BX> struct Vec;
+template <> struct Vec<1, false> { using E = float; using T = float; };
+template <> struct Vec<2, false> { using E = float; using T = float2; };
+template <> struct Vec<1, true> {
+  using E = __nv_bfloat16;
+  using T = __nv_bfloat16;
+};
+template <> struct Vec<2, true> {
+  using E = __nv_bfloat16;
+  using T = __nv_bfloat162;
+};
 
 __device__ __forceinline__ void fma_into(float* acc, float v, float x) {
   acc[0] = fmaf(v, x, acc[0]);
@@ -58,6 +73,20 @@ __device__ __forceinline__ void fma_into(float* acc, float v, float x) {
 __device__ __forceinline__ void fma_into(float* acc, float v, float2 x) {
   acc[0] = fmaf(v, x.x, acc[0]);
   acc[1] = fmaf(v, x.y, acc[1]);
+}
+// bf16(v * x) in f32: the slot's product rounded to bf16, then added
+__device__ __forceinline__ float bf16_product(float v, __nv_bfloat16 x) {
+  return __bfloat162float(
+      __float2bfloat16_rn(__fmul_rn(v, __bfloat162float(x))));
+}
+__device__ __forceinline__ void fma_into(float* acc, float v,
+                                         __nv_bfloat16 x) {
+  acc[0] += bf16_product(v, x);
+}
+__device__ __forceinline__ void fma_into(float* acc, float v,
+                                         __nv_bfloat162 x) {
+  acc[0] += bf16_product(v, x.x);
+  acc[1] += bf16_product(v, x.y);
 }
 __device__ __forceinline__ void store(float* p, const float* acc,
                                       const float* d, float*) {
@@ -75,17 +104,17 @@ __device__ __forceinline__ void store(float* p, const float* acc,
 }
 
 // a CTA takes WARPS consecutive rows, one per warp. VEC = 2 needs F even
-// and 8-byte aligned x, dense and out (checked by the host).
-template <int VEC>
+// and x, dense and out aligned to their vectors (checked by the host).
+template <int VEC, bool BX>
 __global__ void __launch_bounds__(WARPS * 32)
 csr_spmm_kernel(const int32_t* __restrict__ row_ptr,   // [n_rows + 1]
                 const int32_t* __restrict__ cols,      // [>= nnz]
                 const float* __restrict__ vals,        // [>= nnz]
-                const float* __restrict__ x,           // [n_cols, F]
+                const typename Vec<VEC, BX>::E* __restrict__ x,  // [n_cols, F]
                 const float* __restrict__ dense,       // [n_rows, F] or null
                 float* __restrict__ out,               // [n_rows, F]
                 int n_rows, int F) {
-  using V = typename Vec<VEC>::T;
+  using V = typename Vec<VEC, BX>::T;
   constexpr int PASS = 32 * VEC * NV;   // features per pass
   const int lane = threadIdx.x & 31;
   const int r = blockIdx.x * WARPS + (threadIdx.x >> 5);
@@ -108,7 +137,7 @@ csr_spmm_kernel(const int32_t* __restrict__ row_ptr,   // [n_rows + 1]
       for (int j = 0; j < n; ++j) {
         const int c = __shfl_sync(kFull, my_col, j);
         const float v = __shfl_sync(kFull, my_val, j);
-        const float* xr = x + static_cast<size_t>(c) * F + f0;
+        const auto* xr = x + static_cast<size_t>(c) * F + f0;
         V xv[NV];
 #pragma unroll
         for (int i = 0; i < NV; ++i) {
@@ -128,10 +157,22 @@ csr_spmm_kernel(const int32_t* __restrict__ row_ptr,   // [n_rows + 1]
       const int f = (lane + 32 * i) * VEC;
       if (f0 + f < F) {
         store(out + o + f, acc[i], dense ? dense + o + f : nullptr,
-              static_cast<V*>(nullptr));
+              static_cast<typename Vec<VEC, false>::T*>(nullptr));
       }
     }
   }
+}
+
+template <int VEC, bool BX>
+void launch(const void* row_ptr, const void* cols, const void* vals,
+            const void* x, const void* dense, void* out, int n_rows, int F,
+            cudaStream_t s) {
+  const int blocks = (n_rows + WARPS - 1) / WARPS;
+  csr_spmm_kernel<VEC, BX><<<blocks, WARPS * 32, 0, s>>>(
+      static_cast<const int32_t*>(row_ptr), static_cast<const int32_t*>(cols),
+      static_cast<const float*>(vals),
+      static_cast<const typename Vec<VEC, BX>::E*>(x),
+      static_cast<const float*>(dense), static_cast<float*>(out), n_rows, F);
 }
 
 }  // namespace
@@ -139,32 +180,32 @@ csr_spmm_kernel(const int32_t* __restrict__ row_ptr,   // [n_rows + 1]
 extern "C" {
 
 // out = dense + A @ x for the CSR matrix A (row_ptr, cols, vals); `dense`
-// may be null. Pointers are device pointers; `stream` is a cudaStream_t.
-// Returns cudaGetLastError() after the launch (or cudaErrorInvalidValue
-// for shapes the kernel does not take).
+// may be null. `x_bf16` = 1 takes x as bf16 and rounds each slot's product
+// to bf16 (kernel C's precision="bf16"). Pointers are device pointers;
+// `stream` is a cudaStream_t. Returns cudaGetLastError() after the launch
+// (or cudaErrorInvalidValue for shapes the kernel does not take).
 int csr_spmm(const void* row_ptr, const void* cols, const void* vals,
              const void* x, const void* dense, void* out, int n_rows, int F,
-             void* stream) {
+             int x_bf16, void* stream) {
   if (n_rows <= 0 || F <= 0) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int blocks = (n_rows + WARPS - 1) / WARPS;
-  auto aligned = [](const void* p) {
-    return reinterpret_cast<uintptr_t>(p) % sizeof(float2) == 0;
+  auto aligned = [](const void* p, size_t n) {
+    return reinterpret_cast<uintptr_t>(p) % n == 0;
   };
-  const bool vec2 = F % 2 == 0 && aligned(x) && aligned(out) &&
-                    (dense == nullptr || aligned(dense));
-  if (vec2) {
-    csr_spmm_kernel<2><<<blocks, WARPS * 32, 0, s>>>(
-        static_cast<const int32_t*>(row_ptr),
-        static_cast<const int32_t*>(cols), static_cast<const float*>(vals),
-        static_cast<const float*>(x), static_cast<const float*>(dense),
-        static_cast<float*>(out), n_rows, F);
+  const size_t x_vec = x_bf16 ? 2 * sizeof(__nv_bfloat16) : sizeof(float2);
+  const bool vec2 = F % 2 == 0 && aligned(x, x_vec) &&
+                    aligned(out, sizeof(float2)) &&
+                    (dense == nullptr || aligned(dense, sizeof(float2)));
+  if (x_bf16) {
+    if (vec2) {
+      launch<2, true>(row_ptr, cols, vals, x, dense, out, n_rows, F, s);
+    } else {
+      launch<1, true>(row_ptr, cols, vals, x, dense, out, n_rows, F, s);
+    }
+  } else if (vec2) {
+    launch<2, false>(row_ptr, cols, vals, x, dense, out, n_rows, F, s);
   } else {
-    csr_spmm_kernel<1><<<blocks, WARPS * 32, 0, s>>>(
-        static_cast<const int32_t*>(row_ptr),
-        static_cast<const int32_t*>(cols), static_cast<const float*>(vals),
-        static_cast<const float*>(x), static_cast<const float*>(dense),
-        static_cast<float*>(out), n_rows, F);
+    launch<1, false>(row_ptr, cols, vals, x, dense, out, n_rows, F, s);
   }
   return static_cast<int>(cudaGetLastError());
 }

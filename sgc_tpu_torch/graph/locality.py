@@ -24,14 +24,16 @@ Formulations of the hop:
   fill at least ``min_fill`` of their padded chunks go through kernel C
   (the counterpart of ``spmm_pallas_flat``), the rest through kernel B.
   The name is kept for parity; kernel C gathers directly and does no
-  one-hot matmul. Its values stay f32 (no bf16 cells), and it has no
-  ``precision="bf16"`` mode: asking for one raises.
+  one-hot matmul. Its values stay f32 (no bf16 cells); at
+  ``precision="bf16"`` kernel C rounds x and each slot's product to bf16,
+  as the reference's one-hot kernel does.
 * ``auto`` resolves to ``blockdense_kernel`` on a CUDA device and to
   ``blockdense`` on the CPU.
 
 The hop functions take the reference's ``precision`` (default ``"f32"``,
 as the reference's bench runs): how x meets the bf16 cells of the
-block-dense term (ops/spmm_blockdense.py).
+block-dense term (ops/spmm_blockdense.py), or the dense part of the
+onehot hop (ops/spmm_hybrid.py).
 
 ``blockdense_kernel`` and ``onehot`` on a CUDA device first run the
 kernels' capability check, which raises when it fails.
@@ -199,12 +201,7 @@ class LocalityPlan:
 
         check_precision(precision)
         if self.formulation == "onehot":
-            if precision != "f32":
-                raise ValueError(
-                    "formulation='onehot' has no bf16 mode in the port: "
-                    "kernels C and D compute in FP32 (ROADMAP, open items "
-                    "1, module 4: bf16 for kernels C and D)")
-            return lambda x, a: spmm_hybrid_split(split, x, a)
+            return lambda x, a: spmm_hybrid_split(split, x, a, precision)
         op = {"blockdense_kernel": spmm_blockdense,
               "blockdense": spmm_block_dense}[self.formulation]
         return lambda x, a: op(split, x, a, precision)

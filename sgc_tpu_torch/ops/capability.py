@@ -3,8 +3,8 @@ sgc_tpu/ops/spmm_pallas.py::scalar_prefetch_compiles probe).
 
 The check passes when a CUDA device is present, every kernel library
 builds, and three tiny cases through the kernels match their plain
-PyTorch versions: a block-dense SpMM (kernels A and B, at both
-precisions), a hybrid SpMM (kernels C and B) and an SDDMM (kernel D).
+PyTorch versions, each at both precisions: a block-dense SpMM (kernels
+A and B), a hybrid SpMM (kernels C and B) and an SDDMM (kernel D).
 It does not return False: it raises with the reason, so a formulation
 that needs the kernels never quietly runs without them. The verdict is
 cached per process and device.
@@ -111,13 +111,15 @@ def require_cuda_kernels(device=None) -> torch.device:
     graph, hsplit, x = hybrid_case()
     x = x.to(dev)
     args = hybrid_device_args(hsplit, dev)
-    want = spmm_tiled_plain(hsplit.tiled, x)
-    want = want + spmm_segment_plain(args.rest, x)
-    _check("C + B", spmm_hybrid_split(hsplit, x, args), want, dev)
-
     g = graph.to(dev)
     b = torch.from_numpy(np.random.default_rng(2).standard_normal(
         tuple(x.shape)).astype(np.float32)).to(dev)
-    _check("D", sddmm(g, x, b), sddmm_plain(g, x, b), dev)
+    for precision in ("f32", "bf16"):
+        want = spmm_tiled_plain(hsplit.tiled, x, precision)
+        want = want + spmm_segment_plain(args.rest, x)
+        _check(f"C + B, {precision}",
+               spmm_hybrid_split(hsplit, x, args, precision), want, dev)
+        want = sddmm_plain(g, x, b, precision)
+        _check(f"D, {precision}", sddmm(g, x, b, precision), want, dev)
     _PASSED.add(index)
     return dev

@@ -36,8 +36,8 @@ _ENTRY = {
     "blockdense": ("blockdense_cells",
                    [_V, _V, _V, _V, _V, _V, _V, _I, _I, _I, _I, _I, _I, _I,
                     _I, _I, _V]),
-    "spmm_csr": ("csr_spmm", [_V, _V, _V, _V, _V, _V, _I, _I, _V]),
-    "sddmm": ("sddmm", [_V, _V, _V, _V, _V, _L, _L, _I, _V]),
+    "spmm_csr": ("csr_spmm", [_V, _V, _V, _V, _V, _V, _I, _I, _I, _V]),
+    "sddmm": ("sddmm", [_V, _V, _V, _V, _V, _L, _L, _I, _I, _I, _V]),
 }
 
 _loaded: dict[str, ctypes._CFuncPtr] = {}

@@ -14,7 +14,12 @@ launches the kernel or raises; on a CPU tensor it runs
 port's kernel C is not Pallas), ``hybrid`` and ``blockdense``.
 
 ``sddmm`` is kernel D (``csrc/sddmm.cu``) on a CUDA tensor and
-:func:`sddmm_plain` on a CPU tensor.
+:func:`sddmm_plain` on a CPU tensor. Kernel D walks the graph's own
+row-sorted edge list, so it needs no host build.
+
+``precision`` is the reference's (``"f32"`` or ``"bf16"``, default
+``"f32"``) wherever it takes one: ``"bf16"`` rounds the gathered operand
+rows to bf16 and keeps products and sums in f32 (:func:`bf16_round`).
 
 Determinism is a property of the ops, as in the reference: the kernels
 sum in a fixed order with no float atomics, so repeated runs give
@@ -30,8 +35,11 @@ from sgc_tpu_torch.ops import kernels
 
 # launches of the CUDA kernel behind spmm_segment (kernel B)
 LAUNCHES = 0
-# launches of the CUDA kernel behind sddmm (kernel D)
+# launches of the CUDA kernel behind sddmm (kernel D), each after a
+# memset of the padding slots
 SDDMM_LAUNCHES = 0
+
+PRECISIONS = ("f32", "bf16")
 
 IMPLS = ("auto", "segment", "chunked", "tiled", "hybrid", "blockdense")
 
@@ -44,6 +52,18 @@ _DEFAULT_CHUNK = 512 * 1024
 
 # Edges per step of the plain SDDMM: bounds its two (edges, F) gathers.
 SDDMM_PLAIN_EDGES = 1 << 20
+
+
+def check_precision(precision: str) -> None:
+    if precision not in PRECISIONS:
+        raise ValueError(f"unknown precision {precision!r}; one of "
+                         f"{PRECISIONS}")
+
+
+def bf16_round(x: torch.Tensor) -> torch.Tensor:
+    """x rounded to bf16 (nearest even) and widened back to f32: what
+    the reference's bf16 one-hot matmuls select."""
+    return x.to(torch.bfloat16).float()
 
 
 def spmm_segment_plain(graph: SparseGraph, x: torch.Tensor,
@@ -100,7 +120,7 @@ def _spmm_segment_cuda(graph, x, dense):
         graph.row_ptr.data_ptr(), graph.cols.data_ptr(),
         graph.vals.data_ptr(), x.data_ptr(),
         dense.data_ptr() if dense is not None else None, out.data_ptr(),
-        graph.n_rows, F, kernels.stream_of(x))
+        graph.n_rows, F, 0, kernels.stream_of(x))
     kernels.check_launch(rc, "csr_spmm")
     LAUNCHES += 1
     return out
@@ -179,16 +199,21 @@ def spmm(graph: SparseGraph, x: torch.Tensor, impl: str = "auto",
     return spmm_blockdense_graph(graph, x)
 
 
-def sddmm_plain(graph: SparseGraph, a: torch.Tensor,
-                b: torch.Tensor) -> torch.Tensor:
-    """:func:`sddmm` in plain PyTorch: gathered rows multiplied and summed
-    over the features, ``SDDMM_PLAIN_EDGES`` edges at a time."""
+def sddmm_plain(graph: SparseGraph, a: torch.Tensor, b: torch.Tensor,
+                precision: str = "f32") -> torch.Tensor:
+    """:func:`sddmm` in plain PyTorch: gathered rows (rounded to bf16 at
+    ``"bf16"``) multiplied and summed over the features in f32,
+    ``SDDMM_PLAIN_EDGES`` edges at a time."""
     _check_sddmm(graph, a, b)
+    check_precision(precision)
     out = torch.zeros(graph.n_edges_padded, dtype=torch.float32,
                       device=a.device)
     for s in range(0, graph.nnz, SDDMM_PLAIN_EDGES):
         e = slice(s, min(s + SDDMM_PLAIN_EDGES, graph.nnz))
-        out[e] = (a[graph.rows[e].long()] * b[graph.cols[e].long()]).sum(-1)
+        ar, br = a[graph.rows[e].long()], b[graph.cols[e].long()]
+        if precision == "bf16":
+            ar, br = bf16_round(ar), bf16_round(br)
+        out[e] = (ar * br).sum(-1)
     return out
 
 
@@ -206,11 +231,11 @@ def _check_sddmm(graph: SparseGraph, a: torch.Tensor,
                          f"{b.device}")
 
 
-def sddmm(graph: SparseGraph, a: torch.Tensor,
-          b: torch.Tensor) -> torch.Tensor:
+def sddmm(graph: SparseGraph, a: torch.Tensor, b: torch.Tensor,
+          precision: str = "f32") -> torch.Tensor:
     """Sampled dense-dense matmul: the edge values of ``a @ b.T`` at the
     graph's pattern, f32 ``[E_pad]``; ``out[e] = <a[rows[e]],
-    b[cols[e]]>``.
+    b[cols[e]]>``, on bf16-rounded rows at ``precision="bf16"``.
 
     The counterpart of both the reference's XLA ``sddmm``
     (sgc_tpu/ops/spmm.py) and ``sddmm_pallas`` (sgc_tpu/ops/spmm_pallas.py).
@@ -221,8 +246,34 @@ def sddmm(graph: SparseGraph, a: torch.Tensor,
     ``graph`` must live on the operands' device (:meth:`SparseGraph.to`).
     """
     _check_sddmm(graph, a, b)
+    check_precision(precision)
     if a.device.type == "cpu":
-        return sddmm_plain(graph, a, b)
+        return sddmm_plain(graph, a, b, precision)
+    return _sddmm_cuda(graph, a, b, precision)
+
+
+def _kernel_copy(t: torch.Tensor, precision: str) -> tuple[torch.Tensor,
+                                                             int]:
+    """Kernel D's ``b`` operand and its row stride: t itself at
+    ``"f32"``; at ``"bf16"`` a bf16 copy whose rows are padded with zeros
+    to a multiple of 4 elements, so that every row starts 8-byte aligned
+    for the kernel's 8-byte loads."""
+    if precision == "f32":
+        return t, int(t.shape[1])
+    n, F = t.shape
+    ld = -(-F // 4) * 4
+    if ld == F:
+        return t.to(torch.bfloat16), ld
+    out = torch.empty((n, ld), dtype=torch.bfloat16, device=t.device)
+    out[:, :F] = t
+    out[:, F:] = 0
+    return out, ld
+
+
+def _sddmm_cuda(graph: SparseGraph, a: torch.Tensor, b: torch.Tensor,
+                precision: str, lib=None) -> torch.Tensor:
+    """Kernel D on CUDA operands; ``lib`` is another build of the kernel's
+    C entry (the A/B tool's variants), default the package's."""
     global SDDMM_LAUNCHES
     kernels.require_cuda_f32(a, "a")
     kernels.require_cuda_f32(b, "b")
@@ -234,10 +285,12 @@ def sddmm(graph: SparseGraph, a: torch.Tensor,
     F = int(a.shape[1])
     if F == 0:
         return out.zero_()
-    rc = kernels.entry("sddmm")(
+    # the kernel rounds a's rows to bf16 itself; only b is copied
+    bk, ld = _kernel_copy(b, precision)
+    rc = (lib or kernels.entry("sddmm"))(
         graph.rows.data_ptr(), graph.cols.data_ptr(), a.data_ptr(),
-        b.data_ptr(), out.data_ptr(), graph.nnz, graph.n_edges_padded, F,
-        kernels.stream_of(a))
+        bk.data_ptr(), out.data_ptr(), graph.nnz, graph.n_edges_padded, F,
+        ld, int(precision == "bf16"), kernels.stream_of(a))
     kernels.check_launch(rc, "sddmm")
     SDDMM_LAUNCHES += 1
     return out

@@ -53,7 +53,12 @@ import torch
 from sgc_tpu_torch import native
 from sgc_tpu_torch.graph.sparse import SparseGraph, host
 from sgc_tpu_torch.ops import kernels
-from sgc_tpu_torch.ops.spmm import spmm_segment, spmm_segment_plain
+from sgc_tpu_torch.ops.spmm import (  # noqa: F401 (PRECISIONS re-exported)
+    PRECISIONS,
+    check_precision,
+    spmm_segment,
+    spmm_segment_plain,
+)
 from sgc_tpu_torch.utils.buildcache import placed
 
 # Admission-model rates measured by the reference on a TPU v5e (its
@@ -74,7 +79,6 @@ CELL_CHUNK = 256
 # launches, the operand stage (x_terms_kernel) and then the MMA kernel
 LAUNCHES = 0
 
-PRECISIONS = ("f32", "bf16")
 # kernel A's feature tile: the bf16 scratch of x is padded to a multiple
 FEATURE_TILE = 128
 
@@ -316,12 +320,6 @@ def blockdense_device_args(split: BlockDenseSplit,
         )
     rest = split.rest.to(dev) if split.rest is not None else None
     return BlockDenseArgs(rest=rest, **dense)
-
-
-def check_precision(precision: str) -> None:
-    if precision not in PRECISIONS:
-        raise ValueError(f"unknown precision {precision!r}; one of "
-                         f"{PRECISIONS}")
 
 
 def n_passes(precision: str) -> int:

@@ -9,7 +9,9 @@ reference's. On the card :func:`spmm_hybrid_split` runs kernel C on the
 dense part and then kernel B on the remainder with the dense part added
 in kernel B's epilogue (``spmm_segment(rest, x, dense)``): the
 reference's ``dense + rest`` with no extra pass. On the CPU the same
-calls run their plain versions.
+calls run their plain versions. ``precision`` (default ``"f32"``) is the
+dense part's, as in the reference: at ``"bf16"`` kernel C rounds x and
+each slot's product to bf16; the remainder stays f32.
 
 The admission constants below were measured by the reference on a TPU
 v5e and describe its one-hot MXU kernel and its XLA gather; they say
@@ -26,7 +28,7 @@ import numpy as np
 import torch
 
 from sgc_tpu_torch.graph.sparse import SparseGraph, host
-from sgc_tpu_torch.ops.spmm import spmm_segment
+from sgc_tpu_torch.ops.spmm import check_precision, spmm_segment
 from sgc_tpu_torch.ops.spmm_tiled import (
     TiledArgs,
     TiledGraph,
@@ -144,7 +146,8 @@ def hybrid_device_args(split: HybridSplit, device) -> HybridArgs:
 
 
 def spmm_hybrid_split(split: HybridSplit, x: torch.Tensor,
-                      args: HybridArgs | None = None) -> torch.Tensor:
+                      args: HybridArgs | None = None,
+                      precision: str = "f32") -> torch.Tensor:
     """``S @ x`` over a prebuilt split, f32 ``[n_rows, F]``: kernel C on
     the dense part, then kernel B on the remainder adding the dense part
     (plain versions on a CPU tensor). Deterministic, and equal to the
@@ -157,7 +160,8 @@ def spmm_hybrid_split(split: HybridSplit, x: torch.Tensor,
         raise ValueError("split has a sparse remainder but args carry none")
     if args.device is not None and args.device != x.device:
         raise ValueError(f"args on {args.device}, x on {x.device}")
-    dense = (spmm_tiled_flat(split.tiled, x, args.tiled)
+    check_precision(precision)
+    dense = (spmm_tiled_flat(split.tiled, x, args.tiled, precision)
              if split.tiled is not None else None)
     if args.rest is not None:
         return spmm_segment(args.rest, x, dense)
@@ -184,9 +188,10 @@ def _split_cached(graph: SparseGraph, n_features: int, row_block: int,
 def spmm_hybrid(graph: SparseGraph, x: torch.Tensor,
                 row_block: int = DEFAULT_ROW_BLOCK,
                 stripe: int = DEFAULT_STRIPE, chunk: int = DEFAULT_CHUNK,
-                min_fill: float | None = None) -> torch.Tensor:
+                min_fill: float | None = None,
+                precision: str = "f32") -> torch.Tensor:
     """Drop-in hybrid SpMM: split and place on x's device on first use
     (cached), then run."""
     split, args = _split_cached(graph, int(x.shape[1]), row_block, stripe,
                                 chunk, min_fill, x.device)
-    return spmm_hybrid_split(split, x, args)
+    return spmm_hybrid_split(split, x, args, precision)

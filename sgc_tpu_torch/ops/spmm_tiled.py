@@ -41,6 +41,12 @@ F_pad]`` output and its 128-lane feature tile were TPU layout. On a CUDA
 tensor the wrappers launch kernel C or raise; on a CPU tensor they run
 :func:`spmm_tiled_plain`, the plain PyTorch version (an ``index_add_``
 over the layout's slots in layout order).
+
+``precision`` is the reference's (default ``"f32"``). At ``"bf16"`` each
+slot adds ``bf16(val * bf16(x[col]))`` to an f32 sum, as the reference's
+one-hot gather and scatter matmuls take it (spmm_pallas.py:415-421): the
+wrapper hands kernel C a bf16 copy of x and the kernel rounds each
+product to bf16.
 """
 
 from __future__ import annotations
@@ -53,6 +59,7 @@ import torch
 from sgc_tpu_torch import native
 from sgc_tpu_torch.graph.sparse import SparseGraph, host
 from sgc_tpu_torch.ops import kernels
+from sgc_tpu_torch.ops.spmm import bf16_round, check_precision
 from sgc_tpu_torch.utils.buildcache import placed
 
 DEFAULT_ROW_BLOCK = 2048     # R
@@ -289,18 +296,26 @@ def tiled_device_args(tiled: TiledGraph, device,
                      vals=torch.as_tensor(vals, device=dev))
 
 
-def spmm_tiled_plain(tiled: TiledGraph, x: torch.Tensor) -> torch.Tensor:
+def spmm_tiled_plain(tiled: TiledGraph, x: torch.Tensor,
+                     precision: str = "f32") -> torch.Tensor:
     """The tiled SpMM in plain PyTorch: ``index_add_`` of ``vals *
-    x[cols]`` at ``rows`` over every slot of the host layout in layout
-    order (padding slots add 0). Row blocks with no chunk stay zero."""
+    x[cols]`` (at ``"bf16"``: ``bf16(vals * bf16(x[cols]))``) at ``rows``
+    over every slot of the host layout in layout order (padding slots add
+    0). Row blocks with no chunk stay zero."""
     _check_x(tiled, x)
+    check_precision(precision)
     out = torch.zeros((tiled.n_rows, x.shape[1]), dtype=torch.float32,
                       device=x.device)
     for s in range(0, int(tiled.rows.shape[0]), PLAIN_SLOTS):
         e = slice(s, s + PLAIN_SLOTS)
         rows, cols, vals = (torch.as_tensor(a[e], device=x.device)
                             for a in (tiled.rows, tiled.cols, tiled.vals))
-        out.index_add_(0, rows.long(), x[cols.long()] * vals[:, None])
+        xs = x[cols.long()]
+        if precision == "bf16":
+            slot = bf16_round(bf16_round(xs) * vals[:, None])
+        else:
+            slot = xs * vals[:, None]
+        out.index_add_(0, rows.long(), slot)
     return out
 
 
@@ -310,15 +325,16 @@ def _check_x(tiled: TiledGraph, x: torch.Tensor) -> None:
                          f"{tuple(x.shape)}")
 
 
-def _apply(tiled: TiledGraph, x: torch.Tensor,
-           args: TiledArgs) -> torch.Tensor:
+def _apply(tiled: TiledGraph, x: torch.Tensor, args: TiledArgs,
+           precision: str) -> torch.Tensor:
     """Kernel C on a CUDA tensor (or raise), the plain version on a CPU
     tensor."""
     _check_x(tiled, x)
+    check_precision(precision)
     if args.device != x.device:
         raise ValueError(f"args on {args.device}, x on {x.device}")
     if x.device.type == "cpu":
-        return spmm_tiled_plain(tiled, x)
+        return spmm_tiled_plain(tiled, x, precision)
     global LAUNCHES
     kernels.require_cuda_f32(x, "x")
     for name, t, dt in (("row_ptr", args.row_ptr, torch.int32),
@@ -337,31 +353,34 @@ def _apply(tiled: TiledGraph, x: torch.Tensor,
                            device=x.device)
     out = torch.empty((tiled.n_rows, F), dtype=torch.float32,
                       device=x.device)
+    xk = x.to(torch.bfloat16) if precision == "bf16" else x
     rc = kernels.entry("spmm_csr")(
         args.row_ptr.data_ptr(), args.cols.data_ptr(), args.vals.data_ptr(),
-        x.data_ptr(), None, out.data_ptr(), tiled.n_rows, F,
-        kernels.stream_of(x))
+        xk.data_ptr(), None, out.data_ptr(), tiled.n_rows, F,
+        int(precision == "bf16"), kernels.stream_of(x))
     kernels.check_launch(rc, "csr_spmm (kernel C)")
     LAUNCHES += 1
     return out
 
 
 def spmm_tiled_flat(tiled: TiledGraph, x: torch.Tensor,
-                    args: TiledArgs | None = None) -> torch.Tensor:
+                    args: TiledArgs | None = None,
+                    precision: str = "f32") -> torch.Tensor:
     """``S @ x`` over a tiled layout, f32 ``[n_rows, F]``, by the flat
     chunk schedule (the counterpart of ``spmm_pallas_flat``)."""
     if args is None:
         args = tiled_device_args(tiled, x.device)
-    return _apply(tiled, x, args)
+    return _apply(tiled, x, args, precision)
 
 
 def spmm_tiled_stripes(tiled: TiledGraph, x: torch.Tensor,
-                       args: TiledArgs | None = None) -> torch.Tensor:
+                       args: TiledArgs | None = None,
+                       precision: str = "f32") -> torch.Tensor:
     """``S @ x`` over a tiled layout, f32 ``[n_rows, F]``, by the stripe
     walk (the counterpart of ``spmm_pallas_tiled``): the flat entry's
     launch on a layout checked to be cell-major."""
     stripe_index(tiled)   # raises unless the chunks are cell-major
-    return spmm_tiled_flat(tiled, x, args)
+    return spmm_tiled_flat(tiled, x, args, precision)
 
 
 def _tile_cached(graph: SparseGraph, row_block: int, stripe: int,
@@ -378,8 +397,9 @@ def _tile_cached(graph: SparseGraph, row_block: int, stripe: int,
 def spmm_tiled(graph: SparseGraph, x: torch.Tensor,
                row_block: int = DEFAULT_ROW_BLOCK,
                stripe: int = DEFAULT_STRIPE,
-               chunk: int = DEFAULT_CHUNK) -> torch.Tensor:
+               chunk: int = DEFAULT_CHUNK,
+               precision: str = "f32") -> torch.Tensor:
     """Drop-in tiled SpMM (the counterpart of ``spmm_pallas``): tile and
     place on x's device on first use (cached), then the flat entry."""
     tiled, args = _tile_cached(graph, row_block, stripe, chunk, x.device)
-    return spmm_tiled_flat(tiled, x, args)
+    return spmm_tiled_flat(tiled, x, args, precision)

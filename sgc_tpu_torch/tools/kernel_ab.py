@@ -1,9 +1,10 @@
 #!/usr/bin/env python3
-"""CUDA-event A/B runs of the port's kernels A and C on one card, at the
-chip smoke's full-scale clustered-Reddit splits.
+"""CUDA-event A/B runs of the port's kernels A, C and D on one card, at
+the chip smoke's full-scale clustered-Reddit splits.
 
     python3 -m sgc_tpu_torch.tools.kernel_ab [--scale 1.0] [--reps 5]
-        [--baseline-c path/to/tiled_spmm.cu]
+        [--kernels a,c,d] [--baseline-c path/to/tiled_spmm.cu]
+        [--baseline-d path/to/sddmm.cu]
 
 Kernel C: the current kernel (``csrc/spmm_csr.cu`` on the layout's edges
 re-sorted by row) on the onehot main and last-hop splits, beside
@@ -29,6 +30,16 @@ precisions, each with its error against the plain f32 product and the
 plain product on bf16(x), and variants of the kernel made by rewriting
 its source (``A_VARIANTS``), among them a third bf16 term of x at
 ``"f32"``.
+
+Kernel D: ``sddmm`` on the main operator in its LPA order and in its
+shuffled order (a = the features, b = one hop of them) at both
+precisions, the wrapper's bf16 copy of b alone, and variants of the
+kernel made by rewriting one constant each (``D_VARIANTS``: edges per
+warp, edges in flight, warps per CTA, register bound), each with its
+error against the plain version. With ``--baseline-d`` (the warp-per-edge
+kernel D of an earlier commit, whose C entry ``sddmm`` takes ``rows,
+cols, a, b, out, nnz, e_pad, F, stream``) it also times that kernel on
+both orders in the same call.
 
 Prints one JSON line per measurement and the card's name and power
 limit; exits non-zero without a CUDA device.
@@ -109,11 +120,35 @@ BASELINE_VARIANTS = {
 }
 
 
-def build_variants(source: Path, variants: dict, n_args: tuple[int, int],
+V, I, L = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
+# C entries' argument types
+CSR_ARGS = [V] * 6 + [I] * 3 + [V]
+A_ARGS = [V] * 7 + [I] * 9 + [V]
+BASELINE_C_ARGS = [V] * 8 + [I] * 7 + [V]
+D_ARGS = [V] * 5 + [L, L, I, I, I, V]
+BASELINE_D_ARGS = [V] * 5 + [L, L, I, V]
+
+# variants of kernel D: edges per warp (the segment that cuts long rows),
+# edges in flight, warps per CTA and the register bound
+D_VARIANTS = {
+    "base": [],
+    "seg32": [(r"SEG = 64;", "SEG = 32;")],
+    "seg128": [(r"SEG = 64;", "SEG = 128;")],
+    "seg256": [(r"SEG = 64;", "SEG = 256;")],
+    "eif2": [(r"EIF = 4;", "EIF = 2;")],
+    "warps8": [(r"WARPS = 4;", "WARPS = 8;")],
+    "one_cta_bound": [(r"__launch_bounds__\(WARPS \* 32, 2\)",
+                       "__launch_bounds__(WARPS * 32)")],
+    "min_ctas4": [(r"__launch_bounds__\(WARPS \* 32, 2\)",
+                   "__launch_bounds__(WARPS * 32, 4)")],
+}
+
+
+def build_variants(source: Path, variants: dict, argtypes: list,
                    out_dir: Path, symbol: str) -> dict:
-    """Compile each variant of a kernel source in parallel; returns
-    {variant: (ctypes function ``symbol`` with n_args = (pointers, ints)
-    + stream, ptxas register counts)}."""
+    """Compile each variant (a list of source rewrites) of a kernel source
+    in parallel; returns {variant: (ctypes function ``symbol`` taking
+    ``argtypes``, ptxas register counts)}."""
     from sgc_tpu_torch.utils.buildlib import nvcc_path
 
     out_dir.mkdir(parents=True, exist_ok=True)
@@ -125,7 +160,7 @@ def build_variants(source: Path, variants: dict, n_args: tuple[int, int],
             src, n = re.subn(pat, rep, src)
             if n != 1:
                 raise RuntimeError(f"variant {name}: pattern not found")
-        cu = out_dir / f"{source.stem}_{n_args[1]}_{name}.cu"
+        cu = out_dir / f"{source.stem}_{symbol}_{name}.cu"
         cu.write_text(src)
         lib = out_dir / f"lib{cu.stem}.so"
         procs[name] = (lib, subprocess.Popen(
@@ -134,13 +169,12 @@ def build_variants(source: Path, variants: dict, n_args: tuple[int, int],
              "-Xptxas", "-v", "-o", str(lib), str(cu)],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
     fns = {}
-    V, I = ctypes.c_void_p, ctypes.c_int
     for name, (lib, proc) in procs.items():
         out, _ = proc.communicate()
         if proc.returncode:
             raise RuntimeError(f"building variant {name} failed:\n{out}")
         fn = getattr(ctypes.CDLL(str(lib)), symbol)
-        fn.argtypes = [V] * n_args[0] + [I] * n_args[1] + [V]
+        fn.argtypes = argtypes
         fn.restype = I
         fns[name] = (fn, [int(m) for m in
                           re.findall(r"Used (\d+) registers", out)])
@@ -185,12 +219,12 @@ def kernel_c(data, device, reps: int, baseline: Path | None) -> None:
     out_dir = ROOT / "build" / "sgc_tpu_torch" / "ab"
     out = torch.empty((tiled.n_rows, F), device=device)
     fns = build_variants(ROOT / "sgc_tpu_torch" / "csrc" / "spmm_csr.cu",
-                         CURRENT_VARIANTS, (6, 2), out_dir, "csr_spmm")
+                         CURRENT_VARIANTS, CSR_ARGS, out_dir, "csr_spmm")
     for name, (fn, regs) in fns.items():
         def run(fn=fn):
             rc = fn(args.row_ptr.data_ptr(), args.cols.data_ptr(),
                     args.vals.data_ptr(), x.data_ptr(), None,
-                    out.data_ptr(), tiled.n_rows, F, kernels.stream_of(x))
+                    out.data_ptr(), tiled.n_rows, F, 0, kernels.stream_of(x))
             kernels.check_launch(rc, f"current {name}")
         run()
         torch.cuda.synchronize()
@@ -198,8 +232,8 @@ def kernel_c(data, device, reps: int, baseline: Path | None) -> None:
               "ms": time_ms(run, reps), "rel_err": rel_err(out, want)})
     if baseline is None:
         return
-    fns = build_variants(baseline, BASELINE_VARIANTS, (8, 7), out_dir,
-                         "tiled_spmm")
+    fns = build_variants(baseline, BASELINE_VARIANTS, BASELINE_C_ARGS,
+                         out_dir, "tiled_spmm")
     ptr, chunk_st = ti.flat_index(tiled)
     ptr = torch.from_numpy(ptr).to(device)
     chunk_st = torch.from_numpy(chunk_st).to(device)
@@ -243,7 +277,7 @@ def kernel_a(data, device, reps: int) -> None:
               "identical_launches": bool(torch.equal(got, again))})
         del got, again
     fns = build_variants(ROOT / "sgc_tpu_torch" / "csrc" / "blockdense.cu",
-                         A_VARIANTS, (7, 9),
+                         A_VARIANTS, A_ARGS,
                          ROOT / "build" / "sgc_tpu_torch" / "ab",
                          "blockdense_cells")
     R, W = split.row_block, split.stripe
@@ -273,12 +307,67 @@ def kernel_a(data, device, reps: int) -> None:
             del xs
 
 
+def kernel_d(data, device, reps: int, baseline: Path | None) -> None:
+    import torch
+
+    from sgc_tpu_torch.graph.locality import LocalityPlan
+    from sgc_tpu_torch.ops import kernels
+    from sgc_tpu_torch.ops import spmm as sp
+
+    plan = LocalityPlan.build(*data, formulation="onehot", device=device)
+    orders = {"lpa": (plan.graph, plan.features),
+              "shuffled": (data[0], data[1])}
+    del plan
+    out_dir = ROOT / "build" / "sgc_tpu_torch" / "ab"
+    fns = build_variants(ROOT / "sgc_tpu_torch" / "csrc" / "sddmm.cu",
+                         D_VARIANTS, D_ARGS, out_dir, "sddmm")
+    base_fn = None
+    if baseline is not None:
+        base_fn = build_variants(baseline, {"base": []}, BASELINE_D_ARGS,
+                                 out_dir, "sddmm")["base"][0]
+    for order, (graph, feats) in orders.items():
+        g = graph.to(device)
+        x = torch.as_tensor(feats, device=device)
+        b = sp.spmm_segment(g, x)
+        want = {p: sp.sddmm_plain(g, x, b, p) for p in sp.PRECISIONS}
+        emit({"kernel": "D", "order": order, "variant": "bf16_copy_b",
+              "ms": time_ms(lambda: sp._kernel_copy(b, "bf16"), reps)})
+        for name, (fn, regs) in fns.items():
+            for p in sp.PRECISIONS:
+                got = sp._sddmm_cuda(g, x, b, p, fn)
+                emit({"kernel": "D", "order": order, "variant": name,
+                      "precision": p, "registers": regs,
+                      "ms": time_ms(lambda: sp._sddmm_cuda(g, x, b, p, fn),
+                                    reps),
+                      "rel_err": rel_err(got, want[p])})
+                del got
+        if base_fn is not None:
+            out = torch.empty(g.n_edges_padded, device=device)
+
+            def run():
+                rc = base_fn(g.rows.data_ptr(), g.cols.data_ptr(),
+                             x.data_ptr(), b.data_ptr(), out.data_ptr(),
+                             g.nnz, g.n_edges_padded, int(x.shape[1]),
+                             kernels.stream_of(x))
+                kernels.check_launch(rc, "baseline sddmm")
+            run()
+            torch.cuda.synchronize()
+            emit({"kernel": "D", "order": order, "variant": "baseline",
+                  "precision": "f32", "ms": time_ms(run, reps),
+                  "rel_err": rel_err(out, want["f32"])})
+        del g, x, b, want
+        torch.cuda.empty_cache()
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--scale", type=float, default=1.0)
     ap.add_argument("--seed", type=int, default=42)
     ap.add_argument("--reps", type=int, default=5)
+    ap.add_argument("--kernels", default="a,c,d",
+                    help="comma-separated kernels to run")
     ap.add_argument("--baseline-c", type=Path, default=None)
+    ap.add_argument("--baseline-d", type=Path, default=None)
     args = ap.parse_args()
 
     import torch
@@ -298,8 +387,13 @@ def main() -> int:
     kernels.build_all()
     data = synthetic_reddit_clustered(args.scale, seed=args.seed,
                                       shuffle=True)
-    kernel_a(data, device, args.reps)
-    kernel_c(data, device, args.reps, args.baseline_c)
+    chosen = set(args.kernels.split(","))
+    if "a" in chosen:
+        kernel_a(data, device, args.reps)
+    if "c" in chosen:
+        kernel_c(data, device, args.reps, args.baseline_c)
+    if "d" in chosen:
+        kernel_d(data, device, args.reps, args.baseline_d)
     return 0
 
 

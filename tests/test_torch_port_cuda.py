@@ -13,8 +13,12 @@ Tolerance: rtol = atol = 1e-5 relative to max|plain|, since kernel and
 plain version differ only in the order of the f32 sums. Kernel A at
 ``precision="bf16"`` is held against the plain version on bf16-rounded
 x; at ``"f32"`` against the plain f32 product (its two bf16 terms of x
-leave at most 2**-16 |x|).
+leave at most 2**-16 |x|). Kernels C and D at ``"bf16"`` are held
+against their plain versions at ``"bf16"``, which round the same values
+to bf16 (x and each slot's product for C, the operand rows for D).
 """
+
+import dataclasses
 
 import numpy as np
 import pytest
@@ -307,4 +311,129 @@ def test_cuda_sddmm_matches_plain(cuda, n_rows, n_cols, f):
     assert not got[g.nnz:].any()          # padding slots exactly 0
     zero_w = (g.vals[: g.nnz] == 0).nonzero().flatten()
     assert len(zero_w) and got[zero_w].abs().min() > 0
+    assert_close_rel(got.cpu().numpy(), want.cpu().numpy())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("f", [602, 33])
+@pytest.mark.parametrize("entry", ["flat", "stripes"])
+def test_cuda_tiled_spmm_bf16_matches_plain(cuda, entry, f):
+    """Kernel C at precision "bf16" through both entries (float2 and scalar
+    loads of the bf16 x): the plain version at "bf16", identical bits
+    across two launches, and a different function from "f32"."""
+    from sgc_tpu_torch.ops import spmm_tiled as port_tiled
+
+    _, tiled, x = _tiled_case(1300, 1300, f, 512, 512, 1024, seed=f)
+    args = port_tiled.tiled_device_args(tiled, cuda)
+    xd = x.to(cuda)
+    fn = (port_tiled.spmm_tiled_flat if entry == "flat"
+          else port_tiled.spmm_tiled_stripes)
+    before = port_tiled.LAUNCHES
+    got = fn(tiled, xd, args, "bf16")
+    again = fn(tiled, xd, args, "bf16")
+    assert port_tiled.LAUNCHES == before + 2
+    want = port_tiled.spmm_tiled_plain(tiled, xd, "bf16")
+    torch.cuda.synchronize()
+    assert torch.equal(got, again)
+    assert_close_rel(got.cpu().numpy(), want.cpu().numpy())
+    f32 = port_tiled.spmm_tiled_plain(tiled, xd, "f32")
+    err = float((f32 - want).abs().max()) / float(want.abs().max())
+    assert err > 100 * TOL
+
+
+@pytest.mark.cuda
+def test_cuda_hybrid_split_bf16_matches_plain(cuda):
+    from sgc_tpu_torch.ops import spmm_hybrid as port_hybrid
+
+    g, _, x = _tiled_case(1300, 1300, 602, 512, 512, 1024, seed=12)
+    split = port_hybrid.split_dense_cells(g, 602, 512, 512, 1024,
+                                          min_fill=0.5)
+    assert split.tiled is not None and split.rest is not None
+    got = port_hybrid.spmm_hybrid_split(split, x.to(cuda), precision="bf16")
+    want = port_hybrid.spmm_hybrid_split(split, x, precision="bf16")
+    assert_close_rel(got.cpu().numpy(), want.numpy())
+
+
+def _sddmm_case(kind, n_rows, n_cols, f, seed):
+    """Edges for kernel D: "hubs" gives a few rows thousands of edges
+    (each cut into many warp segments), "short" spreads edges uniformly
+    (rows of a few edges, several rows a segment), "both" does both."""
+    rng = np.random.default_rng(seed)
+    r, c = [], []
+    if kind in ("hubs", "both"):
+        for hub in rng.choice(n_rows, 3, replace=False):
+            r.append(np.full(3000, hub))
+            c.append(rng.integers(0, n_cols, 3000))
+    if kind in ("short", "both"):
+        r.append(rng.integers(0, n_rows, 4000))
+        c.append(rng.integers(0, n_cols, 4000))
+    rows, cols = np.concatenate(r), np.concatenate(c)
+    vals = rng.random(len(rows)).astype(np.float32)
+    vals[:40] = 0.0                       # genuine zero-weight edges
+    g = PortGraph.from_coo(rows, cols, vals, n_rows, n_cols)
+    a = rng.standard_normal((n_rows, f)).astype(np.float32)
+    b = rng.standard_normal((n_cols, f)).astype(np.float32)
+    return g, torch.from_numpy(a), torch.from_numpy(b)
+
+
+def _check_sddmm(g, got, again, want):
+    torch.cuda.synchronize()
+    assert torch.equal(got, again)          # deterministic
+    assert got.shape == (g.n_edges_padded,)
+    assert not got[g.nnz:].any()            # padding slots exactly 0
+    zero_w = (g.vals[: g.nnz] == 0).nonzero().flatten()
+    assert len(zero_w) and got[zero_w].abs().min() > 0
+    assert_close_rel(got.cpu().numpy(), want.cpu().numpy())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("precision", ["f32", "bf16"])
+@pytest.mark.parametrize("kind,n_rows,n_cols,f", [
+    ("hubs", 1300, 1300, 602),     # long rows cut into segments
+    ("short", 3000, 2000, 602),    # rectangular, several rows a segment
+    ("both", 1300, 1100, 64),
+    ("both", 1300, 1300, 33),      # odd F: scalar loads of a (and b at f32)
+    ("both", 1100, 1600, 7),       # F under one lane's vector
+    ("both", 1300, 1300, 1300),    # two passes over the features
+])
+def test_cuda_sddmm_precisions_match_plain(cuda, precision, kind, n_rows,
+                                           n_cols, f):
+    """Kernel D at both precisions through the entry point ``sddmm``."""
+    g, a, b = _sddmm_case(kind, n_rows, n_cols, f, seed=n_rows + f)
+    g = g.to(cuda)
+    a, b = a.to(cuda), b.to(cuda)
+    before = port_spmm.SDDMM_LAUNCHES
+    got = port_spmm.sddmm(g, a, b, precision)
+    again = port_spmm.sddmm(g, a, b, precision)
+    assert port_spmm.SDDMM_LAUNCHES == before + 2
+    _check_sddmm(g, got, again, port_spmm.sddmm_plain(g, a, b, precision))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("precision", ["f32", "bf16"])
+def test_cuda_sddmm_misaligned_a_matches_plain(cuda, precision):
+    """An f32 ``a`` whose rows are only 4-byte aligned takes the scalar
+    loads of a."""
+    g, _, b = _sddmm_case("both", 1300, 1100, 46, seed=3)
+    buf = torch.randn(1300 * 46 + 1, device=cuda)
+    a = buf[1:].view(1300, 46)
+    g, b = g.to(cuda), b.to(cuda)
+    got = port_spmm.sddmm(g, a, b, precision)
+    again = port_spmm.sddmm(g, a, b, precision)
+    _check_sddmm(g, got, again, port_spmm.sddmm_plain(g, a, b, precision))
+
+
+@pytest.mark.cuda
+def test_cuda_sddmm_any_edge_order_matches_plain(cuda):
+    """The kernel finds each run of one row itself, so an edge list out of
+    row order gives the same sums (it only reloads a's rows more often)."""
+    g, a, b = _sddmm_case("both", 1300, 1300, 602, seed=4)
+    perm = np.random.default_rng(5).permutation(g.nnz)
+    pad = np.arange(g.nnz, g.n_edges_padded)
+    order = np.concatenate([perm, pad])
+    shuffled = dataclasses.replace(g, rows=g.rows[order],
+                                   cols=g.cols[order], vals=g.vals[order])
+    shuffled, a, b = shuffled.to(cuda), a.to(cuda), b.to(cuda)
+    got = port_spmm.sddmm(shuffled, a, b)
+    want = port_spmm.sddmm(g.to(cuda), a, b)[torch.from_numpy(order).to(cuda)]
     assert_close_rel(got.cpu().numpy(), want.cpu().numpy())

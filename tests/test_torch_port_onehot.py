@@ -5,9 +5,12 @@ Both packages get the same numpy inputs. Host layouts (``tile_graph``,
 port's kernel wrappers run their plain versions on the CPU and are held
 against the reference's Pallas kernels in interpret mode at precision
 "f32" and its XLA ops: rtol = atol = 1e-5 relative to max|ref|, since
-only the f32 summation order differs. ``spmm(impl="blockdense")`` runs
-at the reference's default ``precision="bf16"`` on both sides (x rounded
-to bf16 the same way), so it is held at 1e-5 too.
+only the f32 summation order differs. At precision "bf16" both sides
+round the same values to bf16 (x, and each slot's product), so one hop
+is held at 1e-5 too; a second hop rounds a slightly different input to
+bf16 (``ONEHOT_BF16_K2_TOL``). ``spmm(impl="blockdense")`` runs at the
+reference's default ``precision="bf16"`` on both sides (x rounded to
+bf16 the same way), so it is held at 1e-5 too.
 """
 
 import dataclasses
@@ -222,6 +225,41 @@ def test_tiled_spmm_matches_reference_interpret(entry, case):
         assert not got[row_hi:].any()
 
 
+@pytest.mark.parametrize("entry", ["flat", "stripes"])
+@pytest.mark.parametrize("case", sorted(SPMM_CASES))
+def test_tiled_spmm_bf16_matches_reference_interpret(entry, case):
+    """precision="bf16": each slot adds bf16(val * bf16(x[col])) on both
+    sides, so only the f32 sum order differs; the result is a different
+    function from "f32"."""
+    n_rows, n_cols, f, R, W, C, row_hi = SPMM_CASES[case]
+    rg, pg = both(*coo(3, n_rows, n_cols, 4000, row_hi=row_hi), n_rows,
+                  n_cols)
+    x = features(4, n_cols, f)
+    ref_fn = (ref_pallas.spmm_pallas_flat if entry == "flat"
+              else ref_pallas.spmm_pallas_tiled)
+    want = np.asarray(ref_fn(ref_pallas.tile_graph(rg, R, W, C),
+                             jnp.asarray(x), interpret=True,
+                             precision="bf16"))[:n_rows, :f]
+    port_fn = (port_tiled.spmm_tiled_flat if entry == "flat"
+               else port_tiled.spmm_tiled_stripes)
+    tiled = port_tiled.tile_graph(pg, R, W, C)
+    got = port_fn(tiled, torch.from_numpy(x), precision="bf16")
+    assert got.shape == (n_rows, f) and got.dtype == torch.float32
+    assert_close_rel(got.numpy(), want)
+    f32 = port_fn(tiled, torch.from_numpy(x)).numpy()
+    assert float(np.abs(f32 - want).max()) > 10 * TOL * float(
+        np.abs(want).max())
+    if row_hi is not None:
+        assert not got[row_hi:].any()
+
+
+def test_tiled_spmm_rejects_unknown_precision():
+    _, pg = both(*coo(5, 96, 96, 400), 96, 96)
+    tiled = port_tiled.tile_graph(pg, 32, 32, 16)
+    with pytest.raises(ValueError, match="precision"):
+        port_tiled.spmm_tiled_flat(tiled, torch.ones(96, 4), precision="tf32")
+
+
 def test_spmm_tiled_caches_the_tiling():
     rg, pg = both(*coo(5, 96, 96, 400), 96, 96)
     x = features(6, 96, 8)
@@ -280,6 +318,27 @@ def test_split_dense_cells_matches_reference(case):
                                         precision="f32")
     got = port_hybrid.spmm_hybrid_split(port, torch.from_numpy(x))
     assert_close_rel(got.numpy(), want)
+
+
+@pytest.mark.parametrize("case", sorted(SPLIT_CASES))
+def test_split_dense_cells_bf16_matches_reference(case):
+    """The hybrid hop at precision "bf16": kernel C's bf16 dense part plus
+    the f32 remainder, on both sides; the drop-in ``spmm_hybrid`` agrees."""
+    (rg, pg), n, min_fill = split_case(case)
+    kw = dict(row_block=64, stripe=64, chunk=32, min_fill=min_fill)
+    ref = ref_hybrid.split_dense_cells(rg, 96, **kw)
+    port = port_hybrid.split_dense_cells(pg, 96, **kw)
+    x = features(8, n, 33)
+    want = ref_hybrid.spmm_hybrid_split(ref, jnp.asarray(x), interpret=True,
+                                        precision="bf16")
+    got = port_hybrid.spmm_hybrid_split(port, torch.from_numpy(x),
+                                        precision="bf16")
+    assert_close_rel(got.numpy(), want)
+    clear_placed()
+    drop_in = port_hybrid.spmm_hybrid(pg.to("cpu"), torch.from_numpy(x),
+                                      precision="bf16", **kw)
+    clear_placed()
+    assert_close_rel(drop_in.numpy(), want)
 
 
 def test_min_fill_for_matches_reference():
@@ -353,16 +412,50 @@ def test_onehot_propagate_all_matches_reference(onehot_plans):
     assert_close_rel(got, want)
 
 
-def test_onehot_has_no_bf16_mode(onehot_plans):
-    """Kernels C and D compute in FP32, so the onehot plan refuses
-    precision="bf16" instead of quietly computing f32."""
-    port = onehot_plans[1]
-    for call in (lambda: port.hop_fns("bf16"),
-                 lambda: port.khop_traceable(2, precision="bf16"),
-                 lambda: port.propagate_train(2, precision="bf16"),
-                 lambda: port.propagate_all(1, precision="bf16")):
-        with pytest.raises(ValueError, match="ROADMAP"):
-            call()
+# relative to max|ref| after two bf16 hops: the second hop rounds the
+# first hop's f32 output, which differs from the reference's in its last
+# bits, to bf16, so a value near a rounding boundary may round the other
+# way (one bf16 step is 2**-8 of it)
+ONEHOT_BF16_K2_TOL = 1e-4
+
+
+def onehot_hops(plan, entry, degree, ref=False):
+    """``degree`` hops at precision "bf16" through one of the plan's entry
+    points (the reference's in interpret mode when ``ref``)."""
+    kw = {"interpret": True} if ref else {}
+    x = jnp.asarray(plan.features) if ref else torch.as_tensor(plan.features)
+    if entry == "hop_fns":
+        full, final = plan.hop_fns("bf16", **kw)
+        for _ in range(degree - 1):
+            x = full(x)
+        return final(x)
+    if entry == "khop_traceable":
+        khop, args = plan.khop_traceable(degree, precision="bf16", **kw)
+        return khop(x, args)
+    if entry == "propagate_train":
+        return plan.propagate_train(degree, precision="bf16", **kw)
+    return plan.propagate_all(degree, precision="bf16", **kw)
+
+
+@pytest.mark.parametrize("entry", ["hop_fns", "khop_traceable",
+                                   "propagate_train", "propagate_all"])
+def test_onehot_bf16_matches_reference(onehot_plans, entry):
+    """The onehot plan at precision "bf16" (kernel C's bf16 dense part)
+    against the reference's, through each entry point: one hop at 1e-5,
+    two hops at ONEHOT_BF16_K2_TOL; and "bf16" is not "f32"."""
+    ref, port = onehot_plans
+    for degree, tol in ((1, TOL), (2, ONEHOT_BF16_K2_TOL)):
+        want = np.asarray(onehot_hops(ref, entry, degree, ref=True))
+        got = onehot_hops(port, entry, degree).numpy()
+        assert_close_rel(got, want, tol)
+    f32 = {"hop_fns": lambda: port.hop_fns()[1](
+               torch.as_tensor(port.features)),
+           "khop_traceable": lambda: port.propagate_train(1),
+           "propagate_train": lambda: port.propagate_train(1),
+           "propagate_all": lambda: port.propagate_all(1)}[entry]().numpy()
+    one = onehot_hops(port, entry, 1).numpy()
+    assert float(np.abs(one - f32).max()) > 10 * TOL * float(
+        np.abs(f32).max())
 
 
 @pytest.mark.parametrize("formulation", ["auto", "blockdense",
