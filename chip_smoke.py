@@ -27,13 +27,33 @@ B's CUDA kernel on the tiled layout's edges re-sorted by row; "f32" and
 "bf16"), kernel D through ``sddmm`` with two different operands on the
 main operator (both precisions) and on the same graph in its shuffled
 order), checks that kernels A, C and D give identical bits across two
-launches, and
-drives ``spmm(impl=...)`` for every impl. Phases
-print one JSON line each on stdout; the line before the last is
-``{"kernels": [...]}`` and the last is
-``{"ok": true, "device": {...}}``. Any failed phase raises, so the script
-exits non-zero and prints no result; so does a run without a CUDA device
-or outside the repository.
+launches, and drives ``spmm(impl=...)`` for every impl.
+
+Then it drives the user-facing entry points, counters zeroed just before
+each run and read just after:
+
+    reddit_cli:   a Reddit-format pair at Reddit's published shape
+                  (232,965 nodes, the directed half of 11,606,919 edges,
+                  602 features, 41 classes, GraphSAGE's 152,410 / 23,699
+                  / 55,334 split; clustered recipe from --seed, written
+                  under build/) -> cli.reddit.run(inductive=True,
+                  test=True), plain (kernel B) and locality=True
+                  (calibrated LocalityPlan), eval features of both held
+                  together, micro-F1 above 5x chance on each
+    citation_cli: a Planetoid-format set at Pubmed's shape (19,717
+                  nodes, 44,338 edges, 500 features, 3 classes; 60 / 500
+                  / 1,000) -> cli.citation.run for sgc, appnp and ssgc,
+                  cli.sweep.sweep(K = 1, 2, 3), sgc_precompute(degree=2)
+                  under every impl against segment with each impl's
+                  kernels counted, and out_rows=idx_test bit-equal to the
+                  full result's rows
+
+Phases print one JSON line each on stdout; the line before the last is
+``{"kernels": [...]}`` (each row also carries its launches on the new
+paths, ``launches_by_path``) and the last is ``{"ok": true, "device":
+{...}}``. Any failed phase raises, so the script exits non-zero and
+prints no result; so does a run without a CUDA device or outside the
+repository.
 """
 
 from __future__ import annotations
@@ -374,17 +394,18 @@ def train_parity(tr, y, params0, cw, newton_fit, lbfgs_fit) -> dict:
             "parity_ok": parity_ok, "converged_retry": converged_retry}
 
 
-def cells_csr(split, dargs, n_real):
-    """The real cells' nonzero entries (their bf16 values, widened) as one
-    CSR matrix on the card: kernel A's function at precision "f32" as a
-    sparse matrix (yardstick only)."""
+def cells_csr(split, dargs, n_slots):
+    """The nonzero entries of the first ``n_slots`` cell slots (their bf16
+    values, widened) as one CSR matrix on the card: kernel A's function at
+    precision "f32" as a sparse matrix (yardstick only). Zero slots (the
+    grouped layout's holes) add no entry."""
     import torch
 
     R, W = split.row_block, split.stripe
-    cells = dargs.cells[:n_real]
+    cells = dargs.cells[:n_slots]
     k, r, w = cells.nonzero(as_tuple=True)
-    rb = torch.as_tensor(split.rb_ids[:n_real], device=cells.device)
-    st = torch.as_tensor(split.st_ids[:n_real], device=cells.device)
+    rb = torch.as_tensor(split.rb_ids[:n_slots], device=cells.device)
+    st = torch.as_tensor(split.st_ids[:n_slots], device=cells.device)
     with warnings.catch_warnings():
         warnings.filterwarnings("ignore", message=".*[Ss]parse")
         return torch.sparse_coo_tensor(
@@ -585,7 +606,8 @@ def phase_kernel_a_grouped(plan, x, reps) -> None:
     ms = time_ms(lambda: bd.apply_cells(split, dargs, x, "f32"), reps)
     plain_ms = time_ms(
         lambda: bd.apply_cells_plain(split, dargs, x, "f32"), 1)
-    # yardstick: the real cells' products as one gathered f32 bmm
+    # yardstick 1 (not the same function): the real cells' products as
+    # one gathered f32 bmm
     real = np.flatnonzero(dargs.cells[: split.n_slots].flatten(1).any(1)
                           .cpu().numpy())
     xp = x.new_zeros((split.n_stripes * W, F))
@@ -593,17 +615,30 @@ def phase_kernel_a_grouped(plan, x, reps) -> None:
     st = torch.as_tensor(split.st_ids[real], device=x.device).long()
     cells_f32 = dargs.cells[torch.as_tensor(real, device=x.device)].float()
     xg = xp.view(-1, W, F)[st]
-    library_ms = time_ms(lambda: torch.bmm(cells_f32, xg), reps)
+    bmm_ms = time_ms(lambda: torch.bmm(cells_f32, xg), reps)
     del cells_f32, xg, xp
+    # yardstick 2 (the same function as precision "f32"): the cells'
+    # nonzero entries as one CSR matrix, torch.addmm
+    csr = cells_csr(split, dargs, split.n_slots)
+    zero = x.new_zeros((split.n_rows, F))
+    library_ms = time_ms(lambda: torch.addmm(zero, csr, x, beta=0.0), reps)
+    csr_nnz = int(csr._nnz())
+    del csr, zero
     bound = kernel_a_bound(split, dargs, split.n_cells, F,
                            bd.n_passes("f32"))
+    if bound["cell_nonzeros"] != csr_nnz:
+        raise AssertionError("the grouped bound and its CSR yardstick count "
+                             "different nonzeros")
     del dargs
     emit({"phase": "kernel_a_grouped", "group_cells": 4, "super_rows": 8,
           "precision": "f32", "passes": bd.n_passes("f32"),
           "cells": split.n_cells, "slots": split.n_slots,
           "nonzero_slots": len(real), "F": F, "max_abs_err": abs_err,
           "rel_err": err, "tolerance_rel": TOLERANCE, "ms": ms,
-          "plain_ms": plain_ms, "library_ms": library_ms, **bound})
+          "plain_ms": plain_ms, "library_ms": library_ms,
+          "library": "torch.addmm, the cells' nonzeros as one CSR matrix "
+                     f"({csr_nnz} entries): the same function as 'f32'",
+          "bmm_f32_yardstick_ms": bmm_ms, **bound})
 
 
 def csr_of(graph):
@@ -903,6 +938,154 @@ def phase_dispatcher(onehot, reps) -> None:
     emit({"phase": "dispatcher", "impls": impls})
 
 
+def counted(fn):
+    """``(fn(), launches)``: every kernel's counter, by its row name in the
+    kernels line, zeroed just before the call and read just after it (the
+    card synchronized)."""
+    import torch
+
+    from sgc_tpu_torch.ops import spmm, spmm_blockdense, spmm_tiled
+
+    counters = {"blockdense_cells": (spmm_blockdense, "LAUNCHES"),
+                "csr_spmm": (spmm, "LAUNCHES"),
+                "tiled_spmm": (spmm_tiled, "LAUNCHES"),
+                "sddmm": (spmm, "SDDMM_LAUNCHES")}
+    for mod, attr in counters.values():
+        setattr(mod, attr, 0)
+    out = fn()
+    torch.cuda.synchronize()
+    return out, {name: getattr(mod, attr)
+                 for name, (mod, attr) in counters.items()}
+
+
+def scratch_dir():
+    """A temporary directory under the checkout's git-ignored build/."""
+    import tempfile
+
+    build = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                         "build")
+    os.makedirs(build, exist_ok=True)
+    return tempfile.TemporaryDirectory(prefix="chip_smoke_", dir=build)
+
+
+def phase_reddit_cli(args, device) -> dict:
+    """The Reddit CLI's ``run(inductive=True, test=True)`` on a
+    Reddit-format pair at Reddit's published shape (clustered recipe,
+    GraphSAGE's split sizes), once on the plain path (``sgc_precompute``
+    on both adjacencies: kernel B) and once with ``locality=True``
+    (``LocalityPlan`` with the card's calibrated admission). The eval
+    features of both paths must agree (1e-5 relative to max when no cell
+    is admitted, the bf16 tolerance otherwise) and micro-F1 must beat 5x
+    chance on each."""
+    from sgc_tpu_torch.cli import reddit
+    from sgc_tpu_torch.data.fixtures import write_reddit
+
+    runs, launches = {}, {}
+    with scratch_dir() as root:
+        t0 = time.perf_counter()
+        counts = write_reddit(root, scale=args.scale, seed=args.seed)
+        write_s = time.perf_counter() - t0
+        for name, locality in (("plain", False), ("locality", True)):
+            t0 = time.perf_counter()
+            runs[name], launches[name] = counted(lambda: reddit.run(
+                data_path=root, inductive=True, test=True,
+                locality=locality, seed=args.seed, device=device))
+            runs[name]["wall_s"] = time.perf_counter() - t0
+    plain, loc = runs["plain"], runs["locality"]
+    dense = max(loc["dense_frac"], loc["train_dense_frac"])
+    tol = TOLERANCE if dense == 0 else BF16_TOLERANCE
+    abs_err, err = rel_err(loc["eval_features"], plain["eval_features"])
+    shape = tuple(plain["eval_features"].shape)
+    for r in runs.values():
+        del r["eval_features"]
+    chance = 1.0 / counts["classes"]
+    emit({"phase": "reddit_cli", "fixture": counts, "write_s": write_s,
+          "eval_shape": shape, "runs": runs, "launches": launches,
+          "locality_vs_plain_max_abs_err": abs_err,
+          "locality_vs_plain_rel_err": err, "tolerance_rel": tol,
+          "chance": chance})
+    if shape != (counts["nodes"], counts["features"]):
+        raise AssertionError(f"eval features of shape {shape}")
+    if not err <= tol:
+        raise AssertionError(f"locality vs plain eval features: {err:.3e}")
+    for name, r in runs.items():
+        if not r["f1_micro"] > 5 * chance:
+            raise AssertionError(f"{name}: micro-F1 {r['f1_micro']:.4f}")
+    if launches["plain"]["csr_spmm"] <= 0 or (
+            launches["locality"]["csr_spmm"] <= 0 and dense < 1):
+        raise AssertionError(f"kernel B never launched: {launches}")
+    if dense > 0 and launches["locality"]["blockdense_cells"] <= 0:
+        raise AssertionError(f"cells admitted, kernel A idle: {launches}")
+    return launches
+
+
+def phase_citation_cli(args, device) -> dict:
+    """The citation CLI at Pubmed's published shape on a Planetoid-format
+    fixture: ``run()`` under each propagator and the K sweep, then
+    ``sgc_precompute(degree=2)`` under every impl against ``segment``
+    (1e-5; ``blockdense`` at its default bf16 x: the bf16 tolerance),
+    each impl's kernels shown launched, and ``out_rows=idx_test`` equal
+    bit for bit to the full result's rows."""
+    import torch
+
+    from sgc_tpu_torch.cli import citation, sweep
+    from sgc_tpu_torch.data.fixtures import PUBMED, write_planetoid
+    from sgc_tpu_torch.data.planetoid import load_citation
+    from sgc_tpu_torch.ops.propagate import sgc_precompute
+    from sgc_tpu_torch.ops.spmm import IMPLS
+    from sgc_tpu_torch.utils.config import CitationConfig
+
+    runs, launches = {}, {}
+    with scratch_dir() as root:
+        write_planetoid(root, "pubmed", **PUBMED, seed=args.seed)
+        for prop in ("sgc", "appnp", "ssgc"):
+            runs[prop], launches[prop] = counted(lambda: citation.run(
+                CitationConfig(dataset="pubmed", seed=args.seed), root,
+                propagator=prop, device=device))
+        rows, launches["sweep"] = counted(lambda: sweep.sweep(
+            ["pubmed"], [1, 2, 3], seed=args.seed, data_path=root,
+            device=device))
+        data = load_citation("pubmed", data_path=root, device=device)
+    chance = 1.0 / data.n_classes
+    x, g = data.features, data.graph
+    seg, _ = sgc_precompute(x, g, 2, impl="segment")
+    expect = {"auto": ("csr_spmm",), "segment": ("csr_spmm",),
+              "chunked": ("csr_spmm",), "tiled": ("tiled_spmm",),
+              "hybrid": ("tiled_spmm", "csr_spmm"),
+              "blockdense": ("blockdense_cells", "csr_spmm")}
+    impls = {}
+    for impl in IMPLS:
+        (got, seconds), n = counted(lambda: sgc_precompute(x, g, 2, impl))
+        _, err = rel_err(got, seg)
+        tol = BF16_TOLERANCE if impl == "blockdense" else TOLERANCE
+        (_, warm_s), _ = counted(lambda: sgc_precompute(x, g, 2, impl))
+        impls[impl] = {"rel_err": err, "tolerance_rel": tol,
+                       "first_s": seconds, "warm_s": warm_s, "launches": n}
+        if not err <= tol:
+            raise AssertionError(f"sgc_precompute({impl!r}) vs segment: "
+                                 f"{err:.3e} > {tol}")
+        if any(n[k] <= 0 for k in expect[impl]):
+            raise AssertionError(f"sgc_precompute({impl!r}) launched {n}")
+    sub, _ = sgc_precompute(x, g, 2, out_rows=data.idx_test)
+    bits = bool(torch.equal(
+        sub, seg[torch.as_tensor(data.idx_test, device=x.device)]))
+    emit({"phase": "citation_cli", "fixture": {
+              **PUBMED, "nnz_normalized": g.nnz}, "runs": runs,
+          "sweep": rows, "launches": launches, "sgc_precompute": impls,
+          "out_rows_bit_equal": bits, "chance": chance})
+    if not bits:
+        raise AssertionError("out_rows rows differ from the full result's")
+    for name, r in runs.items():
+        if not r["test_accuracy"] > 2 * chance:
+            raise AssertionError(f"{name}: test accuracy "
+                                 f"{r['test_accuracy']:.4f}")
+    if any(r["test_acc"] <= 2 * chance for r in rows):
+        raise AssertionError(f"sweep accuracies: {rows}")
+    if any(n["csr_spmm"] <= 0 for n in launches.values()):
+        raise AssertionError(f"kernel B never launched: {launches}")
+    return launches
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--scale", type=float, default=1.0,
@@ -946,6 +1129,13 @@ def main() -> int:
     rows.append(phase_kernel_d(onehot, shuffled, args.reps))
     del shuffled
     phase_dispatcher(onehot, args.reps)
+    del onehot
+    by_path = {"reddit_cli": phase_reddit_cli(args, device),
+               "citation_cli": phase_citation_cli(args, device)}
+    for row in rows:
+        row["launches_by_path"] = {
+            path: {run: n[row["name"]] for run, n in runs.items()}
+            for path, runs in by_path.items()}
     log(f"chip_smoke: {time.perf_counter() - t_start:.1f}s")
     emit({"kernels": rows})
     emit({"ok": True, "device": {"platform": "gpu",

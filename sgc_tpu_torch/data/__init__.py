@@ -1,1 +1,2 @@
-"""Synthetic data generators."""
+"""Datasets: the Planetoid and Reddit loaders, synthetic generators, and
+writers of seeded files in the published formats."""

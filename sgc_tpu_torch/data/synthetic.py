@@ -44,7 +44,7 @@ def synthetic_reddit(scale: float, seed: int = 42):
     return graph, features, labels, np.arange(n_train)
 
 
-def synthetic_reddit_clustered(
+def clustered_edges(
     scale: float,
     seed: int = 42,
     communities: int = 50,
@@ -52,15 +52,10 @@ def synthetic_reddit_clustered(
     shuffle: bool = False,
     tail: str = "sq",
 ):
-    """Reddit-shaped graph with ``communities`` equal-size communities:
-    ``intra`` of the edges fall inside a community (hub-skewed by
-    ``tail``: "sq" or "powerlaw"), the rest are uniform pairs. Labels are
-    planted (community % 41, 10% noise) with a class-mean feature offset,
-    so a trained head lands far above chance. ``shuffle=True`` permutes
-    the node ids so a reordering has to discover the communities.
-
-    Returns ``(graph, features, labels, idx_train)``, all on the host.
-    """
+    """The raw draw of :func:`synthetic_reddit_clustered`: ``(src, dst,
+    features, labels, idx_train, n)``, ``src -> dst`` the directed half
+    of the edges (one entry per draw, duplicates kept), before
+    symmetrization and normalization."""
     if tail not in ("sq", "powerlaw"):
         raise ValueError(f"unknown tail {tail!r}")
     n = max(int(REDDIT_NODES * scale), 1024)
@@ -112,9 +107,30 @@ def synthetic_reddit_clustered(
         features = features[inv]
         labels = labels[inv]
         idx_train = np.sort(perm[idx_train])
+    return src, dst, features, labels, idx_train, n
 
+
+def synthetic_reddit_clustered(
+    scale: float,
+    seed: int = 42,
+    communities: int = 50,
+    intra: float = 0.85,
+    shuffle: bool = False,
+    tail: str = "sq",
+):
+    """Reddit-shaped graph with ``communities`` equal-size communities:
+    ``intra`` of the edges fall inside a community (hub-skewed by
+    ``tail``: "sq" or "powerlaw"), the rest are uniform pairs. Labels are
+    planted (community % 41, 10% noise) with a class-mean feature offset,
+    so a trained head lands far above chance. ``shuffle=True`` permutes
+    the node ids so a reordering has to discover the communities.
+
+    Returns ``(graph, features, labels, idx_train)``, all on the host.
+    """
+    src, dst, features, labels, idx_train, n = clustered_edges(
+        scale, seed, communities, intra, shuffle, tail)
     adj = sp.coo_matrix(
-        (np.ones(m, dtype=np.float32), (src, dst)), shape=(n, n))
+        (np.ones(len(src), dtype=np.float32), (src, dst)), shape=(n, n))
     adj = adj + adj.T
     graph = SparseGraph.from_scipy(aug_normalized_adjacency(adj))
     return graph, features, labels, idx_train

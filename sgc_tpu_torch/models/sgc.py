@@ -1,5 +1,6 @@
 """SGC head: logistic regression on K-hop-propagated features (the
-counterpart of sgc_tpu/models/sgc.py).
+counterpart of sgc_tpu/models/sgc.py), with the reference's two inits and
+its optional output dropout (TextSGC_Bio's head).
 
 The weight keeps the reference's layout, ``w: [nfeat, nclass]`` (not
 ``nn.Linear``'s transpose), so parameters carry across unchanged.
@@ -35,15 +36,24 @@ class SGC(nn.Module):
 
 
 def init_sgc(generator: torch.Generator, nfeat: int, nclass: int,
-             bias: bool = True, device=None) -> SGC:
-    """Torch's default ``nn.Linear`` init, U(-1/sqrt(nfeat), 1/sqrt(nfeat))
-    for w and b, drawn from ``generator`` (w first, then b) on the
-    generator's device and placed on ``device`` (``None`` -> the card)."""
+             bias: bool = True, init: str = "torch", device=None) -> SGC:
+    """A new head, drawn from ``generator`` (w first, then b) on the
+    generator's device and placed on ``device`` (``None`` -> the card).
+
+    ``init="torch"``: torch's default ``nn.Linear`` init,
+    U(-1/sqrt(nfeat), 1/sqrt(nfeat)) for w and b. ``init="xavier_normal"``:
+    w ~ N(0, 2 / (nfeat + nclass)) (TextSGC's choice), b as above.
+    """
     dev = resolve_device(device)
     bound = 1.0 / math.sqrt(nfeat)
     gdev = generator.device
     w = torch.empty((nfeat, nclass), dtype=torch.float32, device=gdev)
-    w.uniform_(-bound, bound, generator=generator)
+    if init == "torch":
+        w.uniform_(-bound, bound, generator=generator)
+    elif init == "xavier_normal":
+        w.normal_(0.0, math.sqrt(2.0 / (nfeat + nclass)), generator=generator)
+    else:
+        raise ValueError(f"unknown init {init!r}")
     b = None
     if bias:
         b = torch.empty((nclass,), dtype=torch.float32, device=gdev)
@@ -63,6 +73,16 @@ def params_from_jax(w: np.ndarray, b: np.ndarray | None,
     return SGC(wt, bt)
 
 
-def sgc_apply(model: SGC, x: torch.Tensor) -> torch.Tensor:
-    """Forward pass: logits ``[n, nclass]``."""
-    return model(x)
+def sgc_apply(model: SGC, x: torch.Tensor, dropout_rate: float = 0.0,
+              generator: torch.Generator | None = None) -> torch.Tensor:
+    """Forward pass: logits ``[n, nclass]``. With ``dropout_rate > 0`` and
+    a ``generator`` (on x's device), train-time output dropout: each logit
+    is kept with probability ``1 - dropout_rate`` and scaled by its
+    inverse."""
+    out = model(x)
+    if dropout_rate > 0.0 and generator is not None:
+        keep = 1.0 - dropout_rate
+        mask = torch.rand(out.shape, generator=generator,
+                          device=out.device) < keep
+        out = torch.where(mask, out / keep, torch.zeros_like(out))
+    return out

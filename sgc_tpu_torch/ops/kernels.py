@@ -61,6 +61,18 @@ def build_all() -> dict[str, float]:
                         + [native.LIB_SPEC])
 
 
+def load_all(device) -> None:
+    """On a CUDA ``device``, build every stale library at once and load
+    every kernel's entry, so that no build or load falls inside a timed
+    span; on any other device nothing launches a kernel, so nothing to
+    do."""
+    if torch.device(device).type != "cuda":
+        return
+    build_all()
+    for name in KERNEL_SOURCES:
+        entry(name)
+
+
 def entry(name: str):
     """The C entry point of kernel library ``name``, built if needed."""
     fn = _loaded.get(name)

@@ -456,17 +456,25 @@ def spmm_block_dense(split: BlockDenseSplit, x: torch.Tensor,
     return x.new_zeros((split.n_rows, x.shape[1]))
 
 
+def _split_cached(graph: SparseGraph, n_features: int, row_block: int,
+                  stripe: int, device) -> tuple[BlockDenseSplit,
+                                                BlockDenseArgs]:
+    """The split of ``graph`` under the committed admission, in the (rb,
+    st) cell order, and its placement on ``device``, built on first use
+    (``utils.buildcache.placed``: the split is O(E) host work plus GBs of
+    cells)."""
+    return placed(
+        graph, ("blockdense", n_features, row_block, stripe), device,
+        lambda: split_block_dense(graph, n_features, row_block, stripe),
+        blockdense_device_args)
+
+
 def spmm_blockdense_graph(graph: SparseGraph, x: torch.Tensor,
                           row_block: int = DEFAULT_ROW_BLOCK,
                           stripe: int = DEFAULT_STRIPE,
                           precision: str = "bf16") -> torch.Tensor:
-    """Drop-in block-dense SpMM: split with the committed admission and
-    place it on x's device on first use (cached with
-    ``utils.buildcache.placed``: the split is O(E) host work plus GBs of
-    cells), then :func:`spmm_blockdense`."""
-    F = int(x.shape[1])
-    split, args = placed(
-        graph, ("blockdense", F, row_block, stripe), x.device,
-        lambda: split_block_dense(graph, F, row_block, stripe),
-        blockdense_device_args)
+    """Drop-in block-dense SpMM: :func:`_split_cached`, then
+    :func:`spmm_blockdense`."""
+    split, args = _split_cached(graph, int(x.shape[1]), row_block, stripe,
+                                x.device)
     return spmm_blockdense(split, x, args, precision)

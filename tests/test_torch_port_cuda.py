@@ -437,3 +437,70 @@ def test_cuda_sddmm_any_edge_order_matches_plain(cuda):
     got = port_spmm.sddmm(shuffled, a, b)
     want = port_spmm.sddmm(g.to(cuda), a, b)[torch.from_numpy(order).to(cuda)]
     assert_close_rel(got.cpu().numpy(), want.cpu().numpy())
+
+
+# ------------------------------------------- sgc_precompute, the new caller
+
+def _precompute_case():
+    """A normalized operator with dense diagonal cells and a sparse tail
+    (both splits get cells and a remainder), x at F = 300."""
+    import scipy.sparse as sp
+
+    from sgc_tpu_torch.graph.normalize import aug_normalized_adjacency
+
+    n, f = 3000, 300
+    rows, cols, _ = community_coo(12, n, 512, 4, 6000, 3000)
+    adj = sp.coo_matrix((np.ones(len(rows), np.float32), (rows, cols)),
+                        shape=(n, n))
+    s = aug_normalized_adjacency(adj + adj.T)
+    x = np.random.default_rng(13).standard_normal((n, f)).astype(np.float32)
+    idx = np.sort(np.random.default_rng(14).choice(n, 400, replace=False))
+    return PortGraph.from_scipy(s), torch.from_numpy(x), idx
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("impl", ["tiled", "hybrid", "blockdense"])
+@pytest.mark.parametrize("out_rows", [False, True])
+def test_cuda_sgc_precompute_impl_matches_segment(cuda, impl, out_rows):
+    """Each host-layout impl of ``sgc_precompute`` reaches its kernels
+    (counters) and agrees with kernel B's all-segment hops: at 1e-5 for
+    ``tiled`` and ``hybrid``, at 1e-2 for ``blockdense`` (bf16 cells and,
+    at its default precision, bf16 x); one ``blockdense`` hop is also held
+    against its plain version on the CPU at 1e-5."""
+    from sgc_tpu_torch.ops import spmm_tiled as port_tiled
+    from sgc_tpu_torch.ops.propagate import sgc_precompute
+
+    g, x, idx = _precompute_case()
+    gd, xd = g.to(cuda), x.to(cuda)
+    rows = idx if out_rows else None
+    want, _ = sgc_precompute(xd, gd, 2, impl="segment", out_rows=rows)
+    mods = {"blockdense": port_bd, "tiled": port_tiled, "segment": port_spmm}
+    before = {k: m.LAUNCHES for k, m in mods.items()}
+    got, seconds = sgc_precompute(xd, gd, 2, impl=impl, out_rows=rows)
+    torch.cuda.synchronize()
+    launched = {k: m.LAUNCHES - before[k] for k, m in mods.items()}
+    expect = {"tiled": ("tiled",), "hybrid": ("tiled", "segment"),
+              "blockdense": ("blockdense", "segment")}[impl]
+    assert all(launched[k] >= 1 for k in expect), launched
+    assert seconds > 0
+    tol = 1e-2 if impl == "blockdense" else TOL
+    assert_close_rel(got.cpu().numpy(), want.cpu().numpy(), tol)
+    if impl == "blockdense":
+        one, _ = sgc_precompute(xd, gd, 1, impl=impl, out_rows=rows)
+        plain, _ = sgc_precompute(x, g.to("cpu"), 1, impl=impl,
+                                  out_rows=rows)
+        assert_close_rel(one.cpu().numpy(), plain.numpy())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("degree", [1, 2])
+def test_cuda_sgc_precompute_out_rows_bit_equal(cuda, degree):
+    """``out_rows`` through the row subgraph, which keeps each row's edges
+    in order: kernel B sums them alike, so the rows are the same bits."""
+    from sgc_tpu_torch.ops.propagate import sgc_precompute
+
+    g, x, idx = _precompute_case()
+    gd, xd = g.to(cuda), x.to(cuda)
+    full, _ = sgc_precompute(xd, gd, degree)
+    sub, _ = sgc_precompute(xd, gd, degree, out_rows=idx)
+    assert torch.equal(sub, full[torch.as_tensor(idx, device=cuda)])

@@ -37,10 +37,13 @@ print(len(walked))
                          check=True).stdout.splitlines()
     assert out[0] == "", f"port imported {out[0]}"
     # every module, the slices' new ones included, really was imported
-    assert int(out[1]) >= int(out[2]) >= 26
+    assert int(out[1]) >= int(out[2]) >= 40
 
 
 def _entry_points():
+    from sgc_tpu_torch.cli import citation, reddit, sweep
+    from sgc_tpu_torch.data.planetoid import load_citation
+    from sgc_tpu_torch.data.reddit import load_reddit
     from sgc_tpu_torch.graph.locality import LocalityPlan
     from sgc_tpu_torch.graph.sparse import SparseGraph
     from sgc_tpu_torch.models.sgc import init_sgc, params_from_jax
@@ -63,13 +66,23 @@ def _entry_points():
             formulation="onehot"),
         "measured_rates": lambda: measured_rates(),
         "require_cuda_kernels": lambda: require_cuda_kernels(),
+        "init_sgc xavier_normal": lambda: init_sgc(
+            torch.Generator(), 3, 2, init="xavier_normal"),
+        "load_citation": lambda: load_citation("cora", data_path="."),
+        "load_reddit": lambda: load_reddit(data_path="."),
+        "cli.citation.run": lambda: citation.run(citation.CitationConfig(),
+                                                 "."),
+        "cli.reddit.run": lambda: reddit.run(data_path="."),
+        "cli.sweep.sweep": lambda: sweep.sweep(["cora"], [1],
+                                               data_path="."),
     }
 
 
 @pytest.mark.parametrize("name", [
     "resolve_device", "SparseGraph.to", "init_sgc", "params_from_jax",
     "LocalityPlan.build", "LocalityPlan.build onehot", "measured_rates",
-    "require_cuda_kernels"])
+    "require_cuda_kernels", "init_sgc xavier_normal", "load_citation",
+    "load_reddit", "cli.citation.run", "cli.reddit.run", "cli.sweep.sweep"])
 def test_default_device_raises_without_cuda(monkeypatch, name):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA"):
