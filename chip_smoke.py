@@ -48,6 +48,26 @@ each run and read just after:
                   kernels counted, and out_rows=idx_test bit-equal to the
                   full result's rows
 
+Then the paths that train through the graph, whose backward runs on the
+kernels too (kernel B over the transpose, kernel D for the attention
+values), each with counters zeroed just before and read just after:
+
+    gat_reddit:   a two-layer GAT (Velickovic et al. 2018, Pubmed widths:
+                  8 heads x 8 concatenated, 8 output heads averaged), 3
+                  Adam steps on the clustered Reddit graph above, twice
+                  (the same bits); the backward's kernel D and transposed
+                  kernel B held against their plain versions on the
+                  step's own operands and timed beside the forward
+                  kernel B, with bounds and library calls
+    gcn_cli:      cli.citation.run(model="GCN", tuned=True) on the
+                  Pubmed-shape fixture, twice (the same parameter bits),
+                  and one GCN gradient held against a CPU copy
+    gat_pubmed:   the same GAT, 200 Adam epochs on that fixture, one
+                  gradient held against a CPU copy
+    deep_gcn:     an 8-layer residual deep GCN (hidden 64): remat on and
+                  off give the same bits, Adam steps lower the loss
+    tuning_cli:   cli.tuning.tune_citation, 60 TPE fits, then grid=16
+
 Phases print one JSON line each on stdout; the line before the last is
 ``{"kernels": [...]}`` (each row also carries its launches on the new
 paths, ``launches_by_path``) and the last is ``{"ok": true, "device":
@@ -944,12 +964,14 @@ def counted(fn):
     card synchronized)."""
     import torch
 
-    from sgc_tpu_torch.ops import spmm, spmm_blockdense, spmm_tiled
+    from sgc_tpu_torch.ops import autograd, spmm, spmm_blockdense, spmm_tiled
 
     counters = {"blockdense_cells": (spmm_blockdense, "LAUNCHES"),
                 "csr_spmm": (spmm, "LAUNCHES"),
                 "tiled_spmm": (spmm_tiled, "LAUNCHES"),
-                "sddmm": (spmm, "SDDMM_LAUNCHES")}
+                "sddmm": (spmm, "SDDMM_LAUNCHES"),
+                # of csr_spmm's: those over a transpose (backward)
+                "csr_spmm_transposed": (autograd, "TRANSPOSED_LAUNCHES")}
     for mod, attr in counters.values():
         setattr(mod, attr, 0)
     out = fn()
@@ -1086,6 +1108,461 @@ def phase_citation_cli(args, device) -> dict:
     return launches
 
 
+# --------------------------------------------- training through the graph
+
+
+def param_grads(loss_fn, params):
+    """``[loss, grad of each parameter]`` of one backward."""
+    for p in params:
+        p.grad = None
+    loss = loss_fn()
+    loss.backward()
+    return [loss.detach()] + [p.grad.clone() for p in params]
+
+
+def max_rel_err(got, want) -> float:
+    """The largest of ``rel_err`` over paired lists of tensors."""
+    return max(rel_err(g.cpu(), w.cpu())[1] for g, w in zip(got, want))
+
+
+def same_bits(a, b) -> bool:
+    import torch
+
+    return all(torch.equal(x, y) for x, y in zip(a, b))
+
+
+def phase_gcn_cli(root, device) -> dict:
+    """``cli.citation.run(model="GCN", tuned=True)`` on the Pubmed-shape
+    fixture, twice: kernel B in both directions (forward, and over the
+    transpose in the backward), test accuracy above 2x chance, and the
+    two runs' final parameters the same bits. Then one gradient of the
+    GCN loss on the card held against a CPU copy (plain kernels) at
+    1e-4, with one dropout mask given to both."""
+    import torch
+
+    from sgc_tpu_torch.cli import citation
+    from sgc_tpu_torch.data.planetoid import load_citation
+    from sgc_tpu_torch.models.gcn import gcn_apply, init_gcn
+    from sgc_tpu_torch.train.loops import node_cross_entropy, train_target
+    from sgc_tpu_torch.utils.config import CitationConfig
+
+    fitted = []
+    real = citation.train_gcn
+
+    def keep(*a, **kw):
+        out = real(*a, **kw)
+        fitted.append(out[0])
+        return out
+
+    citation.train_gcn = keep
+    try:
+        runs = [counted(lambda: citation.run(
+            CitationConfig(dataset="pubmed", model="GCN", tuned=True), root,
+            device=device)) for _ in range(2)]
+    finally:
+        citation.train_gcn = real
+    cfg = CitationConfig(dataset="pubmed", model="GCN", tuned=True).resolve()
+    res, launches = runs[0]
+    bits = same_bits(list(fitted[0].parameters()),
+                     list(fitted[1].parameters()))
+
+    grads = []
+    for dev in (device, torch.device("cpu")):
+        data = load_citation("pubmed", data_path=root, device=dev)
+        m = init_gcn(torch.Generator().manual_seed(7),
+                     data.features.shape[1], cfg.hidden, data.n_classes,
+                     device=dev)
+        mask = (torch.rand((data.graph.n_rows, cfg.hidden),
+                           generator=torch.Generator().manual_seed(8))
+                < 1.0 - cfg.dropout).to(dev)
+        target = train_target(data.graph.n_rows, data.idx_train,
+                              data.labels[data.idx_train])
+        grads.append(param_grads(lambda: node_cross_entropy(
+            gcn_apply(m, data.features, data.graph, dropout_rate=cfg.dropout,
+                      keep_mask=mask), *target), list(m.parameters())))
+    grad_err = max_rel_err(*grads)
+    chance = 1.0 / data.n_classes
+    forward_b = launches["csr_spmm"] - launches["csr_spmm_transposed"]
+    emit({"phase": "gcn_cli", "config": {k: getattr(cfg, k) for k in (
+              "hidden", "dropout", "epochs", "lr", "weight_decay")},
+          "runs": [r for r, _ in runs], "launches": launches,
+          "s_per_epoch": res["train_time"] / cfg.epochs,
+          "params_bit_equal": bits, "grad_vs_cpu_rel_err": grad_err,
+          "grad_tolerance_rel": 1e-4, "chance": chance})
+    if not bits:
+        raise AssertionError("two GCN trainings gave different parameters")
+    if not grad_err <= 1e-4:
+        raise AssertionError(f"GCN gradients vs CPU: {grad_err:.3e}")
+    for r, _ in runs:
+        if not r["test_accuracy"] > 2 * chance:
+            raise AssertionError(f"GCN test accuracy {r['test_accuracy']}")
+    if forward_b <= 0 or launches["csr_spmm_transposed"] <= 0:
+        raise AssertionError(f"kernel B not run both ways: {launches}")
+    return {"gcn": launches}
+
+
+def gat_model(device, f_in, n_classes, seed):
+    """Velickovic et al. 2018's Pubmed GAT: 8 heads x 8 features,
+    concatenated, ELU; then 8 output heads, averaged."""
+    import torch
+
+    from sgc_tpu_torch.models.gat import init_multi_head
+
+    g = torch.Generator().manual_seed(seed)
+    return (init_multi_head(g, 8, f_in, 8, device=device),
+            init_multi_head(g, 8, 64, n_classes, device=device))
+
+
+def gat_logits(layers, x, graph):
+    from sgc_tpu_torch.models.gat import multi_head_gat
+
+    h = multi_head_gat(layers[0], x, graph)
+    return multi_head_gat(layers[1], h, graph, concat=False, activation=None)
+
+
+def train_gat(layers, x, graph, target, steps, lr, weight_decay=0.0):
+    """``steps`` Adam steps on the train rows' cross-entropy; returns the
+    losses."""
+    import torch
+
+    from sgc_tpu_torch.train.loops import node_cross_entropy
+
+    params = [p for m in layers for p in m.parameters()]
+    opt = torch.optim.Adam(params, lr=lr, weight_decay=weight_decay)
+    losses = []
+    for _ in range(steps):
+        opt.zero_grad(set_to_none=True)
+        loss = node_cross_entropy(gat_logits(layers, x, graph), *target)
+        loss.backward()
+        opt.step()
+        losses.append(loss.detach())
+    return [float(v) for v in losses]
+
+
+def copy_layers(layers, device):
+    from sgc_tpu_torch.models.gat import GATLayer
+
+    return tuple(GATLayer(*(p.detach().to(device).clone() for p in (
+        m.w, m.a_src, m.a_dst, m.bias))) for m in layers)
+
+
+def phase_gat_pubmed(root, device) -> dict:
+    """The two-layer GAT trained for 200 Adam epochs (lr 5e-3, weight
+    decay 1e-3; the paper's dropout is not in the reference's layer) on
+    the Pubmed-shape fixture: test accuracy above 2x chance; one gradient
+    on the card held against a CPU copy at 1e-4. (Two runs giving the
+    same bits is held on the Reddit-shape graph, ``gat_reddit``.)"""
+    import torch
+
+    from sgc_tpu_torch.data.planetoid import load_citation
+    from sgc_tpu_torch.train.loops import node_cross_entropy, train_target
+    from sgc_tpu_torch.train.metrics import accuracy
+    from sgc_tpu_torch.utils.profiling import sync
+
+    data = load_citation("pubmed", data_path=root, device=device)
+    x, g = data.features, data.graph
+    target = train_target(g.n_rows, data.idx_train,
+                          data.labels[data.idx_train])
+    init = gat_model(device, x.shape[1], data.n_classes, 11)
+    epochs = 200
+
+    cpu = load_citation("pubmed", data_path=root, device="cpu")
+    cpu_target = train_target(cpu.graph.n_rows, cpu.idx_train,
+                              cpu.labels[cpu.idx_train])
+    grads = {}
+    for name, layers, xx, gg, tt in (
+            ("cuda", copy_layers(init, device), x, g, target),
+            ("cpu", copy_layers(init, "cpu"), cpu.features, cpu.graph,
+             cpu_target)):
+        params = [p for m in layers for p in m.parameters()]
+        grads[name] = param_grads(lambda: node_cross_entropy(
+            gat_logits(layers, xx, gg), *tt), params)
+    grad_err = max_rel_err(grads["cuda"], grads["cpu"])
+    del cpu, cpu_target
+
+    train_gat(copy_layers(init, device), x, g, target, 1, 5e-3, 1e-3)
+    layers = copy_layers(init, device)          # after a warm step
+    t0 = time.perf_counter()
+    losses, launches = counted(
+        lambda: train_gat(layers, x, g, target, epochs, 5e-3, 1e-3))
+    sync(device)
+    train_s = time.perf_counter() - t0
+    with torch.no_grad():
+        logits = gat_logits(layers, x, g)
+    run = {"train_s": train_s, "s_per_epoch": train_s / epochs,
+           "first_loss": losses[0], "last_loss": losses[-1],
+           "val_accuracy": accuracy(logits[data.idx_val],
+                                    data.labels[data.idx_val]),
+           "test_accuracy": accuracy(logits[data.idx_test],
+                                     data.labels[data.idx_test])}
+    chance = 1.0 / data.n_classes
+    emit({"phase": "gat_pubmed", "heads": [8, 8], "hidden": 8,
+          "epochs": epochs, "lr": 5e-3, "weight_decay": 1e-3, **run,
+          "launches": launches,
+          "launches_per_epoch": {k: v / epochs for k, v in launches.items()},
+          "grad_vs_cpu_rel_err": grad_err, "grad_tolerance_rel": 1e-4,
+          "chance": chance})
+    if not grad_err <= 1e-4:
+        raise AssertionError(f"GAT gradients vs CPU: {grad_err:.3e}")
+    if not run["test_accuracy"] > 2 * chance:
+        raise AssertionError(f"GAT test accuracy {run['test_accuracy']}")
+    if min(launches[k] for k in ("csr_spmm", "csr_spmm_transposed",
+                                 "sddmm")) <= 0:
+        raise AssertionError(f"a kernel of the GAT path idle: {launches}")
+    return launches
+
+
+def b_bound(graph, F) -> tuple[float, str]:
+    """Kernel B's bound on one graph at width F, as ``phase_kernel_b``
+    counts it: each edge's (col, val), the row pointer, the x rows that
+    are read and the output once each; 2 F flops an edge."""
+    import torch
+
+    nnz = graph.nnz
+    used = int(torch.unique(graph.cols[:nnz]).numel())
+    ops = 2.0 * nnz * F
+    nbytes = nnz * 8 + (graph.n_rows + 1) * 4 + (used + graph.n_rows) * F * 4
+    return bound_ms(ops, nbytes)
+
+
+def phase_gat_reddit(data, device, reps) -> dict:
+    """Three Adam steps of the same GAT on the Reddit-shape clustered
+    graph (602 features, 41 classes), twice from one init (the same
+    bits). During one step the backward's operands of kernel D and of
+    the transposed kernel B are kept, at F = 8 (a hidden head) and F = 41
+    (an output head); each is held against its plain version at 1e-5 and
+    timed by CUDA events beside the forward kernel B on the same graph,
+    with bounds and the same-function library calls
+    (``torch.sparse.mm`` on the transposed CSR, ``sampled_addmm``)."""
+    import torch
+
+    from sgc_tpu_torch.ops import autograd as ag
+    from sgc_tpu_torch.ops.spmm import (
+        sddmm,
+        sddmm_plain,
+        spmm_segment,
+        spmm_segment_plain,
+    )
+    from sgc_tpu_torch.train.loops import train_target
+    from sgc_tpu_torch.utils.profiling import sync
+
+    graph, features, labels, idx_train = data
+    g = graph.to(device)
+    x = torch.as_tensor(features, device=device)
+    n_classes = int(labels.max()) + 1
+    target = train_target(g.n_rows, idx_train, torch.as_tensor(
+        labels[idx_train], device=device))
+    init = gat_model(device, x.shape[1], n_classes, 13)
+    t0 = time.perf_counter()
+    ag.transposed(g)
+    transpose_s = time.perf_counter() - t0
+
+    # keep the first backward operands at each width
+    kept = {}
+    real_sddmm, real_tr = ag.sddmm, ag.spmm_transposed
+
+    def keep_sddmm(graph_, a, b):
+        kept.setdefault(("d", a.shape[1]), (graph_, a.detach(), b.detach()))
+        return real_sddmm(graph_, a, b)
+
+    def keep_tr(graph_, vals, xx):
+        if xx.shape[1] > 1:
+            kept.setdefault(("bt", xx.shape[1]),
+                            (graph_, vals.detach(), xx.detach()))
+        return real_tr(graph_, vals, xx)
+
+    runs = []
+    for r in range(2):
+        layers = copy_layers(init, device)
+        if r == 0:
+            ag.sddmm, ag.spmm_transposed = keep_sddmm, keep_tr
+        try:
+            train_gat(layers, x, g, target, 1, 5e-3)
+        finally:
+            ag.sddmm, ag.spmm_transposed = real_sddmm, real_tr
+        sync(device)
+        t0 = time.perf_counter()
+        losses, launches = counted(
+            lambda: train_gat(layers, x, g, target, 2, 5e-3))
+        sync(device)
+        runs.append({"step_s": (time.perf_counter() - t0) / 2,
+                     "losses": losses, "launches_2_steps": launches,
+                     "params": [p.detach() for m in layers
+                                for p in m.parameters()]})
+    bits = same_bits(runs[0].pop("params"), runs[1].pop("params"))
+
+    widths = {}
+    for F in (8, n_classes):
+        _, a_d, b_d = kept[("d", F)]
+        _, vals, gx = kept[("bt", F)]
+        att = g.with_vals(vals)
+        gt = ag.on_transpose(g, vals)
+        # forward kernel B on this head's attention graph and h
+        fwd = (lambda: spmm_segment(att, b_d))
+        tr = (lambda: spmm_segment(gt, gx))
+        tr_gather = (lambda: ag.spmm_transposed(g, att.vals, gx))
+        dk = (lambda: sddmm(g, a_d, b_d))
+        out = {}
+        for name, fn, plain in (
+                ("transposed_b", tr, lambda: spmm_segment_plain(gt, gx)),
+                ("d", dk, lambda: sddmm_plain(g, a_d, b_d))):
+            got, again = fn(), fn()
+            abs_err, err = rel_err(got, plain())
+            if not err <= TOLERANCE:
+                raise AssertionError(f"GAT backward {name} at F={F} vs "
+                                     f"plain: {err:.3e}")
+            if not torch.equal(got, again):
+                raise AssertionError(f"{name} at F={F}: launches differ")
+            out[name] = {"max_abs_err": abs_err, "rel_err": err}
+        csr_t, csr = csr_of(gt), csr_of(att)
+        b_fwd, by_fwd = b_bound(att, F)
+        b_tr, by_tr = b_bound(gt, F)
+        d_ms, d_by, _, _ = sddmm_bound(g, a_d, 4)
+        out["forward_b"] = {"ms": time_ms(fwd, reps), "bound_ms": b_fwd,
+                            "bound_by": by_fwd,
+                            "library_ms": time_ms(
+                                lambda: torch.sparse.mm(csr, b_d), reps),
+                            "plain_ms": time_ms(
+                                lambda: spmm_segment_plain(att, b_d), 1)}
+        out["transposed_b"].update({
+            "ms": time_ms(tr, reps),
+            "with_vals_gather_ms": time_ms(tr_gather, reps),
+            "bound_ms": b_tr, "bound_by": by_tr,
+            "library_ms": time_ms(lambda: torch.sparse.mm(csr_t, gx), reps),
+            "plain_ms": time_ms(lambda: spmm_segment_plain(gt, gx), 1)})
+        out["d"].update({
+            "ms": time_ms(dk, reps), "bound_ms": d_ms, "bound_by": d_by,
+            "library_ms": time_ms(lambda: torch.sparse.sampled_addmm(
+                csr, a_d, b_d.t(), beta=0.0), reps),
+            "plain_ms": time_ms(lambda: sddmm_plain(g, a_d, b_d), 1)})
+        widths[F] = out
+        del csr, csr_t, gt, att
+    # the segment sums at F = 1 (softmax denominators, their backward,
+    # the edge scores' row and column sums): one lane of a warp works
+    _, vals, _ = kept[("bt", 8)]
+    ones = torch.ones((g.n_cols, 1), device=device)
+    att = g.with_vals(vals)
+    b1, by1 = b_bound(att, 1)
+    csr = csr_of(att)
+    got = ag.row_sums(g, vals)
+    _, err1 = rel_err(got, spmm_segment_plain(att, ones)[:, 0])
+    if not err1 <= TOLERANCE:
+        raise AssertionError(f"row sums at F=1 vs plain: {err1:.3e}")
+    widths["1"] = {"row_sum": {
+        "rel_err": err1, "ms": time_ms(lambda: ag.row_sums(g, vals), reps),
+        "bound_ms": b1, "bound_by": by1,
+        "library_ms": time_ms(lambda: torch.sparse.mm(csr, ones), reps)}}
+    del csr, att
+    kept.clear()
+    emit({"phase": "gat_reddit", "nodes": g.n_rows, "nnz": g.nnz,
+          "features": int(x.shape[1]), "classes": n_classes,
+          "transpose_build_s": transpose_s, "runs": runs,
+          "params_bit_equal": bits, "tolerance_rel": TOLERANCE,
+          "widths": {str(k): v for k, v in widths.items()}})
+    if not bits:
+        raise AssertionError("two GAT runs on the Reddit graph differ")
+    n = runs[0]["launches_2_steps"]
+    if min(n[k] for k in ("csr_spmm", "csr_spmm_transposed", "sddmm")) <= 0:
+        raise AssertionError(f"a kernel of the GAT path idle: {n}")
+    return {"widths": widths, "launches": n}
+
+
+def phase_deep_gcn(root, device) -> dict:
+    """An 8-layer residual deep GCN (hidden 64) on the Pubmed-shape
+    fixture: ``remat`` on and off give the same loss and gradient bits,
+    the gradient of the same init on a CPU copy (plain kernels) agrees
+    at 1e-4 of max, and a few Adam steps lower the loss."""
+    import torch
+
+    from sgc_tpu_torch.data.planetoid import load_citation
+    from sgc_tpu_torch.models.deep_gcn import (
+        DeepGCN,
+        deep_gcn_apply,
+        init_deep_gcn,
+    )
+    from sgc_tpu_torch.train.loops import node_cross_entropy, train_target
+
+    def loss_fn(model, data, remat):
+        target = train_target(data.graph.n_rows, data.idx_train,
+                              data.labels[data.idx_train])
+        return lambda: node_cross_entropy(deep_gcn_apply(
+            model, data.features, data.graph, remat=remat), *target)
+
+    data = load_citation("pubmed", data_path=root, device=device)
+    model = init_deep_gcn(torch.Generator().manual_seed(17),
+                          data.features.shape[1], 64, data.n_classes,
+                          n_layers=8, device=device)
+    params = list(model.parameters())
+    (on, launches) = counted(lambda: param_grads(
+        loss_fn(model, data, True), params))
+    off = param_grads(loss_fn(model, data, False), params)
+    bits = same_bits(on, off)
+    cpu_model = DeepGCN(*(p.detach().cpu().clone() for p in params))
+    want = param_grads(loss_fn(cpu_model, load_citation(
+        "pubmed", data_path=root, device="cpu"), False),
+        list(cpu_model.parameters()))
+    grad_err = max_rel_err(off, want)
+    del cpu_model, want
+    opt = torch.optim.Adam(params, lr=1e-2)
+    losses = []
+    for _ in range(5):
+        opt.zero_grad(set_to_none=True)
+        loss = loss_fn(model, data, True)()
+        loss.backward()
+        opt.step()
+        losses.append(float(loss.detach()))
+    emit({"phase": "deep_gcn", "layers": 8, "hidden": 64, "residual": True,
+          "remat_bit_equal": bits, "grad_vs_cpu_rel_err": grad_err,
+          "grad_tolerance_rel": 1e-4, "losses": losses,
+          "launches_one_step": launches})
+    if not bits:
+        raise AssertionError("remat on and off gave different bits")
+    if not grad_err <= 1e-4:
+        raise AssertionError(f"deep GCN gradients vs CPU: {grad_err:.3e}")
+    if not losses[-1] < losses[0]:
+        raise AssertionError(f"deep GCN loss did not fall: {losses}")
+    if launches["csr_spmm_transposed"] <= 0:
+        raise AssertionError(f"no backward kernel B: {launches}")
+    return launches
+
+
+def phase_tuning_cli(root, device) -> dict:
+    """``cli.tuning.tune_citation`` on the Pubmed-shape fixture: 60 TPE
+    evaluations, then ``grid=16``; the val accuracy above 2x chance."""
+    from sgc_tpu_torch.cli import tuning
+
+    runs, launches = {}, {}
+    for name, kw in (("tpe", {}), ("grid16", {"grid": 16})):
+        t0 = time.perf_counter()
+        (best, val), launches[name] = counted(lambda: tuning.tune_citation(
+            "pubmed", 2, 100, 0.2, 60, 42, root, device=device, **kw))
+        runs[name] = {"weight_decay": best["weight_decay"],
+                      "val_accuracy": val,
+                      "seconds": time.perf_counter() - t0}
+    emit({"phase": "tuning_cli", "runs": runs, "launches": launches,
+          "chance": 1 / 3})
+    for name, r in runs.items():
+        if not r["val_accuracy"] > 2 / 3:
+            raise AssertionError(f"tuning {name}: {r}")
+    if any(n["csr_spmm"] <= 0 for n in launches.values()):
+        raise AssertionError(f"kernel B never launched: {launches}")
+    return launches
+
+
+def phase_train_paths(args, device) -> dict:
+    """The train-through-the-graph paths on one Pubmed-shape fixture."""
+    from sgc_tpu_torch.data.fixtures import PUBMED, write_planetoid
+
+    with scratch_dir() as root:
+        write_planetoid(root, "pubmed", **PUBMED, seed=args.seed)
+        gcn = phase_gcn_cli(root, device)
+        gat = phase_gat_pubmed(root, device)
+        deep = phase_deep_gcn(root, device)
+        tune = phase_tuning_cli(root, device)
+    return {"gcn_cli": gcn, "gat_train": {"pubmed_200_epochs": gat},
+            "deep_gcn": {"one_step": deep}, "tuning_cli": tune}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--scale", type=float, default=1.0,
@@ -1118,7 +1595,6 @@ def main() -> int:
     phase_calibrated_path(data, main.pop("tr"), device)
     onehot = phase_onehot_path(data, device)
     shuffled = data[:2]
-    del data
     rows = [phase_kernel_a(main["plan"], main["x"], main["launches"],
                            args.reps)]
     phase_kernel_a_grouped(main["plan"], main["x"], args.reps)
@@ -1130,12 +1606,27 @@ def main() -> int:
     del shuffled
     phase_dispatcher(onehot, args.reps)
     del onehot
+    gat_reddit = phase_gat_reddit(data, device, args.reps)
+    del data
     by_path = {"reddit_cli": phase_reddit_cli(args, device),
-               "citation_cli": phase_citation_cli(args, device)}
+               "citation_cli": phase_citation_cli(args, device),
+               **phase_train_paths(args, device)}
+    by_path["gat_train"]["reddit_2_steps"] = gat_reddit["launches"]
     for row in rows:
         row["launches_by_path"] = {
             path: {run: n[row["name"]] for run, n in runs.items()}
             for path, runs in by_path.items()}
+    # the GAT backward's operands on the Reddit-shape graph (F = 8, 41)
+    rows[1]["transposed_launches_by_path"] = {
+        path: {run: n["csr_spmm_transposed"] for run, n in runs.items()}
+        for path, runs in by_path.items()}
+    rows[1]["gat_reddit"] = {F: {k: w[k] for k in ("forward_b",
+                                                   "transposed_b", "row_sum")
+                                 if k in w}
+                             for F, w in gat_reddit["widths"].items()}
+    rows[3]["gat_reddit_backward"] = {F: w["d"] for F, w in
+                                      gat_reddit["widths"].items()
+                                      if "d" in w}
     log(f"chip_smoke: {time.perf_counter() - t_start:.1f}s")
     emit({"kernels": rows})
     emit({"ok": True, "device": {"platform": "gpu",

@@ -1,15 +1,18 @@
-"""Citation-network SGC training CLI (the counterpart of
+"""Citation-network SGC/GCN training CLI (the counterpart of
 sgc_tpu/cli/citation.py), on the card by default:
 
     python -m sgc_tpu_torch.cli.citation --dataset cora --tuned
     python -m sgc_tpu_torch.cli.citation --dataset citeseer --tuned --epochs 150
     python -m sgc_tpu_torch.cli.citation --propagator appnp --degree 16
+    python -m sgc_tpu_torch.cli.citation --dataset pubmed --model GCN --tuned
 
-Load (``data/planetoid.py``), propagate ``S^K X`` once (``sgc``:
+Load (``data/planetoid.py``); for SGC propagate ``S^K X`` once (``sgc``:
 ``sgc_precompute``; ``appnp`` / ``ssgc``: their propagators, timed the
 same way), train the head with Adam on the train rows
-(``train_regression``) and report val/test accuracy. ``--model GCN`` and
-``--sharded`` are not ported yet and raise ``NotImplementedError``.
+(``train_regression``); for GCN train through the graph (``train_gcn``,
+no precompute) and apply the model to the whole graph. Report val/test
+accuracy. ``--sharded`` is not ported yet and raises
+``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -17,18 +20,20 @@ from __future__ import annotations
 import argparse
 from time import perf_counter
 
+import torch
+
 from sgc_tpu_torch.data.planetoid import load_citation
 from sgc_tpu_torch.models.registry import get_model
 from sgc_tpu_torch.ops import kernels
 from sgc_tpu_torch.ops.propagate import fetch_propagator, sgc_precompute
-from sgc_tpu_torch.train.loops import train_regression
+from sgc_tpu_torch.train.loops import train_gcn, train_regression
 from sgc_tpu_torch.train.metrics import accuracy
 from sgc_tpu_torch.utils.config import CitationConfig
 from sgc_tpu_torch.utils.device import resolve_device
 from sgc_tpu_torch.utils.profiling import sync
 from sgc_tpu_torch.utils.seeding import set_seed
 
-SHARDED_TODO = "ROADMAP queue 1 item 13 (distribution)"
+SHARDED_TODO = "ROADMAP queue 1 item 8 (distribution)"
 
 
 def run(cfg: CitationConfig, data_path: str | None = None,
@@ -46,6 +51,8 @@ def run(cfg: CitationConfig, data_path: str | None = None,
     generator = set_seed(cfg.seed)
     data = load_citation(cfg.dataset, cfg.normalization, data_path,
                          device=dev)
+    if cfg.model == "GCN":
+        return _run_gcn(cfg, data, init_fn, apply_fn, generator, dev)
 
     model = init_fn(generator, data.features.shape[1], data.n_classes,
                     device=dev)
@@ -64,6 +71,28 @@ def run(cfg: CitationConfig, data_path: str | None = None,
         cfg.epochs, cfg.weight_decay, cfg.lr)
     logits_val = apply_fn(model, features[data.idx_val])
     logits_test = apply_fn(model, features[data.idx_test])
+    return _result(data, logits_val, logits_test, precompute_time,
+                   train_time)
+
+
+def _run_gcn(cfg, data, init_fn, apply_fn, generator, dev) -> dict:
+    """GCN: the propagation runs inside the model, so there is no
+    precompute (``precompute_time`` 0.0, as in the reference)."""
+    model = init_fn(generator, data.features.shape[1], cfg.hidden or 16,
+                    data.n_classes, device=dev)
+    model, train_time = train_gcn(
+        model, data.features, data.graph, data.idx_train,
+        data.labels[data.idx_train], epochs=cfg.epochs,
+        weight_decay=cfg.weight_decay, lr=cfg.lr, dropout=cfg.dropout,
+        seed=cfg.seed)
+    with torch.no_grad():
+        logits = apply_fn(model, data.features, data.graph)
+    return _result(data, logits[data.idx_val], logits[data.idx_test], 0.0,
+                   train_time)
+
+
+def _result(data, logits_val, logits_test, precompute_time,
+            train_time) -> dict:
     return {
         "val_accuracy": accuracy(logits_val, data.labels[data.idx_val]),
         "test_accuracy": accuracy(logits_test, data.labels[data.idx_test]),
@@ -82,8 +111,7 @@ def main() -> None:
     parser.add_argument("--weight_decay", type=float, default=5e-6)
     parser.add_argument("--hidden", type=int, default=0)
     parser.add_argument("--dropout", type=float, default=0.0)
-    parser.add_argument("--model", default="SGC", choices=["SGC", "GCN"],
-                        help="GCN is not ported yet (raises)")
+    parser.add_argument("--model", default="SGC", choices=["SGC", "GCN"])
     parser.add_argument("--propagator", default="sgc",
                         choices=["sgc", "appnp", "ssgc"],
                         help="propagation scheme for the SGC path")

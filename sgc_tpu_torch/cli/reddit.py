@@ -32,7 +32,7 @@ from sgc_tpu_torch.utils.device import resolve_device
 from sgc_tpu_torch.utils.profiling import sync
 from sgc_tpu_torch.utils.seeding import set_seed
 
-SHARDED_TODO = "ROADMAP queue 1 item 13 (distribution)"
+SHARDED_TODO = "ROADMAP queue 1 item 8 (distribution)"
 
 
 def run(inductive: bool = True, test: bool = True, degree: int = 2,

@@ -159,6 +159,33 @@ class SparseGraph:
             (host(self.vals)[:n], (host(self.rows)[:n], host(self.cols)[:n])),
             shape=self.shape)
 
+    def transpose(self) -> "SparseGraph":
+        """The transpose, re-sorted by its new rows; equal bit for bit to
+        the reference's ``SparseGraph.transpose``."""
+        return self.transpose_perm()[0]
+
+    def transpose_perm(self):
+        """``(transpose, perm)``: the transpose and the int32 permutation
+        of the live edges with ``transpose.vals[:nnz] == vals[:nnz][perm]``
+        (port only: the backward of a product over edge values that change
+        every step gathers them through ``perm``).
+
+        Built on the host by a stable sort of the edges on (col, row), the
+        order the reference's radix sort gives; a graph on a device yields
+        tensors on the same device.
+        """
+        nnz = self.nnz
+        rows = host(self.rows)[:nnz].astype(np.int64)
+        cols = host(self.cols)[:nnz].astype(np.int64)
+        perm = np.argsort((cols << 32) | rows, kind="stable")
+        gt = SparseGraph.from_coo(cols[perm], rows[perm],
+                                  host(self.vals)[:nnz][perm], self.n_cols,
+                                  self.n_rows, presorted=True)
+        perm = perm.astype(np.int32)
+        if self.device is None:
+            return gt, perm
+        return gt.to(self.device), torch.as_tensor(perm, device=self.device)
+
     def with_vals(self, vals) -> "SparseGraph":
         """Same sparsity pattern, new edge values."""
         return dataclasses.replace(self, vals=vals)
@@ -195,3 +222,24 @@ class SparseGraph:
             presorted=ascending,
         )
         return sub if self.device is None else sub.to(self.device)
+
+    # --------------------------------------------------------------- utils
+
+    def _on_tensors(self) -> "SparseGraph":
+        return self if self.device is not None else self.to("cpu")
+
+    def degrees(self) -> torch.Tensor:
+        """Weighted out-degree per row (padding edges contribute 0): kernel
+        B with F = 1 against a column of ones (``ops.autograd.row_sums``),
+        on the graph's device (the CPU for a host graph)."""
+        from sgc_tpu_torch.ops.autograd import row_sums
+
+        g = self._on_tensors()
+        return row_sums(g, g.vals)
+
+    def binary_degrees(self) -> torch.Tensor:
+        """Unweighted degree per row: the edges whose value is nonzero."""
+        from sgc_tpu_torch.ops.autograd import row_sums
+
+        g = self._on_tensors()
+        return row_sums(g, (g.vals != 0).float())

@@ -1,22 +1,21 @@
 """Model registry (the counterpart of sgc_tpu/models/registry.py).
 
 ``get_model(name)`` returns the ``(init_fn, apply_fn)`` pair of a model:
-for SGC, ``init_sgc(generator, nfeat, nclass, **kw) -> SGC`` and
-``sgc_apply(model, x)``. The reference's GCN is not ported yet.
+
+  SGC: ``init_sgc(generator, nfeat, nclass, **kw) -> SGC``,
+       ``sgc_apply(model, x)``;
+  GCN: ``init_gcn(generator, nfeat, nhid, nclass, device=None) -> GCN``,
+       ``gcn_apply(model, x, graph, **kw)``.
 """
 
 from __future__ import annotations
 
+from sgc_tpu_torch.models.gcn import gcn_apply, init_gcn
 from sgc_tpu_torch.models.sgc import init_sgc, sgc_apply
 
 _MODELS = {
     "SGC": (init_sgc, sgc_apply),
-}
-
-# models of the reference the port does not have yet, with the ROADMAP
-# entry that will bring each
-_NOT_PORTED = {
-    "GCN": "ROADMAP queue 1 item 11 (other models)",
+    "GCN": (init_gcn, gcn_apply),
 }
 
 
@@ -24,12 +23,9 @@ def get_model(name: str):
     try:
         return _MODELS[name]
     except KeyError:
-        pass
-    if name in _NOT_PORTED:
         raise NotImplementedError(
-            f"model {name!r} is not ported yet: {_NOT_PORTED[name]}")
-    raise NotImplementedError(
-        f"model:{name} is not implemented! known: {sorted(_MODELS)}")
+            f"model:{name} is not implemented! known: {sorted(_MODELS)}"
+        ) from None
 
 
 def register_model(name: str, init_fn, apply_fn) -> None:

@@ -20,7 +20,7 @@ excluded from the timed region"; on the card it also builds and loads
 the kernel libraries first, so the timer covers the hops alone.
 
 The reference's ``text_structural_features`` is not ported yet (ROADMAP
-queue 1 item 10).
+queue 1 item 4).
 """
 
 from __future__ import annotations

@@ -24,6 +24,14 @@ rows to bf16 and keeps products and sums in f32 (:func:`bf16_round`).
 Determinism is a property of the ops, as in the reference: the kernels
 sum in a fixed order with no float atomics, so repeated runs give
 identical bits; ``segment`` and ``chunked`` agree bit for bit.
+
+Gradients: ``spmm`` under ``auto``, ``segment`` and ``chunked`` goes
+through ``ops/autograd.py::SpmmSegmentFn`` (kernels B and D in the
+backward) whenever x or the graph's values need a gradient; ``tiled``,
+``hybrid`` and ``blockdense`` raise there, as the reference cannot
+differentiate its ``pallas_call``s either. ``spmm_segment`` and ``sddmm``
+are the kernels themselves and raise on such inputs rather than return
+a result with no gradient.
 """
 
 from __future__ import annotations
@@ -80,6 +88,19 @@ def spmm_segment_plain(graph: SparseGraph, x: torch.Tensor,
     return out if dense is None else dense + out
 
 
+def _needs_grad(*ts) -> bool:
+    return torch.is_grad_enabled() and any(
+        torch.is_tensor(t) and t.requires_grad for t in ts)
+
+
+def _no_grad_operands(what: str, *ts) -> None:
+    if _needs_grad(*ts):
+        raise ValueError(f"{what} is not differentiable: use spmm(impl="
+                         "'auto' | 'segment' | 'chunked') or the Functions "
+                         "of ops/autograd.py for inputs that need a "
+                         "gradient")
+
+
 def _check_operand(graph: SparseGraph, x: torch.Tensor) -> None:
     if x.dim() != 2 or x.shape[0] != graph.n_cols:
         raise ValueError(f"x must be [{graph.n_cols}, F], got "
@@ -96,6 +117,7 @@ def spmm_segment(graph: SparseGraph, x: torch.Tensor,
     ``graph`` must live on x's device (:meth:`SparseGraph.to`).
     """
     _check_operand(graph, x)
+    _no_grad_operands("spmm_segment", x, graph.vals, dense)
     if x.device.type == "cpu":
         return spmm_segment_plain(graph, x, dense)
     return _spmm_segment_cuda(graph, x, dense)
@@ -172,10 +194,22 @@ def spmm(graph: SparseGraph, x: torch.Tensor, impl: str = "auto",
     place it on x's device on first use, cached by the graph's arrays
     (``utils.buildcache.placed``; ``clear_placed()`` frees the device
     memory). ``graph`` must live on x's device (:meth:`SparseGraph.to`).
+
+    When x or ``graph.vals`` needs a gradient, ``auto``, ``segment`` and
+    ``chunked`` run ``SpmmSegmentFn`` (kernel B forward; kernel B over
+    the transpose and kernel D backward) and the other impls raise.
     """
     if impl not in IMPLS:
         raise ValueError(f"unknown spmm impl {impl!r}; one of {IMPLS}")
     _check_operand(graph, x)
+    if _needs_grad(x, graph.vals):
+        if impl not in ("auto", "segment", "chunked"):
+            raise ValueError(f"spmm(impl={impl!r}) is not differentiable; "
+                             "use 'auto', 'segment' or 'chunked' for "
+                             "inputs that need a gradient")
+        from sgc_tpu_torch.ops.autograd import SpmmSegmentFn
+
+        return SpmmSegmentFn.apply(graph, graph.vals, x)
     if impl == "auto":
         if x.device.type == "cpu" and (
                 graph.n_edges_padded * x.shape[1] > _SEGMENT_ELEM_BUDGET):
@@ -247,6 +281,7 @@ def sddmm(graph: SparseGraph, a: torch.Tensor, b: torch.Tensor,
     """
     _check_sddmm(graph, a, b)
     check_precision(precision)
+    _no_grad_operands("sddmm", a, b)
     if a.device.type == "cpu":
         return sddmm_plain(graph, a, b, precision)
     return _sddmm_cuda(graph, a, b, precision)

@@ -18,19 +18,31 @@ consume propagated features only.
   (tests/test_lbfgs_torch_oracle.py pins that equivalence). Both minimize
   a (weighted) mean cross-entropy plus ``0.5 * wd * ||W||^2`` and return
   a new :class:`SGC` and that loss. :func:`eval_linear` scores a head.
+* :func:`train_gcn` — the GCN trainer (the reference's ``train_gcn`` /
+  ``_gcn_fit``): Adam on the cross-entropy of the train rows, the graph
+  propagation inside every step, a fresh dropout mask each epoch.
 
 Each trainer returns the seconds its work took on the device: a host
-clock closed by a sync. The input head is never modified.
+clock closed by a sync. The input model is never modified. Before the
+timer, the Adam trainers take one warm step on a throwaway copy of the
+model, so the one-time costs of a first step (the optimizer's state, the
+first launches of its kernels) stay out of the timed span, as the
+reference compiles its epoch loop before its timer; the returned model
+is the same bits either way.
 """
 
 from __future__ import annotations
 
 from time import perf_counter
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
+from sgc_tpu_torch.models.gcn import GCN, gcn_apply
 from sgc_tpu_torch.models.sgc import SGC
+from sgc_tpu_torch.ops import kernels
+from sgc_tpu_torch.ops.autograd import transposed
 from sgc_tpu_torch.train.metrics import hit_rate
 from sgc_tpu_torch.train.optim import newton_linear_fit
 from sgc_tpu_torch.utils.profiling import sync
@@ -111,6 +123,21 @@ def _trainable_copy(model: SGC) -> SGC:
                None if model.b is None else model.b.detach().clone())
 
 
+def _adam_steps(groups, lr: float, loss_fn, epochs: int,
+                losses=None) -> None:
+    """``epochs`` Adam steps on ``loss_fn()`` over the param ``groups``;
+    a vector loss is summed for the backward. The loss of epoch e (before
+    its update) goes to ``losses[..., e]`` when given."""
+    opt = torch.optim.Adam(groups, lr=lr)
+    for e in range(epochs):
+        opt.zero_grad(set_to_none=True)
+        loss = loss_fn()
+        (loss.sum() if loss.dim() else loss).backward()
+        opt.step()
+        if losses is not None:
+            losses[..., e] = loss.detach()
+
+
 def train_regression(model: SGC, train_features: torch.Tensor,
                      train_labels: torch.Tensor, epochs: int = 100,
                      weight_decay: float = 5e-6, lr: float = 0.2,
@@ -121,18 +148,21 @@ def train_regression(model: SGC, train_features: torch.Tensor,
     ``writer`` (utils.profiling.ScalarWriter) records the loss of every
     epoch, taken before that epoch's update, after the timed span.
     """
-    fit = _trainable_copy(model)
-    opt = torch.optim.Adam(list(fit.parameters()), lr=lr,
-                           weight_decay=weight_decay)
     y = train_labels.long()
+
+    def run(fit, n_epochs, losses=None):
+        _adam_steps([{"params": list(fit.parameters()),
+                      "weight_decay": weight_decay}], lr,
+                    lambda: cross_entropy(fit(train_features), y), n_epochs,
+                    losses)
+
+    # a warm step, thrown away: its loss record launches the copy too
+    run(_trainable_copy(model), 1,
+        torch.empty(1, device=train_features.device))
+    fit = _trainable_copy(model)
     losses = torch.empty(epochs, device=train_features.device)
     t = perf_counter()
-    for e in range(epochs):
-        opt.zero_grad(set_to_none=True)
-        loss = cross_entropy(fit(train_features), y)
-        loss.backward()
-        opt.step()
-        losses[e] = loss.detach()
+    run(fit, epochs, losses)
     sync(train_features.device)
     dt = perf_counter() - t
     if writer is not None:
@@ -153,25 +183,30 @@ def train_regression_many(model: SGC, train_features: torch.Tensor,
     of ``weight_decays`` and the float32 ``[n_candidates, epochs]`` losses.
     """
     wds = [float(w) for w in weight_decays]
-    heads = [_trainable_copy(model) for _ in wds]
-    opt = torch.optim.Adam(
-        [{"params": list(h.parameters()), "weight_decay": wd}
-         for h, wd in zip(heads, wds)], lr=lr)
-    y = train_labels.long()
-    k, n = len(heads), int(train_features.shape[0])
-    y_all = y.repeat(k)
-    losses = torch.empty((k, epochs), device=train_features.device)
-    t = perf_counter()
-    for e in range(epochs):
-        opt.zero_grad(set_to_none=True)
-        logits = torch.matmul(train_features, torch.stack([h.w for h in heads]))
+    k, n = len(wds), int(train_features.shape[0])
+    y_all = train_labels.long().repeat(k)
+
+    def each_loss(heads):
+        """The candidates' mean losses ``[k]``, their logits in one
+        batched matmul."""
+        logits = torch.matmul(train_features,
+                              torch.stack([h.w for h in heads]))
         if model.b is not None:
             logits = logits + torch.stack([h.b for h in heads])[:, None, :]
-        each = F.cross_entropy(logits.reshape(k * n, -1), y_all,
+        return F.cross_entropy(logits.reshape(k * n, -1), y_all,
                                reduction="none").view(k, n).mean(dim=1)
-        each.sum().backward()
-        opt.step()
-        losses[:, e] = each.detach()
+
+    def run(heads, n_epochs, losses=None):
+        _adam_steps([{"params": list(h.parameters()), "weight_decay": wd}
+                     for h, wd in zip(heads, wds)], lr,
+                    lambda: each_loss(heads), n_epochs, losses)
+
+    run([_trainable_copy(model) for _ in wds], 1,   # warm step, thrown away
+        torch.empty((k, 1), device=train_features.device))
+    heads = [_trainable_copy(model) for _ in wds]
+    losses = torch.empty((k, epochs), device=train_features.device)
+    t = perf_counter()
+    run(heads, epochs, losses)
     sync(train_features.device)
     return ([h.requires_grad_(False) for h in heads], losses,
             perf_counter() - t)
@@ -203,6 +238,73 @@ def train_linear(model: SGC, train_features: torch.Tensor,
                                    binary, weighted, lr)
     sync(train_features.device)
     return fit, perf_counter() - t
+
+
+def train_target(n_rows: int, train_idx, train_labels: torch.Tensor):
+    """``(labels, weights)`` over all ``n_rows`` nodes for
+    :func:`node_cross_entropy`: the train rows' labels in place and each
+    row's weight its count in ``train_idx`` (0 elsewhere), built once,
+    outside the gradient."""
+    dev = train_labels.device
+    idx = torch.as_tensor(np.asarray(train_idx), device=dev).long()
+    labels = torch.zeros(n_rows, dtype=torch.long, device=dev)
+    labels[idx] = train_labels.long()
+    weights = torch.bincount(idx, minlength=n_rows).float()
+    return labels, weights
+
+
+def node_cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
+                       weights: torch.Tensor) -> torch.Tensor:
+    """The mean cross-entropy of the train rows, ``sum(w_i l_i) /
+    sum(w_i)`` over all rows (:func:`train_target`). Where the reference
+    gathers ``logits[train_idx]``, this weights every row: the backward of
+    a gather is an atomic scatter on CUDA, that of a product is not."""
+    losses = F.cross_entropy(logits, labels, reduction="none")
+    return (losses * weights).sum() / weights.sum()
+
+
+def _gcn_copy(model: GCN) -> GCN:
+    return GCN(*(p.detach().clone() for p in (model.w1, model.b1, model.w2,
+                                               model.b2)))
+
+
+def train_gcn(model: GCN, features: torch.Tensor, graph, train_idx,
+              train_labels: torch.Tensor, epochs: int = 100,
+              weight_decay: float = 5e-6, lr: float = 0.01,
+              dropout: float = 0.5, seed: int = 42):
+    """Full-batch GCN training (sgc_tpu/train/loops.py:291-348): Adam
+    (``torch.optim.Adam(lr, weight_decay)``, the optimizer the
+    reference's ``torch_adam`` copies) on the cross-entropy of the train
+    rows, with a fresh dropout mask each epoch drawn from a
+    ``torch.Generator`` on the features' device seeded with ``seed``.
+    Returns ``(fitted GCN, seconds)``.
+
+    Per epoch: two kernel-B SpMMs forward and two over the transpose
+    backward. The kernel libraries, the transpose and one warm step on a
+    throwaway copy are done before the timer, so the seconds span the
+    epochs alone; the reference's timer also covers its first-call jit of
+    the epoch loop (loops.py:313-320).
+    """
+    dev = features.device
+    kernels.load_all(dev)
+    transposed(graph)
+    labels, weights = train_target(graph.n_rows, train_idx, train_labels)
+
+    def run(fit, n_epochs):
+        generator = torch.Generator(device=dev).manual_seed(seed)
+        _adam_steps([{"params": list(fit.parameters()),
+                      "weight_decay": weight_decay}], lr,
+                    lambda: node_cross_entropy(
+                        gcn_apply(fit, features, graph, dropout_rate=dropout,
+                                  generator=generator), labels, weights),
+                    n_epochs)
+
+    run(_gcn_copy(model), 1)                # warm step, thrown away
+    fit = _gcn_copy(model)
+    t = perf_counter()
+    run(fit, epochs)
+    sync(dev)
+    return fit.requires_grad_(False), perf_counter() - t
 
 
 @torch.no_grad()

@@ -54,17 +54,19 @@ _PLACED = HostBuildCache(4)
 
 
 def placed(graph, params: tuple, device, build: Callable,
-           place: Callable):
+           place: Callable, by_vals: bool = True):
     """``(layout, args)`` for ``graph`` under ``params`` on ``device``:
     ``layout = build()`` and ``args = place(layout, device)`` on first
     use, the cached pair afterwards. ``graph`` is a SparseGraph; its edge
-    arrays key the entry."""
+    arrays key the entry, its values only when ``by_vals`` (a layout of
+    the pattern alone, as the transpose's, serves every reweighting)."""
     def make():
         layout = build()
         return layout, place(layout, device)
 
-    return _PLACED.get((graph.rows, graph.cols, graph.vals),
-                       (graph.nnz, *params, str(device)), make)
+    pins = (graph.rows, graph.cols) + ((graph.vals,) if by_vals else ())
+    return _PLACED.get(pins, (graph.nnz, graph.n_rows, graph.n_cols, by_vals,
+                              *params, str(device)), make)
 
 
 def clear_placed() -> None:

@@ -395,10 +395,11 @@ def test_xavier_init_and_output_dropout():
 
 
 def test_registry():
+    from sgc_tpu_torch.models.gcn import gcn_apply, init_gcn
+
     init_fn, apply_fn = get_model("SGC")
     assert init_fn is init_sgc and apply_fn is sgc_apply
-    with pytest.raises(NotImplementedError, match="item 11"):
-        get_model("GCN")
+    assert get_model("GCN") == (init_gcn, gcn_apply)
     with pytest.raises(NotImplementedError, match="not implemented"):
         get_model("MLP")
     register_model("MLP", init_sgc, sgc_apply)
@@ -447,12 +448,12 @@ def test_citation_run_matches_reference(planetoid_root, monkeypatch,
 
 
 def test_citation_run_raises_for_unported_paths(planetoid_root):
-    with pytest.raises(NotImplementedError, match="item 13"):
+    with pytest.raises(NotImplementedError, match="item 8"):
         port_citation.run(CitationConfig(), str(planetoid_root),
                           sharded=True, device=CPU)
-    with pytest.raises(NotImplementedError, match="item 11"):
+    with pytest.raises(NotImplementedError, match="item 8"):
         port_citation.run(CitationConfig(model="GCN"), str(planetoid_root),
-                          device=CPU)
+                          sharded=True, device=CPU)
 
 
 def test_citation_main_prints_reference_lines(planetoid_root, monkeypatch):

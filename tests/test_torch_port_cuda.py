@@ -504,3 +504,174 @@ def test_cuda_sgc_precompute_out_rows_bit_equal(cuda, degree):
     full, _ = sgc_precompute(xd, gd, degree)
     sub, _ = sgc_precompute(xd, gd, degree, out_rows=idx)
     assert torch.equal(sub, full[torch.as_tensor(idx, device=cuda)])
+
+
+# ------------------------------- gradients through kernels B and D (GCN, GAT)
+
+def _grad_case(n=1300, e=9000, f=40, seed=21):
+    """A normalized operator (self-loops, rows of ragged length) and x."""
+    import scipy.sparse as sp
+
+    from sgc_tpu_torch.graph.normalize import aug_normalized_adjacency
+
+    rng = np.random.default_rng(seed)
+    adj = sp.coo_matrix((np.ones(e, np.float32),
+                         (rng.integers(0, n, e), rng.integers(0, n, e))),
+                        shape=(n, n))
+    s = aug_normalized_adjacency(adj + adj.T)
+    x = rng.standard_normal((n, f)).astype(np.float32)
+    return PortGraph.from_scipy(s), torch.from_numpy(x)
+
+
+def _grads(fn, params):
+    """The loss and every parameter's gradient of one backward."""
+    for p in params:
+        p.grad = None
+    loss = fn()
+    loss.backward()
+    return [loss.detach()] + [p.grad.clone() for p in params]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("f", [1, 8, 16, 602])
+def test_cuda_spmm_segment_fn_backward_matches_cpu(cuda, f):
+    """``SpmmSegmentFn``'s backward on the card: ``dx`` is kernel B over
+    the transpose and ``dvals`` kernel D; both hold the CPU's plain
+    versions at 1e-5 and repeat to the same bits."""
+    from sgc_tpu_torch.ops import autograd as port_ag
+
+    g, _ = _grad_case(f=f)
+    x = torch.from_numpy(np.random.default_rng(f).standard_normal(
+        (g.n_cols, f)).astype(np.float32))
+    w = torch.from_numpy(np.random.default_rng(f + 1).standard_normal(
+        (g.n_rows, f)).astype(np.float32))
+    outs = {}
+    for dev in ("cpu", cuda):
+        gd = g.to(dev)
+        vals = gd.vals.clone().requires_grad_(True)
+        xd = x.to(dev).requires_grad_(True)
+        runs = []
+        for _ in range(2):
+            before = (port_spmm.SDDMM_LAUNCHES, port_ag.TRANSPOSED_LAUNCHES)
+            out = port_ag.SpmmSegmentFn.apply(gd, vals, xd)
+            dv, dx = torch.autograd.grad((out * w.to(dev)).sum(), (vals, xd))
+            runs.append((dv, dx))
+        if dev != "cpu":
+            torch.cuda.synchronize()
+            assert (port_spmm.SDDMM_LAUNCHES - before[0],
+                    port_ag.TRANSPOSED_LAUNCHES - before[1]) == (1, 1)
+            for a, b in zip(*runs):
+                assert torch.equal(a, b)
+        outs[str(dev)] = [t.cpu().numpy() for t in runs[0]]
+    for a, b in zip(outs[str(cuda)], outs["cpu"]):
+        assert_close_rel(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("f", [0, 3])
+def test_cuda_transposed_launches_count_launches_only(cuda, f):
+    """The transposed count moves with kernel B's own: an empty product
+    launches nothing and counts nothing."""
+    from sgc_tpu_torch.ops import autograd as port_ag
+
+    g, _ = _grad_case()
+    gd = g.to(cuda)
+    before = (port_spmm.LAUNCHES, port_ag.TRANSPOSED_LAUNCHES)
+    out = port_ag.spmm_transposed(gd, gd.vals,
+                                  torch.ones((g.n_rows, f), device=cuda))
+    torch.cuda.synchronize()
+    assert out.shape == (g.n_cols, f)
+    assert (port_spmm.LAUNCHES - before[0],
+            port_ag.TRANSPOSED_LAUNCHES - before[1]) == (int(f > 0),) * 2
+
+
+@pytest.mark.cuda
+def test_cuda_gcn_and_deep_gcn_grads_match_cpu(cuda):
+    """A GCN and a residual deep GCN on the card: the parameters'
+    gradients hold the CPU's at 1e-4 and repeat to the same bits;
+    ``remat`` on and off give the same bits."""
+    from sgc_tpu_torch.models import deep_gcn, gcn
+
+    g, x = _grad_case()
+    y = torch.from_numpy(np.random.default_rng(22).integers(0, 5, g.n_rows))
+    results = {}
+    for dev in ("cpu", cuda):
+        gd, xd, yd = g.to(dev), x.to(dev), y.to(dev)
+        m = gcn.init_gcn(torch.Generator().manual_seed(0), 40, 16, 5,
+                         device=dev)
+        d = deep_gcn.init_deep_gcn(torch.Generator().manual_seed(1), 40, 32,
+                                   5, n_layers=5, device=dev)
+        mask = torch.rand((g.n_rows, 16),
+                          generator=torch.Generator().manual_seed(2)) < 0.5
+        runs = {
+            "gcn": _grads(lambda: torch.nn.functional.cross_entropy(
+                gcn.gcn_apply(m, xd, gd, dropout_rate=0.5,
+                              keep_mask=mask.to(dev)), yd),
+                list(m.parameters()))}
+        for remat in (True, False):
+            runs[f"deep_{remat}"] = _grads(
+                lambda: torch.nn.functional.cross_entropy(
+                    deep_gcn.deep_gcn_apply(d, xd, gd, remat=remat), yd),
+                list(d.parameters()))
+        if dev != "cpu":
+            again = _grads(lambda: torch.nn.functional.cross_entropy(
+                gcn.gcn_apply(m, xd, gd, dropout_rate=0.5,
+                              keep_mask=mask.to(dev)), yd),
+                list(m.parameters()))
+            for a, b in zip(runs["gcn"], again):
+                assert torch.equal(a, b)
+            for a, b in zip(runs["deep_True"], runs["deep_False"]):
+                assert torch.equal(a, b)
+        results[str(dev)] = runs
+    for name in ("gcn", "deep_True"):
+        for a, b in zip(results[str(cuda)][name], results["cpu"][name]):
+            assert_close_rel(a.cpu().numpy(), b.numpy(), 1e-4)
+
+
+@pytest.mark.cuda
+def test_cuda_gat_grads_match_cpu(cuda):
+    """Two multi-head GAT layers (concat, then mean) on the card: the
+    loss and the gradients hold the CPU's (1e-5 / 1e-4) and repeat to
+    the same bits; the backward launched kernel D and the transposed
+    kernel B."""
+    from sgc_tpu_torch.models import gat
+    from sgc_tpu_torch.ops import autograd as port_ag
+
+    g, x = _grad_case(f=24)
+    y = torch.from_numpy(np.random.default_rng(23).integers(0, 3, g.n_rows))
+    results = {}
+    for dev in ("cpu", cuda):
+        gd, xd, yd = g.to(dev), x.to(dev), y.to(dev)
+        l1 = gat.init_multi_head(torch.Generator().manual_seed(3), 4, 24, 8,
+                                 device=dev)
+        l2 = gat.init_multi_head(torch.Generator().manual_seed(4), 2, 32, 3,
+                                 device=dev)
+        params = list(l1.parameters()) + list(l2.parameters())
+
+        def loss():
+            h = gat.multi_head_gat(l1, xd, gd)
+            return torch.nn.functional.cross_entropy(
+                gat.multi_head_gat(l2, h, gd, concat=False, activation=None),
+                yd)
+
+        before = (port_spmm.SDDMM_LAUNCHES, port_ag.TRANSPOSED_LAUNCHES)
+        results[str(dev)] = _grads(loss, params)
+        if dev != "cpu":
+            torch.cuda.synchronize()
+            assert port_spmm.SDDMM_LAUNCHES - before[0] == 6     # a head
+            assert port_ag.TRANSPOSED_LAUNCHES - before[1] >= 12
+            for a, b in zip(results[str(dev)], _grads(loss, params)):
+                assert torch.equal(a, b)
+    for a, b in zip(results[str(cuda)], results["cpu"]):
+        assert_close_rel(a.cpu().numpy(), b.numpy(), 1e-4)
+
+
+@pytest.mark.cuda
+def test_cuda_degrees_match_cpu(cuda):
+    """``degrees`` / ``binary_degrees``: kernel B with F = 1."""
+    g, _ = _grad_case()
+    before = port_spmm.LAUNCHES
+    got = (g.to(cuda).degrees(), g.to(cuda).binary_degrees())
+    assert port_spmm.LAUNCHES == before + 2
+    assert_close_rel(got[0].cpu().numpy(), g.degrees().numpy())
+    assert torch.equal(got[1].cpu(), g.binary_degrees())

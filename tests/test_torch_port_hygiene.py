@@ -41,11 +41,12 @@ print(len(walked))
 
 
 def _entry_points():
-    from sgc_tpu_torch.cli import citation, reddit, sweep
+    from sgc_tpu_torch.cli import citation, reddit, sweep, tuning
     from sgc_tpu_torch.data.planetoid import load_citation
     from sgc_tpu_torch.data.reddit import load_reddit
     from sgc_tpu_torch.graph.locality import LocalityPlan
     from sgc_tpu_torch.graph.sparse import SparseGraph
+    from sgc_tpu_torch.models import deep_gcn, gat, gcn
     from sgc_tpu_torch.models.sgc import init_sgc, params_from_jax
     from sgc_tpu_torch.ops.calibrate import measured_rates
     from sgc_tpu_torch.ops.capability import require_cuda_kernels
@@ -75,6 +76,15 @@ def _entry_points():
         "cli.reddit.run": lambda: reddit.run(data_path="."),
         "cli.sweep.sweep": lambda: sweep.sweep(["cora"], [1],
                                                data_path="."),
+        "init_gcn": lambda: gcn.init_gcn(torch.Generator(), 3, 4, 2),
+        "init_gat_layer": lambda: gat.init_gat_layer(torch.Generator(), 3,
+                                                     4),
+        "init_multi_head": lambda: gat.init_multi_head(torch.Generator(), 2,
+                                                       3, 4),
+        "init_deep_gcn": lambda: deep_gcn.init_deep_gcn(
+            torch.Generator(), 3, 4, 2, n_layers=3),
+        "cli.tuning.tune_citation": lambda: tuning.tune_citation(
+            "cora", 2, 10, 0.2, 1, 42, "."),
     }
 
 
@@ -82,7 +92,9 @@ def _entry_points():
     "resolve_device", "SparseGraph.to", "init_sgc", "params_from_jax",
     "LocalityPlan.build", "LocalityPlan.build onehot", "measured_rates",
     "require_cuda_kernels", "init_sgc xavier_normal", "load_citation",
-    "load_reddit", "cli.citation.run", "cli.reddit.run", "cli.sweep.sweep"])
+    "load_reddit", "cli.citation.run", "cli.reddit.run", "cli.sweep.sweep",
+    "init_gcn", "init_gat_layer", "init_multi_head", "init_deep_gcn",
+    "cli.tuning.tune_citation"])
 def test_default_device_raises_without_cuda(monkeypatch, name):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA"):

@@ -206,8 +206,8 @@ def test_reddit_locality_features_match_plain_path(clustered_root):
 
 def test_reddit_run_raises_for_unported_paths(clustered_root):
     root, _ = clustered_root
-    with pytest.raises(NotImplementedError, match="item 13"):
+    with pytest.raises(NotImplementedError, match="item 8"):
         port_reddit.run(data_path=str(root), sharded=True, device=CPU)
-    with pytest.raises(NotImplementedError, match="item 13"):
+    with pytest.raises(NotImplementedError, match="item 8"):
         port_reddit.run(data_path=str(root), formulation="segment",
                         device=CPU)
