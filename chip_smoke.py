@@ -79,6 +79,7 @@ repository.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import os
 import subprocess
@@ -556,7 +557,64 @@ def phase_kernel_a(plan, x, launches, reps) -> dict:
     return row
 
 
-def phase_kernel_b(plan, x, launches, reps) -> dict:
+def b_width(name, graph, x, dense, reps) -> dict:
+    """Kernel B on one operand: held against the plain version at
+    ``TOLERANCE`` and to the same bits over two launches, then timed
+    beside its bound (``b_bound``), the same-function library call, its
+    gathered bytes per second, and the operand's largest row alone (the
+    chain the kernel's tail waits for)."""
+    import torch
+
+    from sgc_tpu_torch.ops.spmm import (
+        csr_plan,
+        launch_csr,
+        operand_align,
+        spmm_segment,
+        spmm_segment_plain,
+    )
+
+    F = int(x.shape[1])
+    got = spmm_segment(graph, x, dense)
+    again = spmm_segment(graph, x, dense)
+    abs_err, err = rel_err(got, spmm_segment_plain(graph, x, dense))
+    if not err <= TOLERANCE:
+        raise AssertionError(f"kernel B ({name}) vs plain: {err:.3e}")
+    if not torch.equal(got, again):
+        raise AssertionError(f"kernel B ({name}): two launches differ")
+    plan = csr_plan(F, False, operand_align(x, dense, got))
+    del again
+    ms = time_ms(lambda: spmm_segment(graph, x, dense), reps)
+    csr = csr_of(graph)
+    library_ms = time_ms((lambda: torch.sparse.mm(csr, x)) if dense is None
+                         else (lambda: torch.addmm(dense, csr, x)), reps)
+    del csr
+    deg = graph.row_ptr[1:] - graph.row_ptr[:-1]
+    hub = int(deg.argmax())
+    h0, h1 = int(graph.row_ptr[hub]), int(graph.row_ptr[hub + 1])
+    hub_ptr = torch.tensor([0, h1 - h0], dtype=torch.int32, device=x.device)
+    hub_out = torch.empty((1, F), device=x.device)
+    hub_dense = None if dense is None else dense[hub:hub + 1]
+    hub_ms = time_ms(lambda: launch_csr(
+        hub_ptr, graph.cols[h0:h1], graph.vals[h0:h1], x, hub_dense,
+        hub_out, plan=plan), reps)
+    b_ms, b_by = b_bound(graph, F, dense is not None)
+    return {"operand": name, "F": F, "nnz": graph.nnz,
+            "plan": dataclasses.asdict(plan), "max_abs_err": abs_err,
+            "rel_err": err, "ms": ms, "bound_ms": b_ms, "bound_by": b_by,
+            "library_ms": library_ms,
+            "gathered_gbps": graph.nnz * F * 4 / ms / 1e6,
+            "max_degree": h1 - h0, "mean_degree": graph.nnz / graph.n_rows,
+            "max_degree_batches": -(-(h1 - h0) // plan.unroll),
+            "max_degree_row_alone_ms": hub_ms}
+
+
+def phase_kernel_b(plan, x, launches, reps, shuffled) -> dict:
+    """Kernel B at the widths its callers use, on the Reddit-shape
+    operands: F = 602 on the block-dense main split's remainder (with its
+    dense term, the main path's launch) and over the whole graph in its
+    shuffled order (a plain hop of ``cli.reddit``), and F = 1, 8 and 41
+    on that graph (GAT's segment sums, hidden heads and output heads; x
+    a column of ones at F = 1, as ``ops.autograd.row_sums``)."""
     import numpy as np
     import torch
 
@@ -567,39 +625,48 @@ def phase_kernel_b(plan, x, launches, reps) -> dict:
     dargs = plan._device_args()[0]
     rest = dargs.rest
     dense = bd.apply_cells(split, dargs, x, "f32")
-    got = spmm_segment(rest, x, dense)
-    want = spmm_segment_plain(rest, x, dense)
-    abs_err, err = rel_err(got, want)
-    if not err <= TOLERANCE:
-        raise AssertionError(f"kernel B vs plain: {err:.3e}")
-    del got, want
-    ms = time_ms(lambda: spmm_segment(rest, x, dense), reps)
+    widths = {"602": b_width("main-split remainder", rest, x, dense, reps)}
     plain_ms = time_ms(lambda: spmm_segment_plain(rest, x, dense), 2)
     args_final = plan._device_args()[1]
     dense_final = bd.apply_cells(plan.split_final, args_final, x, "f32")
     final_ms = time_ms(
         lambda: spmm_segment(args_final.rest, x, dense_final), reps)
-    nnz = rest.nnz
-    csr = csr_of(rest)
-    library_ms = time_ms(lambda: torch.addmm(dense, csr, x), reps)
+    del dense, dense_final
+    g = shuffled[0].to(x.device)
+    xs = torch.as_tensor(shuffled[1], device=x.device)
+    widths["602_shuffled_hop"] = b_width("shuffled graph, a plain hop", g,
+                                         xs, None, reps)
+    gen = torch.Generator(device=x.device).manual_seed(7)
+    for F in (1, 8, 41):
+        xf = (torch.ones((g.n_cols, 1), device=x.device) if F == 1 else
+              torch.randn((g.n_cols, F), device=x.device, generator=gen))
+        widths[str(F)] = b_width("shuffled graph (GAT's)", g, xf, None, reps)
+    del g, xs, xf
 
+    main = widths["602"]
     F = int(x.shape[1])
-    n_used_cols = int(np.unique(split.rest.cols[:nnz]).size)
-    ops = 2.0 * nnz * F + rest.n_rows * F
-    nbytes = (nnz * 8 + (rest.n_rows + 1) * 4 + n_used_cols * F * 4
+    n_used_cols = int(np.unique(split.rest.cols[:rest.nnz]).size)
+    ops = 2.0 * rest.nnz * F + rest.n_rows * F
+    nbytes = (rest.nnz * 8 + (rest.n_rows + 1) * 4 + n_used_cols * F * 4
               + 2 * rest.n_rows * F * 4)
     b_ms, b_by = bound_ms(ops, nbytes)
     row = {"name": "csr_spmm", "route": "cuda",
            "source": "sgc_tpu_torch/csrc/spmm_csr.cu",
            "replaces": "sgc_tpu/ops/spmm.py:45",
-           "launches": launches["csr_spmm"], "max_abs_err": abs_err,
-           "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
-           "bound_by": b_by, "library_ms": library_ms}
-    emit({"phase": "kernel_b", "nnz": nnz, "F": F, "rel_err": err,
+           "launches": launches["csr_spmm"],
+           "max_abs_err": max(w["max_abs_err"] for w in widths.values()),
+           "ms": main["ms"], "plain_ms": plain_ms, "bound_ms": b_ms,
+           "bound_by": b_by, "library_ms": main["library_ms"],
+           "widths": {k: {m: w[m] for m in ("ms", "bound_ms", "library_ms",
+                                            "rel_err", "max_degree")}
+                      for k, w in widths.items()}}
+    emit({"phase": "kernel_b", "nnz": rest.nnz, "F": F,
+          "rel_err": max(w["rel_err"] for w in widths.values()),
           "final_split_nnz": args_final.rest.nnz,
-          "final_split_ms": final_ms,
-          "tolerance_rel": TOLERANCE, "ops": ops, "bytes": nbytes,
-          "achieved_gbps": nbytes / ms / 1e6, **row})
+          "final_split_ms": final_ms, "tolerance_rel": TOLERANCE,
+          "ops": ops, "bytes": nbytes,
+          "achieved_gbps": nbytes / main["ms"] / 1e6, **row,
+          "widths": widths})
     return row
 
 
@@ -1312,16 +1379,18 @@ def phase_gat_pubmed(root, device) -> dict:
     return launches
 
 
-def b_bound(graph, F) -> tuple[float, str]:
+def b_bound(graph, F, dense=False) -> tuple[float, str]:
     """Kernel B's bound on one graph at width F, as ``phase_kernel_b``
     counts it: each edge's (col, val), the row pointer, the x rows that
-    are read and the output once each; 2 F flops an edge."""
+    are read, the dense term if any and the output once each; 2 F flops
+    an edge."""
     import torch
 
     nnz = graph.nnz
     used = int(torch.unique(graph.cols[:nnz]).numel())
     ops = 2.0 * nnz * F
-    nbytes = nnz * 8 + (graph.n_rows + 1) * 4 + (used + graph.n_rows) * F * 4
+    nbytes = (nnz * 8 + (graph.n_rows + 1) * 4
+              + (used + graph.n_rows * (2 if dense else 1)) * F * 4)
     return bound_ms(ops, nbytes)
 
 
@@ -1599,7 +1668,7 @@ def main() -> int:
                            args.reps)]
     phase_kernel_a_grouped(main["plan"], main["x"], args.reps)
     rows.append(phase_kernel_b(main["plan"], main["x"], main["launches"],
-                               args.reps))
+                               args.reps, shuffled))
     del main
     rows.append(phase_kernel_c(onehot, args.reps))
     rows.append(phase_kernel_d(onehot, shuffled, args.reps))

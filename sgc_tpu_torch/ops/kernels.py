@@ -36,7 +36,7 @@ _ENTRY = {
     "blockdense": ("blockdense_cells",
                    [_V, _V, _V, _V, _V, _V, _V, _I, _I, _I, _I, _I, _I, _I,
                     _I, _I, _V]),
-    "spmm_csr": ("csr_spmm", [_V, _V, _V, _V, _V, _V, _I, _I, _I, _V]),
+    "spmm_csr": ("csr_spmm", [_V] * 6 + [_I] * 9 + [_V]),
     "sddmm": ("sddmm", [_V, _V, _V, _V, _V, _L, _L, _I, _I, _I, _V]),
 }
 

@@ -4,8 +4,11 @@ sgc_tpu/ops/spmm.py).
 ``spmm_segment`` is kernel B of the port (``csrc/spmm_csr.cu``): a
 deterministic CSR SpMM that can also add a dense term in its epilogue
 (the block-dense and hybrid ops' ``dense + rest``); ``ops/spmm_tiled.py``
-launches the same CUDA kernel as kernel C. On a CUDA tensor it
-launches the kernel or raises; on a CPU tensor it runs
+launches the same CUDA kernel as kernel C. Both launch it through
+:func:`launch_csr`, with the plan of :func:`csr_plan` (vector width,
+lanes per row, vectors per lane, edges in flight, passes, rows per CTA),
+which depends on F, the precision and the operands' alignment alone. On
+a CUDA tensor it launches the kernel or raises; on a CPU tensor it runs
 :func:`spmm_segment_plain`, the plain PyTorch version, a sequential
 ``index_add_`` in sorted edge order.
 
@@ -36,6 +39,8 @@ a result with no gradient.
 
 from __future__ import annotations
 
+import dataclasses
+
 import torch
 
 from sgc_tpu_torch.graph.sparse import SparseGraph
@@ -58,8 +63,102 @@ _SEGMENT_ELEM_BUDGET = 256 * 1024 * 1024
 # Edges per step of the chunked impl.
 _DEFAULT_CHUNK = 512 * 1024
 
-# Edges per step of the plain SDDMM: bounds its two (edges, F) gathers.
+# Edges per step of the plain SpMM and SDDMM: bounds their (edges, F)
+# gathers.
+SEGMENT_PLAIN_EDGES = 1 << 20
 SDDMM_PLAIN_EDGES = 1 << 20
+
+# Kernel B's launch plan; these mirror csrc/spmm_csr.cu's constants, and
+# the kernel refuses a plan it does not compile.
+CSR_WARPS = 8               # warps per CTA
+CSR_PASS_VALUES = 20        # x values a lane holds per pass
+CSR_NV = (1, 2, 3, 5, 10, 20)   # vectors per lane the kernel compiles
+CSR_IN_FLIGHT_BYTES = 160   # x bytes a lane gathers per batch of edges
+CSR_U_MIN, CSR_U_MAX = 2, 16    # edges per batch
+
+
+@dataclasses.dataclass(frozen=True)
+class CsrPlan:
+    """One launch of kernel B: each row gets ``lanes`` lanes (a warp holds
+    ``32 // lanes`` rows); a lane loads ``vec`` values at a time and holds
+    ``nv`` such vectors of its row's features per pass, so a pass covers
+    ``lanes * nv * vec`` features; it walks its row's edges in batches of
+    ``unroll``, gathering a whole batch before it adds any; a CTA takes
+    ``rows_per_cta`` consecutive rows."""
+
+    vec: int
+    lanes: int
+    nv: int
+    unroll: int
+    passes: int
+    rows_per_cta: int
+
+    def args(self) -> tuple[int, ...]:
+        """The plan as the C entry takes it, after ``x_bf16``."""
+        return (self.vec, self.lanes, self.nv, self.unroll, self.passes,
+                self.rows_per_cta)
+
+
+def csr_plan(F: int, x_bf16: bool = False, align: int = 16, *,
+             lanes: int | None = None, warps: int = CSR_WARPS,
+             u_min: int = CSR_U_MIN, u_max: int = CSR_U_MAX,
+             in_flight: int = CSR_IN_FLIGHT_BYTES) -> CsrPlan:
+    """Kernel B's plan at width ``F`` for f32 or bf16 (``x_bf16``) x,
+    when x, ``dense`` and ``out`` all start at a multiple of ``align``
+    bytes. ``vec`` is the widest of 4, 2, 1 that divides F and whose f32
+    vector ``align`` allows; ``lanes`` the least power of two covering F /
+    vec vectors, at most 32; ``nv`` the fewest compiled vectors per lane
+    that cover the rest, capped so that one pass covers up to 640
+    features; ``unroll`` keeps ``CSR_IN_FLIGHT_BYTES`` of x in flight per
+    lane, within ``[u_min, u_max]``. ``lanes``, ``warps``, ``u_min``,
+    ``u_max`` and ``in_flight`` override the defaults for variants of the
+    kernel that compile other constants."""
+    if F < 1:
+        raise ValueError(f"F must be >= 1, got {F}")
+    vec = next(v for v in (4, 2, 1)
+               if v == 1 or (F % v == 0 and align % (4 * v) == 0))
+    n_vec = F // vec
+    if lanes is None:
+        lanes = min(32, 1 << (n_vec - 1).bit_length())
+    cap = CSR_PASS_VALUES // vec
+    need = min(-(-n_vec // lanes), cap)
+    nv = min(n for n in CSR_NV if need <= n <= cap)
+    gathered = nv * vec * (2 if x_bf16 else 4)
+    unroll = max(u_min, min(u_max, in_flight // gathered))
+    return CsrPlan(vec=vec, lanes=lanes, nv=nv, unroll=unroll,
+                   passes=-(-n_vec // (lanes * nv)),
+                   rows_per_cta=warps * 32 // lanes)
+
+
+def operand_align(*tensors: torch.Tensor | None) -> int:
+    """The largest of 16, 8, 4, 2, 1 bytes that divides every given
+    tensor's start address (None is skipped)."""
+    align = 16
+    for t in tensors:
+        if t is not None:
+            while t.data_ptr() % align:
+                align //= 2
+    return align
+
+
+def launch_csr(row_ptr: torch.Tensor, cols: torch.Tensor,
+               vals: torch.Tensor, x: torch.Tensor,
+               dense: torch.Tensor | None, out: torch.Tensor,
+               x_bf16: bool = False, lib=None, plan: CsrPlan | None = None,
+               ) -> None:
+    """One launch of the CSR kernel into ``out`` ``[n_rows, F]`` (kernel
+    B, or kernel C on its re-sorted layout), with the plan of
+    :func:`csr_plan` unless ``plan`` is given; ``lib`` is another build of
+    the kernel's C entry (the A/B tool's variants), default the
+    package's. Raises when the launch fails."""
+    n_rows, F = out.shape
+    if plan is None:
+        plan = csr_plan(F, x_bf16, operand_align(x, dense, out))
+    rc = (lib or kernels.entry("spmm_csr"))(
+        row_ptr.data_ptr(), cols.data_ptr(), vals.data_ptr(), x.data_ptr(),
+        dense.data_ptr() if dense is not None else None, out.data_ptr(),
+        n_rows, F, int(x_bf16), *plan.args(), kernels.stream_of(x))
+    kernels.check_launch(rc, "csr_spmm")
 
 
 def check_precision(precision: str) -> None:
@@ -77,14 +176,15 @@ def bf16_round(x: torch.Tensor) -> torch.Tensor:
 def spmm_segment_plain(graph: SparseGraph, x: torch.Tensor,
                        dense: torch.Tensor | None = None) -> torch.Tensor:
     """``dense + A @ x`` in plain PyTorch: gather, scale, and an
-    ``index_add_`` over the first ``nnz`` (sorted) edges."""
-    nnz = graph.nnz
-    rows = graph.rows[:nnz].long()
-    cols = graph.cols[:nnz].long()
-    vals = graph.vals[:nnz]
+    ``index_add_`` over the first ``nnz`` (sorted) edges,
+    ``SEGMENT_PLAIN_EDGES`` at a time (in order, so each row sums its
+    edges in the same order as in one step)."""
     out = torch.zeros((graph.n_rows, x.shape[1]), dtype=torch.float32,
                       device=x.device)
-    out.index_add_(0, rows, x[cols] * vals[:, None])
+    for s in range(0, graph.nnz, SEGMENT_PLAIN_EDGES):
+        e = slice(s, min(s + SEGMENT_PLAIN_EDGES, graph.nnz))
+        out.index_add_(0, graph.rows[e].long(),
+                       x[graph.cols[e].long()] * graph.vals[e, None])
     return out if dense is None else dense + out
 
 
@@ -138,12 +238,7 @@ def _spmm_segment_cuda(graph, x, dense):
                       device=x.device)
     if graph.n_rows == 0 or F == 0:
         return out
-    rc = kernels.entry("spmm_csr")(
-        graph.row_ptr.data_ptr(), graph.cols.data_ptr(),
-        graph.vals.data_ptr(), x.data_ptr(),
-        dense.data_ptr() if dense is not None else None, out.data_ptr(),
-        graph.n_rows, F, 0, kernels.stream_of(x))
-    kernels.check_launch(rc, "csr_spmm")
+    launch_csr(graph.row_ptr, graph.cols, graph.vals, x, dense, out)
     LAUNCHES += 1
     return out
 

@@ -59,7 +59,7 @@ import torch
 from sgc_tpu_torch import native
 from sgc_tpu_torch.graph.sparse import SparseGraph, host
 from sgc_tpu_torch.ops import kernels
-from sgc_tpu_torch.ops.spmm import bf16_round, check_precision
+from sgc_tpu_torch.ops.spmm import bf16_round, check_precision, launch_csr
 from sgc_tpu_torch.utils.buildcache import placed
 
 DEFAULT_ROW_BLOCK = 2048     # R
@@ -354,11 +354,8 @@ def _apply(tiled: TiledGraph, x: torch.Tensor, args: TiledArgs,
     out = torch.empty((tiled.n_rows, F), dtype=torch.float32,
                       device=x.device)
     xk = x.to(torch.bfloat16) if precision == "bf16" else x
-    rc = kernels.entry("spmm_csr")(
-        args.row_ptr.data_ptr(), args.cols.data_ptr(), args.vals.data_ptr(),
-        xk.data_ptr(), None, out.data_ptr(), tiled.n_rows, F,
-        int(precision == "bf16"), kernels.stream_of(x))
-    kernels.check_launch(rc, "csr_spmm (kernel C)")
+    launch_csr(args.row_ptr, args.cols, args.vals, xk, None, out,
+               x_bf16=precision == "bf16")
     LAUNCHES += 1
     return out
 

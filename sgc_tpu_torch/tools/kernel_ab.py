@@ -1,16 +1,35 @@
 #!/usr/bin/env python3
-"""CUDA-event A/B runs of the port's kernels A, C and D on one card, at
-the chip smoke's full-scale clustered-Reddit splits.
+"""CUDA-event A/B runs of the port's kernels A, B, C and D on one card,
+at the chip smoke's full-scale clustered-Reddit splits.
 
     python3 -m sgc_tpu_torch.tools.kernel_ab [--scale 1.0] [--reps 5]
-        [--kernels a,c,d] [--baseline-c path/to/tiled_spmm.cu]
+        [--kernels a,b,c,d] [--baseline-b path/to/spmm_csr.cu]
+        [--baseline-c path/to/tiled_spmm.cu]
         [--baseline-d path/to/sddmm.cu]
+
+Kernel B (``csrc/spmm_csr.cu``) at every width its callers use, each on
+its own operand (``b_cases``): F = 1, 8, 16, 41 and 64 on the shuffled
+Reddit-shape graph (GAT's segment sums and heads, GCN's and deep GCN's
+hidden widths), F = 602 over the same graph (a plain hop of
+``cli.reddit``), on the block-dense main split's remainder with its
+dense term, and with x 4 bytes off its alignment, and kernel C's
+operand (the onehot main split re-sorted by row) at ``"f32"`` and
+``"bf16"``. Each case prints the kernel's plan, its error against the
+plain version, its time, bound, library call, gathered bytes per
+second, the operand's largest row degree and the time of that row
+alone. Variants of the kernel, each made by rewriting one constant of
+the source and the plan that goes with it (``B_VARIANTS``: edges per
+batch, lanes per row, warps per CTA, register bounds, x bytes in flight,
+the edge stream staged in shared memory or not and its chunk size),
+must give the base kernel's bits. With ``--baseline-b`` (the
+kernel of an earlier commit, whose C entry ``csr_spmm`` takes ``row_ptr,
+cols, vals, x, dense, out, n_rows, F, x_bf16, stream``) it also times
+that kernel on every case and raises unless it gives the same bits.
 
 Kernel C: the current kernel (``csrc/spmm_csr.cu`` on the layout's edges
 re-sorted by row) on the onehot main and last-hop splits, beside
-``torch.addmm`` over the main split's slots as one coalesced CSR matrix,
-and variants of the kernel made by rewriting one constant each
-(``CURRENT_VARIANTS``).
+``torch.addmm`` over the main split's slots as one coalesced CSR matrix
+(its variants are kernel B's, on kernel C's operand).
 With ``--baseline-c`` (the row-ownership kernel C of an earlier commit,
 whose C entry ``tiled_spmm`` takes ``rows, cols, vals, rb_chunk_ptr,
 chunk_st, chunk_nnz, x, out, n_rb, n_rows, n_cols, F, R, W, C, stream``)
@@ -81,17 +100,41 @@ def rel_err(got, want) -> float:
     return float((got - want).abs().max()) / float(want.abs().max())
 
 
-# variants of the current kernel C: features held per lane (NV = 10: one
-# pass of 640 at F = 602, more registers), with two edges unrolled,
-# registers capped for six CTAs per SM, and 4-warp CTAs
-CURRENT_VARIANTS = {
-    "base": [],
-    "nv10": [(r"NV = 5;", "NV = 10;")],
-    "nv10_unroll2": [(r"NV = 5;", "NV = 10;"),
-                     (r"#pragma unroll 1\n", "#pragma unroll 2\n")],
-    "min_ctas6": [(r"__launch_bounds__\(WARPS \* 32\)",
-                   "__launch_bounds__(WARPS * 32, 6)")],
-    "warps4": [(r"WARPS = 8;", "WARPS = 4;")],
+# variants of kernel B: (source rewrites, the plan's overrides) — edges
+# per batch (U_MIN = 1: one edge in flight at F = 602, as the first
+# kernel, but one pass; U_MAX = 32 at F = 1), lanes per row (half the
+# plan's, and a warp per row as the first kernel), 4-warp CTAs, the
+# register bounds (CTAs per SM for narrow and wide instances, and where
+# narrow ends), the chunk at one row a warp, half and twice the x bytes
+# in flight per lane, and the edge stream read through L1 instead of
+# staged, or staged in other chunk sizes
+B_VARIANTS = {
+    "base": ([], {}),
+    "u_min1": ([(r"U_MIN = 2;", "U_MIN = 1;")], {"u_min": 1}),
+    "u_max32": ([(r"U_MAX = 16;", "U_MAX = 32;")], {"u_max": 32}),
+    "lanes_half": ([], {"lanes": "half"}),
+    "warp_per_row": ([], {"lanes": 32}),
+    "warps4": ([(r"WARPS = 8;", "WARPS = 4;")], {"warps": 4}),
+    "narrow_ctas1": ([(r"NARROW_MIN_CTAS = 3;", "NARROW_MIN_CTAS = 1;")],
+                     {}),
+    "narrow_ctas2": ([(r"NARROW_MIN_CTAS = 3;", "NARROW_MIN_CTAS = 2;")],
+                     {}),
+    "narrow_bytes16": ([(r"NARROW_BYTES = 40;", "NARROW_BYTES = 16;")], {}),
+    "wide_ctas2": ([(r"WIDE_MIN_CTAS = 1;", "WIDE_MIN_CTAS = 2;")], {}),
+    "many_loads_ctas1": ([(r"MANY_LOADS = 20;", "MANY_LOADS = 1000;")], {}),
+    "wide_stage256": ([(r"STAGE_EDGES_WIDE = 128;",
+                        "STAGE_EDGES_WIDE = 256;")], {}),
+    "in_flight80": ([(r"IN_FLIGHT_BYTES = 160;", "IN_FLIGHT_BYTES = 80;")],
+                    {"in_flight": 80}),
+    "in_flight320": ([(r"IN_FLIGHT_BYTES = 160;",
+                       "IN_FLIGHT_BYTES = 320;")], {"in_flight": 320}),
+    "unstaged": ([(r"STAGE_EDGES = 256;", "STAGE_EDGES = 0;")], {}),
+    "stage128": ([(r"STAGE_EDGES = 256;", "STAGE_EDGES = 128;")], {}),
+    "warps4_stage512": ([(r"WARPS = 8;", "WARPS = 4;"),
+                         (r"STAGE_EDGES = 256;", "STAGE_EDGES = 512;"),
+                         (r"STAGE_EDGES_WIDE = 128;",
+                          "STAGE_EDGES_WIDE = 256;")],
+                        {"warps": 4}),
 }
 
 # variants of kernel A: as written, with a 3-deep ring, and with a third
@@ -122,7 +165,8 @@ BASELINE_VARIANTS = {
 
 V, I, L = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
 # C entries' argument types
-CSR_ARGS = [V] * 6 + [I] * 3 + [V]
+CSR_ARGS = [V] * 6 + [I] * 9 + [V]
+BASELINE_B_ARGS = [V] * 6 + [I] * 3 + [V]
 A_ARGS = [V] * 7 + [I] * 9 + [V]
 BASELINE_C_ARGS = [V] * 8 + [I] * 7 + [V]
 D_ARGS = [V] * 5 + [L, L, I, I, I, V]
@@ -171,6 +215,7 @@ def build_variants(source: Path, variants: dict, argtypes: list,
     fns = {}
     for name, (lib, proc) in procs.items():
         out, _ = proc.communicate()
+        lib.with_suffix(".log").write_text(out)
         if proc.returncode:
             raise RuntimeError(f"building variant {name} failed:\n{out}")
         fn = getattr(ctypes.CDLL(str(lib)), symbol)
@@ -216,22 +261,10 @@ def kernel_c(data, device, reps: int, baseline: Path | None) -> None:
     emit({"kernel": "C", "variant": "current_last_hop", "ms": time_ms(
         lambda: ti.spmm_tiled_flat(final, x, args_final), reps),
         "edges": int(args_final.cols.shape[0])})
-    out_dir = ROOT / "build" / "sgc_tpu_torch" / "ab"
-    out = torch.empty((tiled.n_rows, F), device=device)
-    fns = build_variants(ROOT / "sgc_tpu_torch" / "csrc" / "spmm_csr.cu",
-                         CURRENT_VARIANTS, CSR_ARGS, out_dir, "csr_spmm")
-    for name, (fn, regs) in fns.items():
-        def run(fn=fn):
-            rc = fn(args.row_ptr.data_ptr(), args.cols.data_ptr(),
-                    args.vals.data_ptr(), x.data_ptr(), None,
-                    out.data_ptr(), tiled.n_rows, F, 0, kernels.stream_of(x))
-            kernels.check_launch(rc, f"current {name}")
-        run()
-        torch.cuda.synchronize()
-        emit({"kernel": "C", "variant": f"current_{name}", "registers": regs,
-              "ms": time_ms(run, reps), "rel_err": rel_err(out, want)})
     if baseline is None:
         return
+    out_dir = ROOT / "build" / "sgc_tpu_torch" / "ab"
+    out = torch.empty((tiled.n_rows, F), device=device)
     fns = build_variants(baseline, BASELINE_VARIANTS, BASELINE_C_ARGS,
                          out_dir, "tiled_spmm")
     ptr, chunk_st = ti.flat_index(tiled)
@@ -251,6 +284,164 @@ def kernel_c(data, device, reps: int, baseline: Path | None) -> None:
         torch.cuda.synchronize()
         emit({"kernel": "C", "variant": f"baseline_{name}",
               "ms": time_ms(run, reps), "rel_err": rel_err(out, want)})
+
+
+def b_cases(data, device, seed: int):
+    """Kernel B's operands at the widths its callers use: ``(name,
+    row_ptr, cols, vals, x, dense, x_bf16, plain)``, ``plain()`` the
+    plain version of the same product; x is f32, or bf16 where
+    ``x_bf16``."""
+    import torch
+
+    from sgc_tpu_torch.graph.locality import LocalityPlan
+    from sgc_tpu_torch.ops import spmm_blockdense as bd
+    from sgc_tpu_torch.ops import spmm_tiled as ti
+    from sgc_tpu_torch.ops.spmm import spmm_segment_plain
+
+    graph, feats = data[0], data[1]
+    g = graph.to(device)
+    gen = torch.Generator(device=device).manual_seed(seed)
+    n = g.n_cols
+    for F in (1, 8, 16, 41, 64):
+        x = (torch.ones((n, 1), device=device) if F == 1 else
+             torch.randn((n, F), device=device, generator=gen))
+        yield (f"shuffled_f{F}", g.row_ptr, g.cols, g.vals, x, None, False,
+               lambda x=x: spmm_segment_plain(g, x))
+    x = torch.as_tensor(feats, device=device)
+    yield ("shuffled_hop_f602", g.row_ptr, g.cols, g.vals, x, None, False,
+           lambda: spmm_segment_plain(g, x))
+    del g, x
+    plan = LocalityPlan.build(*data, formulation="auto", device=device)
+    dargs = plan._device_args()[0]
+    rest = dargs.rest
+    x = torch.as_tensor(plan.features, device=device)
+    dense = bd.apply_cells(plan.split_main, dargs, x, "f32")
+    yield ("remainder_f602", rest.row_ptr, rest.cols, rest.vals, x, dense,
+           False, lambda: spmm_segment_plain(rest, x, dense))
+    buf = torch.empty(x.numel() + 1, device=device)
+    xo = buf[1:].view_as(x)
+    xo.copy_(x)
+    yield ("remainder_f602_x_off4", rest.row_ptr, rest.cols, rest.vals, xo,
+           dense, False, lambda: spmm_segment_plain(rest, xo, dense))
+    del plan, dargs, rest, x, dense, buf, xo
+    torch.cuda.empty_cache()
+    plan = LocalityPlan.build(*data, formulation="onehot", device=device)
+    tiled = plan.split_main.tiled
+    args = plan._device_args()[0].tiled
+    x = torch.as_tensor(plan.features, device=device)
+    yield ("kernel_c_f32", args.row_ptr, args.cols, args.vals, x, None,
+           False, lambda: ti.spmm_tiled_plain(tiled, x))
+    yield ("kernel_c_bf16", args.row_ptr, args.cols, args.vals,
+           x.to(torch.bfloat16), None, True,
+           lambda: ti.spmm_tiled_plain(tiled, x, "bf16"))
+
+
+def b_variant_plan(F: int, x_bf16: bool, align: int, overrides: dict):
+    from sgc_tpu_torch.ops.spmm import csr_plan
+
+    kw = dict(overrides)
+    if kw.get("lanes") == "half":
+        kw["lanes"] = max(1, csr_plan(F, x_bf16, align).lanes // 2)
+    return csr_plan(F, x_bf16, align, **kw)
+
+
+def kernel_b(data, device, reps: int, seed: int,
+             baseline: Path | None) -> None:
+    import torch
+
+    from sgc_tpu_torch.ops import kernels
+    from sgc_tpu_torch.ops.spmm import launch_csr, operand_align
+
+    out_dir = ROOT / "build" / "sgc_tpu_torch" / "ab"
+    fns = build_variants(ROOT / "sgc_tpu_torch" / "csrc" / "spmm_csr.cu",
+                         {k: v[0] for k, v in B_VARIANTS.items()}, CSR_ARGS,
+                         out_dir, "csr_spmm")
+    base_fn = None
+    if baseline is not None:
+        base_fn = build_variants(baseline, {"baseline": []},
+                                 BASELINE_B_ARGS, out_dir,
+                                 "csr_spmm")["baseline"][0]
+    mismatched = []
+    for name, row_ptr, cols, vals, x, dense, x_bf16, plain in b_cases(
+            data, device, seed):
+        n_rows = int(row_ptr.shape[0]) - 1
+        F = int(x.shape[1])
+        out = torch.empty((n_rows, F), device=device)
+        align = operand_align(x, dense, out)
+        deg = row_ptr[1:] - row_ptr[:-1]
+        hub = int(deg.argmax())
+        nnz = int(row_ptr[-1])
+        want = plain()
+        results = {}
+        for variant, (fn, regs) in fns.items():
+            plan = b_variant_plan(F, x_bf16, align, B_VARIANTS[variant][1])
+            got = torch.empty_like(out)
+
+            def run(fn=fn, plan=plan, got=got):
+                launch_csr(row_ptr, cols, vals, x, dense, got, x_bf16, fn,
+                           plan)
+            run()
+            torch.cuda.synchronize()
+            results[variant] = got
+            row = {"kernel": "B", "case": name, "variant": variant,
+                   "F": F, "plan": plan.args(), "registers": regs,
+                   "ms": time_ms(run, reps), "rel_err": rel_err(got, want),
+                   "same_bits_as_base": bool(torch.equal(got,
+                                                         results["base"]))}
+            # the largest row alone: the chain the tail waits for
+            h0, h1 = int(row_ptr[hub]), int(row_ptr[hub + 1])
+            hub_ptr = torch.tensor([0, h1 - h0], dtype=torch.int32,
+                                   device=device)
+            hub_out = torch.empty((1, F), device=device)
+            hub_dense = None if dense is None else dense[hub:hub + 1]
+            row["hub_row_ms"] = time_ms(lambda: launch_csr(
+                hub_ptr, cols[h0:h1], vals[h0:h1], x, hub_dense, hub_out,
+                x_bf16, fn, plan), reps)
+            if variant == "base":
+                row.update({
+                    "nnz": nnz, "n_rows": n_rows,
+                    "max_degree": h1 - h0, "mean_degree": nnz / n_rows,
+                    "gathered_gbps": nnz * F * x.element_size()
+                    / row["ms"] / 1e6})
+            emit(row)
+            if not row["same_bits_as_base"]:
+                mismatched.append((name, variant))
+        if base_fn is not None:
+            old = torch.empty_like(out)
+
+            def run_old():
+                rc = base_fn(row_ptr.data_ptr(), cols.data_ptr(),
+                             vals.data_ptr(), x.data_ptr(),
+                             dense.data_ptr() if dense is not None else None,
+                             old.data_ptr(), n_rows, F, int(x_bf16),
+                             kernels.stream_of(x))
+                kernels.check_launch(rc, "baseline csr_spmm")
+            run_old()
+            torch.cuda.synchronize()
+            same = bool(torch.equal(old, results["base"]))
+            emit({"kernel": "B", "case": name, "variant": "baseline",
+                  "F": F, "ms": time_ms(run_old, reps),
+                  "rel_err": rel_err(old, want),
+                  "same_bits_as_base": same})
+            if not same:
+                mismatched.append((name, "baseline"))
+            del old
+        if not x_bf16:
+            with warnings.catch_warnings():
+                warnings.filterwarnings("ignore", message=".*[Ss]parse")
+                csr = torch.sparse_csr_tensor(
+                    row_ptr, cols[:nnz], vals[:nnz], size=(n_rows,
+                                                           x.shape[0]),
+                    check_invariants=False)
+            lib = ((lambda: torch.sparse.mm(csr, x)) if dense is None else
+                   (lambda: torch.addmm(dense, csr, x)))
+            emit({"kernel": "B", "case": name, "variant": "library",
+                  "F": F, "ms": time_ms(lib, reps)})
+            del csr
+        del results, want, out
+        torch.cuda.empty_cache()
+    if mismatched:
+        raise AssertionError(f"kernel B bits differ: {mismatched}")
 
 
 def kernel_a(data, device, reps: int) -> None:
@@ -364,8 +555,9 @@ def main() -> int:
     ap.add_argument("--scale", type=float, default=1.0)
     ap.add_argument("--seed", type=int, default=42)
     ap.add_argument("--reps", type=int, default=5)
-    ap.add_argument("--kernels", default="a,c,d",
+    ap.add_argument("--kernels", default="a,b,c,d",
                     help="comma-separated kernels to run")
+    ap.add_argument("--baseline-b", type=Path, default=None)
     ap.add_argument("--baseline-c", type=Path, default=None)
     ap.add_argument("--baseline-d", type=Path, default=None)
     args = ap.parse_args()
@@ -390,6 +582,8 @@ def main() -> int:
     chosen = set(args.kernels.split(","))
     if "a" in chosen:
         kernel_a(data, device, args.reps)
+    if "b" in chosen:
+        kernel_b(data, device, args.reps, args.seed, args.baseline_b)
     if "c" in chosen:
         kernel_c(data, device, args.reps, args.baseline_c)
     if "d" in chosen:

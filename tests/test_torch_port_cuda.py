@@ -675,3 +675,117 @@ def test_cuda_degrees_match_cpu(cuda):
     assert port_spmm.LAUNCHES == before + 2
     assert_close_rel(got[0].cpu().numpy(), g.degrees().numpy())
     assert torch.equal(got[1].cpu(), g.binary_degrees())
+
+
+# ------------------------- kernel B at every width class of its launch plan
+
+B_WIDTHS = (1, 2, 3, 8, 16, 33, 41, 64, 602, 700)   # 700: two passes
+
+
+@pytest.fixture(scope="module")
+def width_graph():
+    """5,000 rows (a multiple of no plan's rows per CTA) over 6,000
+    columns: every 13th row empty, every 7th of 1-3 edges (shorter than
+    any batch), the rest 4-40 edges, and row 7 a hub of 4,500 edges (more
+    than a staged chunk holds)."""
+    rng = np.random.default_rng(77)
+    n_rows, n_cols = 5000, 6000
+    deg = rng.integers(4, 41, n_rows)
+    deg[1::7] = rng.integers(1, 4, deg[1::7].size)
+    deg[::13] = 0
+    deg[7] = 4500
+    rows = np.repeat(np.arange(n_rows), deg)
+    cols = rng.integers(0, n_cols, rows.size)
+    vals = rng.standard_normal(rows.size).astype(np.float32)
+    return PortGraph.from_coo(rows, cols, vals, n_rows, n_cols)
+
+
+# rows held against a row subgraph: the hub, empty and short rows, and
+# rows at the ends and in the middle of CTAs
+SUB_ROWS = np.array([0, 1, 7, 8, 13, 255, 256, 2500, 4991, 4999])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("with_dense", [False, True])
+@pytest.mark.parametrize("offset", [0, 1])     # x aligned, x 4 bytes off
+@pytest.mark.parametrize("f", B_WIDTHS)
+def test_cuda_kernel_b_width_classes(cuda, width_graph, f, offset,
+                                     with_dense):
+    """Kernel B at every width class, with x aligned and 4 bytes off its
+    alignment, with and without ``dense``: the plain version at 1e-5, the
+    same bits over two launches, and each row the same bits as that row
+    launched in a row subgraph (other neighbours, another position in its
+    CTA and warp, another plan's rows per CTA)."""
+    g = width_graph.to(cuda)
+    gen = torch.Generator(device=cuda).manual_seed(f)
+    buf = torch.randn(g.n_cols * f + offset, device=cuda, generator=gen)
+    x = buf[offset:].view(g.n_cols, f)
+    dense = (torch.randn(g.n_rows, f, device=cuda, generator=gen)
+             if with_dense else None)
+    before = port_spmm.LAUNCHES
+    got = port_spmm.spmm_segment(g, x, dense)
+    again = port_spmm.spmm_segment(g, x, dense)
+    assert port_spmm.LAUNCHES == before + 2
+    want = port_spmm.spmm_segment_plain(g, x, dense)
+    torch.cuda.synchronize()
+    assert torch.equal(got, again)
+    assert_close_rel(got.cpu().numpy(), want.cpu().numpy())
+    sub = width_graph.row_subgraph(SUB_ROWS).to(cuda)
+    idx = torch.as_tensor(SUB_ROWS, device=cuda)
+    rows = port_spmm.spmm_segment(
+        sub, x, None if dense is None else dense[idx].contiguous())
+    assert torch.equal(rows, got[idx])
+    assert not got[idx[4]].ne(0 if dense is None else dense[13]).any()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("f", [1, 8, 41, 602])
+def test_cuda_kernel_b_same_bits_for_any_plan(cuda, width_graph, f):
+    """Any lanes per row changes which lane holds a feature, how many
+    rows share a warp and CTA, the vectors per lane and the edges per
+    batch, not the sum: every such plan gives the default plan's bits."""
+    g = width_graph.to(cuda)
+    x = torch.randn(g.n_cols, f, device=cuda,
+                    generator=torch.Generator(device=cuda).manual_seed(3))
+    want = port_spmm.spmm_segment(g, x)
+    align = port_spmm.operand_align(x, None, want)
+    for lanes in (1, 2, 4, 8, 16, 32):
+        plan = port_spmm.csr_plan(f, False, align, lanes=lanes)
+        out = torch.empty_like(want)
+        port_spmm.launch_csr(g.row_ptr, g.cols, g.vals, x, None, out,
+                             plan=plan)
+        torch.cuda.synchronize()
+        assert torch.equal(out, want), plan
+
+
+@pytest.mark.cuda
+def test_cuda_kernel_b_refuses_a_plan_it_does_not_compile(cuda, width_graph):
+    g = width_graph.to(cuda)
+    x = torch.randn(g.n_cols, 8, device=cuda)
+    out = torch.empty(g.n_rows, 8, device=cuda)
+    plan = port_spmm.csr_plan(8)
+    for bad in (dataclasses.replace(plan, unroll=plan.unroll + 1),
+                dataclasses.replace(plan, nv=4),
+                dataclasses.replace(plan, rows_per_cta=7)):
+        with pytest.raises(RuntimeError, match="failed to launch"):
+            port_spmm.launch_csr(g.row_ptr, g.cols, g.vals, x, None, out,
+                                 plan=bad)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("f", [1, 3, 8, 41, 64, 602])
+def test_cuda_kernel_c_bf16_width_classes(cuda, f):
+    """Kernel C at "bf16" through the flat entry at each width class: the
+    plain version at "bf16" (each slot's product rounded to bf16) at 1e-5
+    and the same bits over two launches."""
+    from sgc_tpu_torch.ops import spmm_tiled as port_tiled
+
+    _, tiled, x = _tiled_case(1300, 1300, f, 512, 512, 1024, seed=f + 1)
+    args = port_tiled.tiled_device_args(tiled, cuda)
+    xd = x.to(cuda)
+    got = port_tiled.spmm_tiled_flat(tiled, xd, args, "bf16")
+    again = port_tiled.spmm_tiled_flat(tiled, xd, args, "bf16")
+    want = port_tiled.spmm_tiled_plain(tiled, xd, "bf16")
+    torch.cuda.synchronize()
+    assert torch.equal(got, again)
+    assert_close_rel(got.cpu().numpy(), want.cpu().numpy())
