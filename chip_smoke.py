@@ -68,6 +68,20 @@ values), each with counters zeroed just before and read just after:
                   off give the same bits, Adam steps lower the loss
     tuning_cli:   cli.tuning.tune_citation, 60 TPE fits, then grid=16
 
+Then the TextSGC path at the COVID-19 corpus's shape (9,187 docs, 31
+classes, 14,832 words: a 24,019-node doc-word graph of ~10.1M nnz),
+counters zeroed just before each run and read just after:
+
+    text_path:    write_text_corpus -> cli.build_graph (window 20) ->
+                  load_corpus("BCD") -> text_structural_features at
+                  sparse (kernel B), blockdense (kernels A + B) and dense,
+                  held against each other; kernel B at the phases' chunk
+                  widths (F = 2048, 482, 736, 1,825) and kernel A at 2048
+                  on the doc-word split held against their plain versions
+                  and timed; cli.textsgc.run with LBFGS and with Newton,
+                  each twice (the same bits, test accuracy >= 2x chance);
+                  run_crossval (2 folds) and tune_text (4 TPE evals)
+
 Phases print one JSON line each on stdout; the line before the last is
 ``{"kernels": [...]}`` (each row also carries its launches on the new
 paths, ``launches_by_path``) and the last is ``{"ok": true, "device":
@@ -79,6 +93,7 @@ repository.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import json
 import os
@@ -1618,6 +1633,241 @@ def phase_tuning_cli(root, device) -> dict:
     return launches
 
 
+# the text path's gates: sparse vs dense as the reference's own test
+# holds them (tests/test_pipeline_cli.py:374-378), and blockdense vs
+# sparse to the bf16-cell bound relative to max (:333-336)
+TEXT_RTOL, TEXT_ATOL = 2e-4, 2e-5
+TEXT_BF16_TOLERANCE = 2e-2
+TEXT_DATASET = "covid_19_production"
+# the published COVID-19 graph: 24,019 nodes, 10.0M nnz (within 10%)
+TEXT_NODES = 24_019
+TEXT_NNZ = (9.0e6, 11.0e6)
+
+
+def text_kernel_a(split, dargs, x, reps) -> dict:
+    """Kernel A on the doc-word split at one phase chunk's width (the
+    ``blockdense`` hop's dense term, precision "bf16"): two launches equal
+    bit for bit and held against the plain product on bf16-rounded x at
+    ``TOLERANCE``, timed beside its bound and the same-function library
+    call (the cells' nonzeros as one CSR matrix against bf16-rounded x)."""
+    import torch
+
+    from sgc_tpu_torch.ops import spmm_blockdense as bd
+    from sgc_tpu_torch.ops.spmm import bf16_round
+
+    got = bd.apply_cells(split, dargs, x, "bf16")
+    again = bd.apply_cells(split, dargs, x, "bf16")
+    abs_err, err = rel_err(got, bd.apply_cells_plain(split, dargs, x,
+                                                     "bf16"))
+    if not err <= TOLERANCE:
+        raise AssertionError(f"kernel A (doc-word split) vs plain: {err:.3e}")
+    if not torch.equal(got, again):
+        raise AssertionError("kernel A (doc-word split): launches differ")
+    del got, again
+    ms = time_ms(lambda: bd.apply_cells(split, dargs, x, "bf16"), reps)
+    plain_ms = time_ms(lambda: bd.apply_cells_plain(split, dargs, x, "bf16"),
+                       1)
+    csr = cells_csr(split, dargs, split.n_cells)
+    xb = bf16_round(x)
+    zero = x.new_zeros((split.n_rows, x.shape[1]))
+    library_ms = time_ms(lambda: torch.addmm(zero, csr, xb, beta=0.0), reps)
+    del csr, xb, zero
+    bound = kernel_a_bound(split, dargs, split.n_cells, int(x.shape[1]), 1)
+    return {"F": int(x.shape[1]), "cells": split.n_cells, "precision": "bf16",
+            "max_abs_err": abs_err, "rel_err": err, "ms": ms,
+            "plain_ms": plain_ms, "library_ms": library_ms, **bound}
+
+
+def phase_text_path(args, device, reps) -> dict:
+    """The TextSGC path at the COVID-19 corpus's shape: a seeded corpus
+    (9,187 docs, 31 classes, 14,832 words) -> ``cli.build_graph``
+    (window 20, val 0.1, seed 42) -> ``load_corpus(subset="BCD")`` on
+    the card -> ``text_structural_features`` at ``sparse`` (kernel B),
+    ``blockdense`` (kernel A + kernel B) and ``dense``, each held against
+    the others; kernel B at the phases' chunk widths and kernel A at
+    2048 held against their plain versions and timed; then
+    ``cli.textsgc.run`` (LBFGS 3 epochs, and Newton 8 steps), each twice
+    with the same bits and test accuracy at least 2x chance,
+    ``run_crossval`` at 2 folds and ``tune_text`` for 4 TPE evals."""
+    import numpy as np
+    import torch
+
+    from sgc_tpu_torch.cli import crossval, textsgc, tuning
+    from sgc_tpu_torch.cli.build_graph import build_and_export
+    from sgc_tpu_torch.data.crossval import make_crossval_ids
+    from sgc_tpu_torch.data.fixtures import COVID, write_text_corpus
+    from sgc_tpu_torch.data.textcorpus import load_corpus
+    from sgc_tpu_torch.ops import propagate as prop
+    from sgc_tpu_torch.ops import spmm_blockdense as bd
+    from sgc_tpu_torch.utils.buildcache import clear_placed
+    from sgc_tpu_torch.utils.config import TextConfig
+
+    launches, info = {}, {}
+    with scratch_dir() as root:
+        t0 = time.perf_counter()
+        fx = write_text_corpus(root, TEXT_DATASET, seed=args.seed, **COVID)
+        info["write_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        built = build_and_export(str(fx["metadata"]), str(fx["corpus"]),
+                                 TEXT_DATASET, root, window=20,
+                                 val_fraction=0.1, seed=42)
+        info["build_s"] = time.perf_counter() - t0
+        adj = built["adjs"]["BCD"]
+        info.update(nodes=adj.shape[0], adj_nnz=int(adj.nnz),
+                    vocab=len(built["vocab"]), docs=fx["docs"],
+                    tokens=fx["tokens"])
+        del built, adj
+        make_crossval_ids(fx["metadata"], root, TEXT_DATASET, n_folds=2)
+        t0 = time.perf_counter()
+        data = load_corpus(TEXT_DATASET, "BCD", root, device=device)
+        info["load_s"] = time.perf_counter() - t0
+        g, idx = data.graph, data.index_dict
+        info["nnz"] = g.nnz
+        auto = prop.text_impl(g, "auto")
+        widths = {p: len(i) for p, i in idx.items()}
+        chunks = {p: [min(prop.TEXT_CHUNK, w - i)
+                      for i in range(0, w, prop.TEXT_CHUNK)]
+                  for p, w in widths.items()}
+        log(f"text: {info}")
+
+        feats, impls = {}, {}
+        for impl in ("sparse", "blockdense", "dense"):
+            t0 = time.perf_counter()
+            (feats[impl], secs), launches[impl] = counted(
+                lambda: prop.text_structural_features(g, idx, 2, impl))
+            impls[impl] = {"precompute_time": secs,
+                           "wall_s": time.perf_counter() - t0,
+                           "launches": launches[impl]}
+            if impl == "blockdense":
+                split, dargs = bd._split_cached(
+                    g, min(max(widths.values()), prop.TEXT_CHUNK),
+                    bd.DEFAULT_ROW_BLOCK, bd.DEFAULT_STRIPE, device)
+                impls[impl].update(
+                    cells=split.n_cells, dense_edges=split.dense_edges,
+                    sparse_edges=split.sparse_edges,
+                    dense_frac=split.dense_edges / g.nnz,
+                    min_edges=split.min_edges,
+                    cell_gb=split.cell_bytes / 1e9)
+        n_chunks = sum(len(c) for c in chunks.values())
+        checks = {}
+        for p in idx:
+            sp_, de, bdf = (feats[k][p] for k in ("sparse", "dense",
+                                                  "blockdense"))
+            if sp_.shape != de.shape or sp_.shape != bdf.shape or \
+                    sp_.shape[0] != widths[p]:
+                raise AssertionError(f"text {p}: shapes {sp_.shape}, "
+                                     f"{de.shape}, {bdf.shape}")
+            _, dense_err = rel_err(sp_, de)
+            _, bd_err = rel_err(bdf, sp_)
+            checks[p] = {"shape": list(sp_.shape),
+                         "sparse_vs_dense_rel_err": dense_err,
+                         "sparse_vs_dense_allclose": bool(torch.allclose(
+                             sp_, de, rtol=TEXT_RTOL, atol=TEXT_ATOL)),
+                         "blockdense_vs_sparse_rel_err": bd_err}
+        del feats, sp_, de, bdf
+
+        # kernel B at the phases' chunk widths on their own operands (the
+        # sparse hop's inputs), kernel A at the widest on the split
+        operands = {str(chunks["train"][0]): ("train", 0),
+                    str(chunks["train"][-1]):
+                    ("train", sum(chunks["train"][:-1])),
+                    str(widths["val"]): ("val", 0),
+                    str(widths["test"]): ("test", 0)}
+        b_widths = {}
+        for name, (p, start) in operands.items():
+            cols = np.asarray(idx[p])[start:start + prop.TEXT_CHUNK]
+            x = torch.from_numpy(prop._sliced_columns(g, cols)).to(device)
+            b_widths[name] = b_width(f"doc-word graph, {p} chunk", g, x,
+                                     None, reps)
+            if (p, start) == ("train", 0):
+                a_text = text_kernel_a(split, dargs, x, reps)
+                if dargs.rest is not None:
+                    b_widths[f"{name}_split_remainder"] = b_width(
+                        "doc-word split remainder", dargs.rest, x,
+                        bd.apply_cells(split, dargs, x, "bf16"), reps)
+            del x
+        del split, dargs
+        clear_placed()
+
+        runs = {}
+        for name, trainer in (("lbfgs", "lbfgs"), ("newton", "newton")):
+            res = []
+            for _ in range(2):
+                t0 = time.perf_counter()
+                r, launches[name] = counted(lambda: textsgc.run(
+                    TextConfig(dataset=TEXT_DATASET, seed=args.seed,
+                               tuned=True), data_path=root, trainer=trainer,
+                    device=device))
+                r["wall_s"] = time.perf_counter() - t0
+                res.append(r)
+            a, b = res
+            same = (torch.equal(a["params"].w, b["params"].w)
+                    and np.array_equal(a["predictions"], b["predictions"]))
+            runs[name] = {k: a[k] for k in (
+                "impl", "train_accuracy", "val_accuracy", "test_accuracy",
+                "precompute_time", "train_time", "total_time", "wall_s")}
+            runs[name].update(second_wall_s=b["wall_s"], same_bits=same,
+                              second_total_time=b["total_time"])
+            del res, a, b, r
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(sys.stderr):   # its fold lines
+            cv, launches["crossval"] = counted(
+                lambda: crossval.run_crossval(
+                    TEXT_DATASET, folds=2, tuned=True, seed=args.seed,
+                    data_path=root, results_dir=None, device=device))
+        cv_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        (best, val), launches["tune_text"] = counted(lambda: tuning.tune_text(
+            TEXT_DATASET, 2, 3, 4, args.seed, root, "BCD", device=device))
+        tune_s = time.perf_counter() - t0
+        del data, g
+    chance = 1.0 / COVID["n_classes"]
+    emit({"phase": "text_path", "fixture": info, "phase_widths": widths,
+          "chunk_widths": chunks, "chunks": n_chunks, "impls": impls,
+          "auto_impl": auto, "checks": checks,
+          "tolerance": {"sparse_vs_dense": [TEXT_RTOL, TEXT_ATOL],
+                        "blockdense_vs_sparse_rel": TEXT_BF16_TOLERANCE},
+          "kernel_b_widths": b_widths, "kernel_a_2048": a_text,
+          "runs": runs, "chance": chance,
+          "crossval": {"seconds": cv_s,
+                       "accuracy_mean": cv["accuracy_mean"],
+                       "f1_weighted_mean": cv["f1_weighted_mean"]},
+          "tune_text": {"seconds": tune_s, "max_evals": 4,
+                        "weight_decay": best["weight_decay"],
+                        "val_accuracy": val},
+          "launches": launches})
+    if info["nodes"] != TEXT_NODES or not (
+            TEXT_NNZ[0] <= info["nnz"] <= TEXT_NNZ[1]):
+        raise AssertionError(f"text fixture off the COVID shape: {info}")
+    for p, c in checks.items():
+        if not c["sparse_vs_dense_allclose"]:
+            raise AssertionError(f"text {p}: sparse vs dense {c}")
+        if not c["blockdense_vs_sparse_rel_err"] <= TEXT_BF16_TOLERANCE:
+            raise AssertionError(f"text {p}: blockdense vs sparse {c}")
+    rest = impls["blockdense"]["sparse_edges"] > 0
+    want = {"sparse": (n_chunks, 0),
+            "blockdense": (n_chunks if rest else 0, n_chunks),
+            "dense": (0, 0)}
+    for impl, (n_b, n_a) in want.items():
+        got = (launches[impl]["csr_spmm"], launches[impl]["blockdense_cells"])
+        if got != (n_b, n_a):
+            raise AssertionError(f"text {impl}: kernel B, A launches {got}, "
+                                 f"want {(n_b, n_a)}")
+    for name, r in runs.items():
+        if r["impl"] != auto or not r["same_bits"]:
+            raise AssertionError(f"textsgc {name}: {r}")
+        if not r["test_accuracy"] >= 2 * chance:
+            raise AssertionError(f"textsgc {name}: test acc {r}")
+        if launches[name]["csr_spmm"] != (n_chunks if auto == "sparse"
+                                          else 0):
+            raise AssertionError(f"textsgc {name}: {launches[name]}")
+    if not val > 2 * chance or (auto == "sparse"
+                                and launches["tune_text"]["csr_spmm"] <= 0):
+        raise AssertionError(f"tune_text: {best} {val}")
+    return {"launches": launches, "kernel_a_2048": a_text,
+            "kernel_b_widths": b_widths}
+
+
 def phase_train_paths(args, device) -> dict:
     """The train-through-the-graph paths on one Pubmed-shape fixture."""
     from sgc_tpu_torch.data.fixtures import PUBMED, write_planetoid
@@ -1680,6 +1930,8 @@ def main() -> int:
     by_path = {"reddit_cli": phase_reddit_cli(args, device),
                "citation_cli": phase_citation_cli(args, device),
                **phase_train_paths(args, device)}
+    text = phase_text_path(args, device, args.reps)
+    by_path["text_cli"] = text["launches"]
     by_path["gat_train"]["reddit_2_steps"] = gat_reddit["launches"]
     for row in rows:
         row["launches_by_path"] = {
@@ -1693,6 +1945,16 @@ def main() -> int:
                                                    "transposed_b", "row_sum")
                                  if k in w}
                              for F, w in gat_reddit["widths"].items()}
+    rows[0]["max_abs_err"] = max(rows[0]["max_abs_err"],
+                                 text["kernel_a_2048"]["max_abs_err"])
+    rows[1]["max_abs_err"] = max([rows[1]["max_abs_err"]] + [
+        w["max_abs_err"] for w in text["kernel_b_widths"].values()])
+    rows[0]["text_2048"] = {k: text["kernel_a_2048"][k] for k in (
+        "F", "cells", "precision", "ms", "plain_ms", "bound_ms", "bound_by",
+        "library_ms", "rel_err")}
+    rows[1]["text_widths"] = {F: {k: w[k] for k in (
+        "ms", "bound_ms", "bound_by", "library_ms", "rel_err", "plan")}
+        for F, w in text["kernel_b_widths"].items()}
     rows[3]["gat_reddit_backward"] = {F: w["d"] for F, w in
                                       gat_reddit["widths"].items()
                                       if "d" in w}

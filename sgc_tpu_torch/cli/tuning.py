@@ -3,15 +3,19 @@ on the card by default:
 
     python -m sgc_tpu_torch.cli.tuning --dataset cora
     python -m sgc_tpu_torch.cli.tuning --dataset pubmed --grid 16
+    python -m sgc_tpu_torch.cli.tuning --family text --dataset ohsumed \
+        [--fold K]
 
-The K-hop propagation runs once, for the train and val rows only; each
-of the 60 TPE trials is then an Adam fit of the head
-(``train_regression``, from one init) scored on validation accuracy.
+The propagation runs once. Citation family: the K hops for the train and
+val rows only, then each of the 60 TPE trials is an Adam fit of the head
+(``train_regression``, from one init) scored on validation accuracy;
 ``--grid N`` trains N log-spaced weight decays at once
 (``train_regression_many``) and scores every head in one batched matmul.
-The best weight decay and its val accuracy go to
-``<output>/<dataset>.json``. ``--family text`` is not ported yet and
-raises ``NotImplementedError``.
+Text family: the structural features (``text_structural_features``),
+then each TPE trial over ``loguniform(1e-6, 1)`` is an LBFGS fit
+(``train_linear``, from one init); ``--fold K`` tunes one
+cross-validation fold. The best weight decay and its val accuracy go to
+``<output>/<dataset>.json`` (``<dataset>.<K>.json`` for a fold).
 """
 
 from __future__ import annotations
@@ -24,15 +28,22 @@ import numpy as np
 import torch
 
 from sgc_tpu_torch.data.planetoid import load_citation
+from sgc_tpu_torch.data.textcorpus import load_corpus
 from sgc_tpu_torch.models.sgc import init_sgc, sgc_apply
-from sgc_tpu_torch.ops.propagate import sgc_precompute
-from sgc_tpu_torch.train.loops import train_regression, train_regression_many
+from sgc_tpu_torch.ops.propagate import (
+    sgc_precompute,
+    text_structural_features,
+)
+from sgc_tpu_torch.train.loops import (
+    eval_linear,
+    train_linear,
+    train_regression,
+    train_regression_many,
+)
 from sgc_tpu_torch.train.metrics import accuracy
 from sgc_tpu_torch.tune.tpe import fmin, loguniform
 from sgc_tpu_torch.utils.device import resolve_device
 from sgc_tpu_torch.utils.seeding import set_seed
-
-TEXT_TODO = "ROADMAP queue 1 item 4 (text path)"
 
 
 def grid_accuracies(heads, val_x: torch.Tensor,
@@ -93,6 +104,38 @@ def tune_citation(dataset, degree, epochs, lr, max_evals, seed, data_path,
     return best, -loss
 
 
+def tune_text(dataset, degree, epochs, max_evals, seed, data_path, subset,
+              fold=None, device=None):
+    """TPE over ``loguniform(1e-6, 1)``, each trial an LBFGS fit of the
+    text head (no bias, xavier-normal, one init for every trial) scored
+    on val accuracy; ``fold`` selects a cross-validation fold. Returns
+    ``({"weight_decay": best}, val accuracy)`` (tuning.py:99-133)."""
+    dev = resolve_device(device)
+    generator = set_seed(seed)
+    data = load_corpus(dataset, subset, data_path, fold=fold, device=dev)
+    binary = dataset == "mr"
+    feat_dict, _ = text_structural_features(data.graph, data.index_dict,
+                                            degree=degree)
+    label_dict = {k: torch.as_tensor(v, device=dev)
+                  for k, v in data.label_dict.items()}
+    nclass = 1 if binary else data.n_classes
+    model0 = init_sgc(generator, feat_dict["train"].shape[1], nclass,
+                      bias=False, init="xavier_normal", device=dev)
+
+    def objective(params):
+        model, _ = train_linear(model0, feat_dict["train"],
+                                label_dict["train"],
+                                weight_decay=params["weight_decay"],
+                                epochs=epochs, binary=binary)
+        res = eval_linear(model, feat_dict["val"], label_dict["val"],
+                          binary)
+        return -res["accuracy"]
+
+    best, loss = fmin(objective, {"weight_decay": loguniform(1e-6, 1.0)},
+                      max_evals=max_evals, seed=seed)
+    return best, -loss
+
+
 def main() -> None:
     parser = argparse.ArgumentParser(description=__doc__)
     parser.add_argument("--family", default="citation",
@@ -106,23 +149,35 @@ def main() -> None:
     parser.add_argument("--grid", type=int, default=0,
                         help="grid search over N log-spaced weight decays "
                         "(one batched fit) instead of sequential TPE")
+    parser.add_argument("--subset", default="BCD")
+    parser.add_argument("--fold", type=int, default=None,
+                        help="cross-validation fold (text family)")
     parser.add_argument("--data_path", default=None)
     parser.add_argument("--output", default="tuned")
     parser.add_argument("--device", default=None,
                         help="torch device (default: the CUDA card)")
     args = parser.parse_args()
 
-    if args.family != "citation":
-        raise NotImplementedError(f"--family {args.family} is not ported "
-                                  f"yet: {TEXT_TODO}")
-    best, val_acc = tune_citation(
-        args.dataset, args.degree, args.epochs or 100, args.lr,
-        args.max_evals, args.seed, args.data_path, grid=args.grid,
-        device=args.device)
+    if args.family == "citation":
+        best, val_acc = tune_citation(
+            args.dataset, args.degree, args.epochs or 100, args.lr,
+            args.max_evals, args.seed, args.data_path, grid=args.grid,
+            device=args.device)
+    else:
+        if args.grid:
+            raise SystemExit(
+                "--grid is citation-family only (the text family's LBFGS "
+                "fit is not batched); use TPE (--max_evals) instead")
+        best, val_acc = tune_text(
+            args.dataset, args.degree, args.epochs or 3, args.max_evals,
+            args.seed, args.data_path, args.subset, fold=args.fold,
+            device=args.device)
 
     out_dir = Path(args.output)
     out_dir.mkdir(parents=True, exist_ok=True)
-    out_path = out_dir / f"{args.dataset}.json"
+    stem = (args.dataset if args.fold is None
+            else f"{args.dataset}.{args.fold}")
+    out_path = out_dir / f"{stem}.json"
     with open(out_path, "w") as f:
         json.dump({"weight_decay": best["weight_decay"],
                    "val_accuracy": val_acc}, f)

@@ -13,7 +13,12 @@ where the real files are absent:
   half of the edges) and ``reddit.npz`` (``feats`` float32,
   ``y_train``/``y_val``/``y_test`` and ``train_index``/``val_index``/
   ``test_index`` int64), edges and labels from the clustered recipe of
-  :func:`sgc_tpu_torch.data.synthetic.clustered_edges`.
+  :func:`sgc_tpu_torch.data.synthetic.clustered_edges`;
+* :func:`write_text_corpus`: a TextSGC corpus, ``<dataset>.txt``
+  (``<id>\t<train|test>\t<label>`` metadata lines) and
+  ``<dataset>.clean.txt`` (one cleaned doc a line), which
+  ``cli/build_graph.py`` turns into the doc-word graph; at the defaults
+  (``COVID``) the COVID-19 corpus's published shape.
 """
 
 from __future__ import annotations
@@ -29,6 +34,11 @@ from sgc_tpu_torch.data.synthetic import REDDIT_NODES, clustered_edges
 
 # GraphSAGE's Reddit split sizes (of 232,965 nodes; the rest are in none)
 REDDIT_SPLIT = (152_410, 23_699, 55_334)
+
+# the COVID-19 corpus's published shape: 7,362 train and 1,825 test
+# abstracts, 31 subject labels, 14,832 words after cleaning (so a
+# 24,019-node doc-word graph)
+COVID = dict(n_train=7_362, n_test=1_825, n_classes=31, vocab=14_832)
 
 # Pubmed's published shape and Planetoid split
 PUBMED = dict(n_nodes=19_717, n_edges=44_338, n_features=500, n_classes=3,
@@ -139,3 +149,64 @@ def write_reddit(root, scale: float = 1.0, seed: int = 42) -> dict:
             "features": int(feats.shape[1]),
             "classes": int(labels.max()) + 1, "train": n_tr, "val": n_va,
             "test": n_te}
+
+
+def write_text_corpus(root, dataset: str = "covid", n_train: int = 7_362,
+                      n_test: int = 1_825, n_classes: int = 31,
+                      vocab: int = 14_832, doc_len: float = 125.0,
+                      topic: float = 0.05, topic_words: int = 400,
+                      zipf: float = 1.0, seed: int = 42) -> dict:
+    """Write a cleaned text corpus and its metadata into ``root``.
+
+    Every doc has one class (class sizes fall off as ``1/sqrt(rank)``)
+    and a length drawn around ``doc_len`` tokens. Each token is, with
+    probability ``topic``, a word of the class's own topic list
+    (``topic_words`` words of the vocabulary, Zipf-weighted within it),
+    else a word of a shared Zipf(``zipf``) background over the whole
+    vocabulary. Every one of the ``vocab`` words is used at least once
+    (the unused ones are appended to seeded docs), so the vocabulary
+    has exactly ``vocab`` words. Test docs are spread through the file.
+    Returns the paths and counts.
+    """
+    root = Path(root)
+    root.mkdir(parents=True, exist_ok=True)
+    rng = np.random.default_rng(seed)
+    n_docs = n_train + n_test
+    class_p = 1.0 / np.sqrt(np.arange(1, n_classes + 1))
+    labels = rng.choice(n_classes, n_docs, p=class_p / class_p.sum())
+    labels[:n_classes] = np.arange(n_classes)      # every class present
+    phases = np.zeros(n_docs, bool)
+    phases[rng.permutation(n_docs)[:n_test]] = True  # True = test
+
+    lengths = np.maximum(
+        rng.lognormal(np.log(doc_len) - 0.125, 0.5, n_docs).astype(int), 5)
+    starts = np.concatenate(([0], np.cumsum(lengths)))
+    doc_of = np.repeat(np.arange(n_docs), lengths)
+    n_tok = int(starts[-1])
+    bg_p = 1.0 / np.arange(1, vocab + 1) ** zipf
+    tokens = rng.choice(vocab, n_tok, p=bg_p / bg_p.sum())
+    # each class's topic list, drawn from the vocabulary below the most
+    # frequent words; Zipf-weighted inside the list
+    lists = np.stack([rng.choice(np.arange(vocab // 50, vocab), topic_words,
+                                 replace=False) for _ in range(n_classes)])
+    in_p = 1.0 / np.arange(1, topic_words + 1)
+    own = rng.random(n_tok) < topic
+    pick = rng.choice(topic_words, int(own.sum()), p=in_p / in_p.sum())
+    tokens[own] = lists[labels[doc_of[own]], pick]
+
+    docs = [tokens[starts[d]:starts[d + 1]].tolist() for d in range(n_docs)]
+    unused = np.setdiff1d(np.arange(vocab), tokens)
+    for w, d in zip(unused.tolist(), rng.integers(0, n_docs, len(unused))):
+        docs[int(d)].append(w)
+
+    meta = root / f"{dataset}.txt"
+    corpus = root / f"{dataset}.clean.txt"
+    meta.write_text("".join(
+        f"doc{d}\t{'test' if phases[d] else 'train'}\tc{labels[d]:02d}\n"
+        for d in range(n_docs)))
+    corpus.write_text("".join(
+        " ".join(f"w{w:05d}" for w in doc) + "\n" for doc in docs))
+    return {"metadata": meta, "corpus": corpus, "docs": n_docs,
+            "train": int(n_docs - phases.sum()), "test": int(phases.sum()),
+            "classes": n_classes, "vocab": vocab,
+            "tokens": int(sum(len(d) for d in docs))}

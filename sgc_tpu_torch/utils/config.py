@@ -1,9 +1,10 @@
 """Experiment configuration (the counterpart of sgc_tpu/utils/config.py).
 
-``CitationConfig`` is the citation CLI's configuration; ``tuned=True``
-overrides its fields from the port's own copy of the tuned table,
-``sgc_tpu_torch/configs/tuned.json``, as the reference's ``--tuned``
-does with its file.
+``CitationConfig`` is the citation CLI's configuration and ``TextConfig``
+the text CLI's; ``tuned=True`` overrides their fields from the port's own
+copy of the tuned table, ``sgc_tpu_torch/configs/tuned.json`` (families
+``citation``, ``gcn`` and ``text``), as the reference's ``--tuned`` does
+with its file.
 """
 
 from __future__ import annotations
@@ -41,5 +42,24 @@ class CitationConfig:
         if self.tuned:
             family = "gcn" if self.model == "GCN" else "citation"
             for k, v in load_tuned(family, self.dataset).items():
+                setattr(self, k, v)
+        return self
+
+
+@dataclasses.dataclass
+class TextConfig:
+    dataset: str = "20ng"
+    seed: int = 42
+    epochs: int = 3
+    weight_decay: float = 0.0
+    degree: int = 2
+    tuned: bool = False
+    preprocessed: bool = False
+
+    def resolve(self) -> "TextConfig":
+        """Apply the ``text`` family's tuned fields (in place) when
+        ``tuned``."""
+        if self.tuned:
+            for k, v in load_tuned("text", self.dataset).items():
                 setattr(self, k, v)
         return self

@@ -789,3 +789,81 @@ def test_cuda_kernel_c_bf16_width_classes(cuda, f):
     torch.cuda.synchronize()
     assert torch.equal(got, again)
     assert_close_rel(got.cpu().numpy(), want.cpu().numpy())
+
+
+# ------------------------------------------------------------ the text path
+
+# the chunk widths of COVID's phases (train 2048 x 3 + 482, val 736,
+# test 1,825) and the passes of their plans
+TEXT_WIDTHS = {2048: 4, 1825: 3, 736: 2, 482: 1}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("with_dense", [False, True])
+@pytest.mark.parametrize("f", sorted(TEXT_WIDTHS))
+def test_cuda_kernel_b_text_widths(cuda, width_graph, f, with_dense):
+    """Kernel B at the text path's chunk widths, its multi-pass plans: x a
+    column chunk of a wider matrix made contiguous (as the structural
+    precompute places its chunks), with and without the block-dense
+    remainder's dense term; the plain version at 1e-5 and the same bits
+    over two launches."""
+    g = width_graph.to(cuda)
+    gen = torch.Generator(device=cuda).manual_seed(f)
+    wide = torch.randn(g.n_cols, f + 64, device=cuda, generator=gen)
+    x = wide[:, 33:33 + f].contiguous()
+    dense = (torch.randn(g.n_rows, f, device=cuda, generator=gen)
+             if with_dense else None)
+    plan = port_spmm.csr_plan(f, False, port_spmm.operand_align(x, dense))
+    assert plan.passes == TEXT_WIDTHS[f]
+    before = port_spmm.LAUNCHES
+    got = port_spmm.spmm_segment(g, x, dense)
+    again = port_spmm.spmm_segment(g, x, dense)
+    assert port_spmm.LAUNCHES == before + 2
+    want = port_spmm.spmm_segment_plain(g, x, dense)
+    torch.cuda.synchronize()
+    assert torch.equal(got, again)
+    assert_close_rel(got.cpu().numpy(), want.cpu().numpy())
+
+
+@pytest.fixture(scope="module")
+def text_corpus_graph(tmp_path_factory):
+    """A doc-word graph from a seeded corpus (1,500 docs, 2,500 words)."""
+    from sgc_tpu_torch.cli.build_graph import build_and_export
+    from sgc_tpu_torch.data.fixtures import write_text_corpus
+
+    root = tmp_path_factory.mktemp("text")
+    info = write_text_corpus(root, "tiny", n_train=1200, n_test=300,
+                             n_classes=8, vocab=2500, seed=5)
+    build_and_export(str(info["metadata"]), str(info["corpus"]), "tiny",
+                     str(root))
+    return root
+
+
+@pytest.mark.cuda
+def test_cuda_text_structural_features(cuda, text_corpus_graph):
+    """``text_structural_features`` on the card: ``sparse`` (kernel B, one
+    launch a chunk) against ``dense`` at the reference's own bound (rtol
+    2e-4, atol 2e-5), ``blockdense`` (kernel A + B) against ``sparse`` at
+    the bf16-cell bound (2e-2 of max), and ``sparse`` against the CPU's
+    run at 1e-5 of max."""
+    from sgc_tpu_torch.data.textcorpus import load_corpus
+    from sgc_tpu_torch.ops.propagate import text_structural_features
+    from sgc_tpu_torch.utils.buildcache import clear_placed
+
+    data = load_corpus("tiny", "BCD", str(text_corpus_graph), device=cuda)
+    idx = data.index_dict
+    feats, counts = {}, {}
+    for impl in ("sparse", "blockdense", "dense"):
+        b0, a0 = port_spmm.LAUNCHES, port_bd.LAUNCHES
+        feats[impl], _ = text_structural_features(data.graph, idx, 2, impl)
+        counts[impl] = (port_spmm.LAUNCHES - b0, port_bd.LAUNCHES - a0)
+    clear_placed()
+    assert counts["sparse"] == (3, 0)         # train 1,080, val, test
+    assert counts["blockdense"][1] == 3 and counts["dense"] == (0, 0)
+    cpu = load_corpus("tiny", "BCD", str(text_corpus_graph), device="cpu")
+    on_cpu, _ = text_structural_features(cpu.graph, idx, 2, "sparse")
+    for p in idx:
+        s, d, b = (feats[k][p] for k in ("sparse", "dense", "blockdense"))
+        torch.testing.assert_close(s, d, rtol=2e-4, atol=2e-5)
+        assert float((b - s).abs().max()) <= 2e-2 * float(s.abs().max())
+        assert_close_rel(s.cpu().numpy(), on_cpu[p].numpy())

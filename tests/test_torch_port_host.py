@@ -5,10 +5,18 @@ for bit: graph containers, normalization, synthetic data, the LPA order
 and the block-dense split (cells' bf16 bits, ids and remainder).
 """
 
+import contextlib
+import fcntl
+import os
+import tempfile
+import time
+import warnings
+
 import numpy as np
 import pytest
 import scipy.sparse as sp
 
+from sgc_tpu import native as ref_native
 from sgc_tpu.data import synthetic as ref_synth
 from sgc_tpu.graph import normalize as ref_norm
 from sgc_tpu.graph import reorder as ref_reorder
@@ -33,6 +41,29 @@ def assert_graphs_equal(ref, port):
         np.testing.assert_array_equal(a, b, err_msg=f)
 
 
+@contextlib.contextmanager
+def reference_native_lpa(timeout: float = 60.0):
+    """Hold the reference's native LPA solver for the block. Parallel
+    workers build the reference's host library in place, unlocked, so a
+    worker can load a half-written file, latch the failure and fall back
+    to its numpy LPA, a different fixpoint. Under a file lock, clear the
+    latch and retry until the library loads (fail the test if it never
+    does); inside the block the fallback's warning is an error."""
+    path = os.path.join(tempfile.gettempdir(), "sgc_tpu_native_ref.lock")
+    with open(path, "a") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        deadline = time.monotonic() + timeout
+        while not ref_native.available():
+            if time.monotonic() > deadline:
+                pytest.fail("the reference's native library does not load;"
+                            " its numpy LPA is not a reference for the port")
+            ref_native._lib, ref_native._load_failed = None, False
+            time.sleep(0.5)
+    with warnings.catch_warnings():
+        warnings.filterwarnings("error", message="lpa_order: native library")
+        yield
+
+
 @pytest.fixture(scope="module")
 def clustered():
     """(reference data, port data) at scale 0.02, shuffled ids."""
@@ -45,8 +76,9 @@ def clustered():
 @pytest.fixture(scope="module")
 def reordered(clustered):
     ref, port = clustered
-    return (ref_reorder.reorder_graph_arrays(ref[0], "lpa", *ref[1:]),
-            port_reorder.reorder_graph_arrays(port[0], "lpa", *port[1:]))
+    with reference_native_lpa():
+        want = ref_reorder.reorder_graph_arrays(ref[0], "lpa", *ref[1:])
+    return want, port_reorder.reorder_graph_arrays(port[0], "lpa", *port[1:])
 
 
 def _random_coo(seed, n=300, m=2000, dup=True):
@@ -158,6 +190,23 @@ def test_lpa_order_and_permuted_arrays_match_reference(reordered, clustered):
     adj = clustered[1][0].to_scipy().tocsr()
     np.testing.assert_array_equal(
         ref_reorder.lpa_order(adj, impl="native"), port_reorder.lpa_order(adj))
+
+
+def test_reference_lpa_guard_restores_the_native_solver(monkeypatch,
+                                                       clustered):
+    """With the reference's load failure latched, its ``auto`` LPA falls
+    back to the numpy solver (with a warning); the guard clears the
+    latch, so the same call reaches the native fixpoint, the port's."""
+    adj = clustered[0][0].to_scipy().tocsr()
+    monkeypatch.setattr(ref_native, "_lib", None)
+    monkeypatch.setattr(ref_native, "_load_failed", True)
+    assert not ref_native.available()
+    with pytest.warns(UserWarning, match="native library unavailable"):
+        ref_reorder.lpa_order(adj, max_iter=1)
+    with reference_native_lpa():
+        assert ref_native.available() and not ref_native._load_failed
+        got = ref_reorder.lpa_order(adj)
+    np.testing.assert_array_equal(got, port_reorder.lpa_order(adj))
 
 
 def test_reorder_rejects_unported_orderings(clustered):

@@ -3,6 +3,7 @@ its entry points default to the CUDA card and raise without one, and
 ``chip_smoke.py`` refuses to report without a card or outside a
 checkout."""
 
+import re
 import shutil
 import subprocess
 import sys
@@ -40,8 +41,33 @@ print(len(walked))
     assert int(out[1]) >= int(out[2]) >= 40
 
 
+def test_port_imports_no_sklearn():
+    """The card's machine has no scikit-learn: no module of the port
+    imports it, and importing all of them loads none of it."""
+    imports = re.compile(r"^\s*(import|from)\s+sklearn\b", re.M)
+    hits = [str(p.relative_to(REPO)) for p in
+            sorted((REPO / "sgc_tpu_torch").rglob("*.py")) + [
+                REPO / "chip_smoke.py"]
+            if imports.search(p.read_text())]
+    assert hits == [], hits
+    code = """
+import pkgutil, sys
+import sgc_tpu_torch
+for m in pkgutil.walk_packages(sgc_tpu_torch.__path__, "sgc_tpu_torch."):
+    __import__(m.name)
+print(",".join(sorted(n for n in sys.modules if n.split(".")[0] in
+                      ("sklearn", "jax", "sgc_tpu"))))
+"""
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                         capture_output=True, text=True, timeout=120,
+                         check=True).stdout.strip()
+    assert out == "", f"port imported {out}"
+
+
 def _entry_points():
-    from sgc_tpu_torch.cli import citation, reddit, sweep, tuning
+    from sgc_tpu_torch.cli import citation, crossval, reddit, sweep, tuning
+    from sgc_tpu_torch.cli import textsgc
+    from sgc_tpu_torch.data.textcorpus import load_corpus
     from sgc_tpu_torch.data.planetoid import load_citation
     from sgc_tpu_torch.data.reddit import load_reddit
     from sgc_tpu_torch.graph.locality import LocalityPlan
@@ -85,6 +111,13 @@ def _entry_points():
             torch.Generator(), 3, 4, 2, n_layers=3),
         "cli.tuning.tune_citation": lambda: tuning.tune_citation(
             "cora", 2, 10, 0.2, 1, 42, "."),
+        "load_corpus": lambda: load_corpus("covid", data_path="."),
+        "cli.textsgc.run": lambda: textsgc.run(textsgc.TextConfig(), "BCD",
+                                               "."),
+        "cli.crossval.run_crossval": lambda: crossval.run_crossval(
+            "covid", data_path="."),
+        "cli.tuning.tune_text": lambda: tuning.tune_text(
+            "covid", 2, 3, 1, 42, ".", "BCD"),
     }
 
 
@@ -94,7 +127,8 @@ def _entry_points():
     "require_cuda_kernels", "init_sgc xavier_normal", "load_citation",
     "load_reddit", "cli.citation.run", "cli.reddit.run", "cli.sweep.sweep",
     "init_gcn", "init_gat_layer", "init_multi_head", "init_deep_gcn",
-    "cli.tuning.tune_citation"])
+    "cli.tuning.tune_citation", "load_corpus", "cli.textsgc.run",
+    "cli.crossval.run_crossval", "cli.tuning.tune_text"])
 def test_default_device_raises_without_cuda(monkeypatch, name):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA"):

@@ -15,12 +15,20 @@ bf16 the same way), so it is held at 1e-5 too.
 
 import dataclasses
 
+import contextlib
+import fcntl
+import os
+import tempfile
+import time
+import warnings
+
 import numpy as np
 import pytest
 import torch
 
 import jax.numpy as jnp
 
+from sgc_tpu import native as ref_native
 from sgc_tpu.data.synthetic import synthetic_reddit_clustered as ref_data
 from sgc_tpu.graph.locality import LocalityPlan as RefPlan
 from sgc_tpu.graph.sparse import SparseGraph as RefGraph
@@ -356,6 +364,29 @@ def test_empty_hybrid_split_returns_zeros():
     assert out.shape == (16, 8) and not out.any()
 
 
+@contextlib.contextmanager
+def reference_native_lpa(timeout: float = 60.0):
+    """Hold the reference's native LPA solver for the block. Parallel
+    workers build the reference's host library in place, unlocked, so a
+    worker can load a half-written file, latch the failure and fall back
+    to its numpy LPA, a different fixpoint. Under a file lock, clear the
+    latch and retry until the library loads (fail the test if it never
+    does); inside the block the fallback's warning is an error."""
+    path = os.path.join(tempfile.gettempdir(), "sgc_tpu_native_ref.lock")
+    with open(path, "a") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        deadline = time.monotonic() + timeout
+        while not ref_native.available():
+            if time.monotonic() > deadline:
+                pytest.fail("the reference's native library does not load;"
+                            " its numpy LPA is not a reference for the port")
+            ref_native._lib, ref_native._load_failed = None, False
+            time.sleep(0.5)
+    with warnings.catch_warnings():
+        warnings.filterwarnings("error", message="lpa_order: native library")
+        yield
+
+
 # ------------------------------------------------------ the onehot plan
 
 # scale 0.005 of the clustered synthetic (1,165 nodes), 24 of its 602
@@ -369,8 +400,9 @@ ONEHOT_TOLS = dict(rtol=5e-4, atol=5e-5)
 @pytest.fixture(scope="module")
 def onehot_plans():
     g, x, labels, idx = ref_data(0.005, shuffle=True, device=False)
-    ref = RefPlan.build(g, x[:, :24], labels, idx, formulation="onehot",
-                        **PLAN_KW)
+    with reference_native_lpa():
+        ref = RefPlan.build(g, x[:, :24], labels, idx,
+                            formulation="onehot", **PLAN_KW)
     g, x, labels, idx = synthetic_reddit_clustered(0.005, shuffle=True)
     port = LocalityPlan.build(g, x[:, :24], labels, idx,
                               formulation="onehot", device="cpu", **PLAN_KW)

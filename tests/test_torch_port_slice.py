@@ -11,6 +11,13 @@ both kernels' paths run), against the reference on the same inputs.
   tests/test_lbfgs_torch_oracle.py uses for the same comparison).
 """
 
+import contextlib
+import fcntl
+import os
+import tempfile
+import time
+import warnings
+
 import numpy as np
 import pytest
 import torch
@@ -18,6 +25,7 @@ import torch
 import jax
 import jax.numpy as jnp
 
+from sgc_tpu import native as ref_native
 from sgc_tpu.data.synthetic import synthetic_reddit_clustered as ref_data
 from sgc_tpu.graph.locality import LocalityPlan as RefPlan
 from sgc_tpu.models.sgc import init_sgc as ref_init
@@ -39,10 +47,34 @@ def rel_err(got, want):
                                                  1e-30)
 
 
+@contextlib.contextmanager
+def reference_native_lpa(timeout: float = 60.0):
+    """Hold the reference's native LPA solver for the block. Parallel
+    workers build the reference's host library in place, unlocked, so a
+    worker can load a half-written file, latch the failure and fall back
+    to its numpy LPA, a different fixpoint. Under a file lock, clear the
+    latch and retry until the library loads (fail the test if it never
+    does); inside the block the fallback's warning is an error."""
+    path = os.path.join(tempfile.gettempdir(), "sgc_tpu_native_ref.lock")
+    with open(path, "a") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        deadline = time.monotonic() + timeout
+        while not ref_native.available():
+            if time.monotonic() > deadline:
+                pytest.fail("the reference's native library does not load;"
+                            " its numpy LPA is not a reference for the port")
+            ref_native._lib, ref_native._load_failed = None, False
+            time.sleep(0.5)
+    with warnings.catch_warnings():
+        warnings.filterwarnings("error", message="lpa_order: native library")
+        yield
+
+
 @pytest.fixture(scope="module")
 def plans():
-    ref = RefPlan.build(*ref_data(0.02, shuffle=True, device=False),
-                        formulation="blockdense_pallas")
+    with reference_native_lpa():
+        ref = RefPlan.build(*ref_data(0.02, shuffle=True, device=False),
+                            formulation="blockdense_pallas")
     port = LocalityPlan.build(*synthetic_reddit_clustered(0.02, shuffle=True),
                               formulation="blockdense_kernel", device="cpu")
     return ref, port
