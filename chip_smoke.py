@@ -82,6 +82,25 @@ counters zeroed just before each run and read just after:
                   each twice (the same bits, test accuracy >= 2x chance);
                   run_crossval (2 folds) and tune_text (4 TPE evals)
 
+Then serving a trained head at Reddit's shape, counters zeroed just
+before each run and read just after:
+
+    serve_path:   synthetic_reddit(scale) on the card ->
+                  sgc_precompute(degree=2) (kernel B) and
+                  propagate_with_checkpoints stopped after its first hop
+                  and resumed (the same bits) -> the Newton head through
+                  save_params / load_params -> InferenceEngine f32, int8
+                  (the store) and inductive (the graph, fanouts 25, 10)
+                  -> cli.serve._bench_variant at batches 1 to 1024, 30
+                  requests each, blocking and pipelined (depth 2): p50,
+                  p99 and rows/s beside the dispatch floor; pipelined
+                  equal to blocking bit for bit, f32 logits against a
+                  float64 product, int8 within its dequantization bound
+                  and agreeing on 99% of the rows, the inductive tree's
+                  reduction against float64 and timed with its gathered
+                  bytes, and the HTTP endpoint's four routes against the
+                  engine
+
 Phases print one JSON line each on stdout; the line before the last is
 ``{"kernels": [...]}`` (each row also carries its launches on the new
 paths, ``launches_by_path``) and the last is ``{"ok": true, "device":
@@ -1868,6 +1887,304 @@ def phase_text_path(args, device, reps) -> dict:
             "kernel_b_widths": b_widths}
 
 
+SERVE_BATCHES = (1, 8, 64, 512, 1024)
+SERVE_REQUESTS = 30
+SERVE_FANOUTS = (25, 10)
+# int8 predictions agreeing with f32 ones, over the sweep's rows
+INT8_AGREEMENT = 0.99
+
+
+class _Interrupted(Exception):
+    """Stands for a crash of the propagation between two hops."""
+
+
+def serve_store(args, device) -> dict:
+    """The served store: ``synthetic_reddit`` at ``args.scale`` on the
+    card, ``sgc_precompute(degree=2)`` (kernel B), then the same hops
+    through ``propagate_with_checkpoints``, stopped after its first hop
+    and resumed (equal bit for bit), and a Newton head on the train rows
+    through ``save_params`` / ``load_params``."""
+    import torch
+
+    from sgc_tpu_torch.data.synthetic import synthetic_reddit
+    from sgc_tpu_torch.models.sgc import init_sgc
+    from sgc_tpu_torch.ops import spmm as spmm_mod
+    from sgc_tpu_torch.ops.propagate import sgc_precompute
+    from sgc_tpu_torch.train.loops import train_linear
+    from sgc_tpu_torch.utils import checkpoint as ckpt
+
+    t0 = time.perf_counter()
+    graph, raw, labels, idx_train = synthetic_reddit(args.scale,
+                                                     seed=args.seed)
+    data_s = time.perf_counter() - t0
+    gd = graph.to(device)
+    x = torch.as_tensor(raw, device=device)
+    (store, precompute_s), pre = counted(lambda: sgc_precompute(x, gd, 2))
+
+    real, calls = spmm_mod.spmm, []
+
+    def crash_in_second_hop(*a, **k):
+        calls.append(1)
+        if len(calls) == 2:
+            raise _Interrupted
+        return real(*a, **k)
+
+    def interrupted(root):
+        spmm_mod.spmm = crash_in_second_hop
+        try:
+            ckpt.propagate_with_checkpoints(x, gd, 2, root)
+        except _Interrupted:
+            return
+        finally:
+            spmm_mod.spmm = real
+        raise AssertionError("the propagation was not interrupted")
+
+    with scratch_dir() as root:
+        t0 = time.perf_counter()
+        _, stopped = counted(lambda: interrupted(root))
+        resumed, resume = counted(
+            lambda: ckpt.propagate_with_checkpoints(x, gd, 2, root))
+        checkpoint_s = time.perf_counter() - t0
+        if (stopped["csr_spmm"], resume["csr_spmm"]) != (1, 1):
+            raise AssertionError(f"hops before / after the stop: "
+                                 f"{stopped}, {resume}")
+        if not torch.equal(resumed, store):
+            raise AssertionError("resumed propagation differs from the "
+                                 "uninterrupted one")
+        del resumed
+
+        rows = torch.as_tensor(idx_train, device=device)
+        y = torch.as_tensor(labels[idx_train], device=device).long()
+        t0 = time.perf_counter()
+        fit, _ = train_linear(
+            init_sgc(torch.Generator().manual_seed(args.seed),
+                     store.shape[1], int(labels.max()) + 1, device=device),
+            store[rows], y, trainer="newton")
+        fit_s = time.perf_counter() - t0
+        ckpt.save_params(os.path.join(root, "head.npz"), fit)
+        head = ckpt.load_params(os.path.join(root, "head.npz"),
+                                device=device)
+    if not (torch.equal(head.w, fit.w) and torch.equal(head.b, fit.b)):
+        raise AssertionError("the loaded head differs from the saved one")
+    train_acc = float((head(store[rows]).argmax(1) == y).float().mean())
+    return {"graph": gd, "raw": x, "store": store, "head": head,
+            "launches": {"precompute": pre, "stopped_after_hop_1": stopped,
+                         "resumed": resume},
+            "info": {"nodes": graph.n_rows, "nnz": graph.nnz,
+                     "features": int(store.shape[1]),
+                     "classes": int(head.w.shape[1]),
+                     "train": len(idx_train), "data_s": data_s,
+                     "precompute_s": precompute_s,
+                     "checkpoint_s": checkpoint_s, "fit_s": fit_s,
+                     "train_acc": train_acc}}
+
+
+def int8_check(got, want, ids, int8_engine) -> dict:
+    """int8 logits ``got`` against f32 logits ``want`` on rows ``ids``:
+    every logit within the dequantization bound (half a quantization step
+    per feature, weighted by |w|, plus f32 slack), every row whose f32
+    top-two margin clears twice that bound predicting the same class, and
+    the share of rows predicting the same class."""
+    import numpy as np
+    import torch
+
+    step = int8_engine._scales.index_select(
+        0, torch.as_tensor(ids, device=int8_engine.device)).cpu().numpy()
+    w_abs = int8_engine.params.w.abs().sum(0).cpu().numpy()
+    bound = 0.5 * step * w_abs[None, :] + 1e-5 * np.abs(want).max()
+    err = np.abs(got - want)
+    top2 = np.sort(want, axis=1)[:, -2:]
+    clear = (top2[:, 1] - top2[:, 0]) > 2 * bound.max(axis=1)
+    same = got.argmax(1) == want.argmax(1)
+    out = {"rows": int(len(ids)), "agreement": float(same.mean()),
+           "margin_clear_rows": int(clear.sum()),
+           "margin_clear_agreement": float(same[clear].mean()),
+           "max_err_over_bound": float((err / bound).max())}
+    if not (err <= bound).all():
+        raise AssertionError(f"int8 logits outside the bound: {out}")
+    if not same[clear].all():
+        raise AssertionError(f"int8 flips a clear-margin row: {out}")
+    return out
+
+
+def http_check(engine, ids) -> dict:
+    """The HTTP endpoint on port 0 in a thread: /predict,
+    /predict_logits, /predict_batch and /healthz, each answer equal to
+    the engine's direct one."""
+    import threading
+    import urllib.request
+
+    import numpy as np
+
+    from sgc_tpu_torch.serve.http import serve
+
+    server = serve(engine, host="127.0.0.1", port=0)
+    port = server.server_address[1]
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    thread.start()
+
+    def call(path, payload=None):
+        data = None if payload is None else json.dumps(payload).encode()
+        req = urllib.request.Request(
+            f"http://127.0.0.1:{port}{path}", data=data,
+            headers={"Content-Type": "application/json"})
+        with urllib.request.urlopen(req, timeout=60) as r:
+            return json.loads(r.read())
+
+    ids = [int(i) for i in ids]
+    batches = [ids[:8], [], ids[8:72], ids[:1]]
+    t0 = time.perf_counter()
+    try:
+        pred = call("/predict", {"node_ids": ids})["predictions"]
+        logits = call("/predict_logits", {"node_ids": ids[:64]})["logits"]
+        batch = call("/predict_batch", {"batches": batches})["predictions"]
+        health = call("/healthz")
+    finally:
+        server.shutdown()
+        server.server_close()
+        thread.join(timeout=60)
+    wall_s = time.perf_counter() - t0
+    checks = {
+        "predict": pred == engine.predict(ids).tolist(),
+        "predict_logits": np.array_equal(np.asarray(logits, np.float32),
+                                         engine.predict_logits(ids[:64])),
+        "predict_batch": batch == [engine.predict(b).tolist() if b else []
+                                   for b in batches],
+        "healthz": health["status"] == "ok" and health["requests"] >= 4,
+        "stopped": not thread.is_alive()}
+    if not all(checks.values()):
+        raise AssertionError(f"HTTP answers differ: {checks}")
+    return {"checks": checks, "wall_s": wall_s, "healthz": health}
+
+
+def phase_serve_path(args, device, card, reps) -> dict:
+    """Serving a trained head on the card: the store, checkpoints and
+    head of :func:`serve_store`; ``InferenceEngine`` f32 and int8 over
+    the store and inductive over the graph and raw features (fanouts 25,
+    10); ``cli.serve._bench_variant`` over batches 1 to 1024, 30 requests
+    each, blocking and pipelined at depth 2; then the checks: pipelined
+    equal to blocking bit for bit (transductive), f32 logits within 1e-5
+    of max of a float64 product, int8 within its dequantization bound
+    and agreeing on at least 99% of the rows, the inductive engine's
+    first call the head on the tree its generator draws, that tree's
+    reduction within 1e-5 of max of a float64 recomputation, and the
+    HTTP endpoint's answers equal to the engine's."""
+    import numpy as np
+    import torch
+
+    from sgc_tpu_torch.cli.serve import _bench_variant, dispatch_floor_ms
+    from sgc_tpu_torch.ops import sampling
+    from sgc_tpu_torch.serve import EngineConfig, InferenceEngine
+
+    t_phase = time.perf_counter()
+    built = serve_store(args, device)
+    store, head = built["store"], built["head"]
+    t0 = time.perf_counter()
+    engines = {
+        "f32": InferenceEngine(head, features=store, device=device),
+        "int8": InferenceEngine(head, features=store, device=device,
+                                config=EngineConfig(quantize_int8=True)),
+        "inductive": InferenceEngine(
+            head, graph=built["graph"], raw_features=built["raw"],
+            device=device, config=EngineConfig(fanouts=SERVE_FANOUTS,
+                                               seed=args.seed,
+                                               warmup=False))}
+    engines_s = time.perf_counter() - t0
+    n = store.shape[0]
+    rng = np.random.default_rng(args.seed)
+
+    # the inductive engine's first call against the tree its generator
+    # draws, and that tree's reduction against float64
+    ind = engines["inductive"]
+    ids = rng.integers(0, n, SERVE_BATCHES[-1])
+    first = ind.predict_logits(ids)
+    gen = torch.Generator(device=device)
+    gen.manual_seed(args.seed)
+    dev_ids = torch.as_tensor(ids.astype(np.int32), device=device)
+    fr, ws = sampling.sample_tree(built["graph"], dev_ids, gen,
+                                  SERVE_FANOUTS)
+    est = sampling.reduce_tree(built["raw"], fr, ws, SERVE_FANOUTS)
+    if not np.array_equal(first, head(est).cpu().numpy()):
+        raise AssertionError("inductive engine != head on its tree")
+    leaves = built["raw"].cpu().numpy()[fr[-1].cpu().numpy()].astype(
+        np.float64).reshape(len(ids), *SERVE_FANOUTS, -1)
+    w0, w1 = (w.cpu().numpy().astype(np.float64).reshape(
+        len(ids), *SERVE_FANOUTS[:t + 1]) for t, w in enumerate(ws))
+    est64 = np.einsum("bk,bkf->bf", w0, np.einsum(
+        "bkl,bklf->bkf", w1, leaves) / SERVE_FANOUTS[1]) / SERVE_FANOUTS[0]
+    del leaves
+    tree_abs, tree_err = rel_err(est.double().cpu(), torch.from_numpy(est64))
+    if not tree_err <= TOLERANCE:
+        raise AssertionError(f"tree reduction vs float64: {tree_err:.3e}")
+    gather_bytes = int(fr[-1].numel()) * int(store.shape[1]) * 4
+    reduce_ms = time_ms(lambda: sampling.reduce_tree(
+        built["raw"], fr, ws, SERVE_FANOUTS), reps)
+    sample_ms = time_ms(lambda: sampling.sample_tree(
+        built["graph"], dev_ids, gen, SERVE_FANOUTS), reps)
+    del fr, ws, est
+
+    floor_ms = dispatch_floor_ms(device)
+    sweep, launches = {}, dict(built["launches"])
+    for name, eng in engines.items():
+        sweep[name], launches[f"sweep_{name}"] = counted(
+            lambda: _bench_variant(name, eng, SERVE_BATCHES,
+                                   SERVE_REQUESTS, pipeline_depth=2))
+
+    # f32 vs float64 and int8 vs f32 on fresh rows (the sweep held the
+    # pipelined outputs to the blocking ones)
+    w64 = head.w.double().cpu().numpy()
+    b64 = head.b.double().cpu().numpy()
+    store_host = store.cpu().numpy()
+    f32_err = 0.0
+    served = {"ids": [], "f32": [], "int8": []}
+    for b in SERVE_BATCHES:
+        batches = [rng.integers(0, n, b) for _ in range(SERVE_REQUESTS)]
+        served["ids"].extend(batches)
+        for name in ("f32", "int8"):
+            served[name].extend(engines[name].predict_logits(i)
+                                for i in batches)
+    for i, got in zip(served["ids"], served["f32"]):
+        want = store_host[i].astype(np.float64) @ w64 + b64
+        f32_err = max(f32_err, float(np.abs(got - want).max())
+                      / float(np.abs(want).max()))
+    del store_host
+    int8 = int8_check(np.concatenate(served["int8"]),
+                      np.concatenate(served["f32"]),
+                      np.concatenate(served["ids"]), engines["int8"])
+    http = http_check(engines["f32"], rng.integers(0, n, 96))
+    bitwise = all(r["pipelined_bitwise_equal"] for rows in sweep.values()
+                  for r in rows if "pipelined_bitwise_equal" in r)
+
+    emit({"phase": "serve_path", "nvidia_smi": card, **built["info"],
+          "engines_s": engines_s, "dispatch_floor_ms": floor_ms,
+          "requests_per_batch": SERVE_REQUESTS, "pipeline_depth": 2,
+          "sweep": {name: [{k: r[k] for k in (
+              "batch", "p50_ms", "p99_ms", "rows_per_s", "p50_ms_pipelined",
+              "p99_ms_pipelined", "rows_per_s_pipelined")}
+              for r in rows] for name, rows in sweep.items()},
+          "pipelined_bitwise_equal": bitwise,
+          "f32_vs_float64_rel_err": f32_err, "tolerance_rel": TOLERANCE,
+          "int8": int8, "inductive": {
+              "batch": len(ids), "fanouts": SERVE_FANOUTS,
+              "leaf_rows": gather_bytes // (4 * int(store.shape[1])),
+              "gather_bytes": gather_bytes, "reduce_ms": reduce_ms,
+              "sample_ms": sample_ms, "gather_bound_ms":
+                  gather_bytes / PEAK_HBM_BYTES * 1e3,
+              "tree_vs_float64_abs_err": tree_abs,
+              "tree_vs_float64_rel_err": tree_err},
+          "http": http, "launches": launches,
+          "wall_s": time.perf_counter() - t_phase})
+    if not bitwise:
+        raise AssertionError("pipelined logits differ from blocking ones")
+    if not f32_err <= TOLERANCE:
+        raise AssertionError(f"f32 logits vs float64: {f32_err:.3e}")
+    if not int8["agreement"] >= INT8_AGREEMENT:
+        raise AssertionError(f"int8 agreement {int8['agreement']:.4f}")
+    if launches["precompute"]["csr_spmm"] != 2:
+        raise AssertionError(f"precompute launches: {launches}")
+    return launches
+
+
 def phase_train_paths(args, device) -> dict:
     """The train-through-the-graph paths on one Pubmed-shape fixture."""
     from sgc_tpu_torch.data.fixtures import PUBMED, write_planetoid
@@ -1906,7 +2223,7 @@ def main() -> int:
     torch.cuda.set_device(device)
 
     t_start = time.perf_counter()
-    phase_device()
+    card = phase_device()
     phase_build()
     phase_calibrate(device)
     main = phase_main_path(args, device)
@@ -1932,6 +2249,7 @@ def main() -> int:
                **phase_train_paths(args, device)}
     text = phase_text_path(args, device, args.reps)
     by_path["text_cli"] = text["launches"]
+    by_path["serve_path"] = phase_serve_path(args, device, card, args.reps)
     by_path["gat_train"]["reddit_2_steps"] = gat_reddit["launches"]
     for row in rows:
         row["launches_by_path"] = {

@@ -867,3 +867,121 @@ def test_cuda_text_structural_features(cuda, text_corpus_graph):
         torch.testing.assert_close(s, d, rtol=2e-4, atol=2e-5)
         assert float((b - s).abs().max()) <= 2e-2 * float(s.abs().max())
         assert_close_rel(s.cpu().numpy(), on_cpu[p].numpy())
+
+
+# ---------------------------------------------------------------- serving
+
+def _serve_problem(n=3000, f=24, c=5, e=30000, seed=11):
+    """A Reddit-like normalized graph, raw and propagated features and a
+    random head, all on the host."""
+    import scipy.sparse as sp
+
+    from sgc_tpu_torch.graph.normalize import aug_normalized_adjacency
+    from sgc_tpu_torch.models.sgc import init_sgc
+
+    rng = np.random.default_rng(seed)
+    adj = sp.coo_matrix((np.ones(e, np.float32),
+                         ((rng.random(e) ** 2 * n).astype(np.int64),
+                          rng.integers(0, n, e))), shape=(n, n))
+    mat = aug_normalized_adjacency(adj + adj.T)
+    x = rng.standard_normal((n, f)).astype(np.float32)
+    store = (mat @ (mat @ x)).astype(np.float32)
+    head = init_sgc(torch.Generator().manual_seed(seed), f, c, device="cpu")
+    return PortGraph.from_scipy(mat), x, store, head
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["f32", "int8", "inductive"])
+def test_cuda_engine_matches_its_cpu_run(cuda, mode):
+    """Each engine mode on the card against the same engine on the CPU:
+    transductive logits at 1e-5 of max; inductive on one sampled tree
+    (drawn on the card, reduced on both devices) at 1e-5 of max, and the
+    engine's call equal bit for bit to the head on that tree."""
+    from sgc_tpu_torch.models.sgc import sgc_apply
+    from sgc_tpu_torch.ops import sampling
+    from sgc_tpu_torch.serve import EngineConfig, InferenceEngine
+
+    graph, x, store, head = _serve_problem()
+    ids = np.random.default_rng(0).integers(0, store.shape[0], 200)
+    cfg = EngineConfig(max_batch=256, quantize_int8=(mode == "int8"),
+                       fanouts=(25, 10), seed=3)
+    if mode != "inductive":
+        on_card = InferenceEngine(head, features=store, config=cfg,
+                                  device=cuda)
+        on_cpu = InferenceEngine(head, features=store, config=cfg,
+                                 device="cpu")
+        assert on_card._features.device.type == "cuda"
+        assert_close_rel(on_card.predict_logits(ids),
+                         on_cpu.predict_logits(ids))
+        return
+    cfg = EngineConfig(max_batch=256, fanouts=(25, 10), seed=3,
+                       warmup=False)
+    eng = InferenceEngine(head, graph=graph, raw_features=x, config=cfg,
+                          device=cuda)
+    got = eng.predict_logits(ids)
+    gen = torch.Generator(device=cuda)
+    gen.manual_seed(3)
+    padded = torch.zeros(256, dtype=torch.int32, device=cuda)
+    padded[:200] = torch.as_tensor(ids, device=cuda)
+    gd = graph.to(cuda)
+    fr, ws = sampling.sample_tree(gd, padded, gen, (25, 10))
+    est = sampling.reduce_tree(torch.as_tensor(x, device=cuda), fr, ws,
+                               (25, 10))
+    want = sgc_apply(eng.params, est)[:200].cpu().numpy()
+    np.testing.assert_array_equal(got, want)
+    est_cpu = sampling.reduce_tree(torch.from_numpy(x),
+                                   [t.cpu() for t in fr],
+                                   [t.cpu() for t in ws], (25, 10))
+    assert_close_rel(est.cpu().numpy(), est_cpu.numpy())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("depth", [1, 2, 4])
+@pytest.mark.parametrize("int8", [False, True])
+def test_cuda_stream_equals_blocking(cuda, depth, int8):
+    """The pinned-buffer stream against the blocking path, bit for bit,
+    with every batch size and an empty batch in one stream."""
+    from sgc_tpu_torch.serve import EngineConfig, InferenceEngine
+
+    _, _, store, head = _serve_problem()
+    eng = InferenceEngine(head, features=store, device=cuda,
+                          config=EngineConfig(max_batch=1024,
+                                              quantize_int8=int8))
+    rng = np.random.default_rng(depth)
+    batches = [rng.integers(0, store.shape[0], b)
+               for b in (1, 1024, 7, 512, 64, 8, 1000, 3)] * 3
+    batches.insert(5, [])
+    blocking = [eng.predict_logits(b) for b in batches]
+    streamed = list(eng.predict_logits_stream(batches, depth=depth))
+    assert len(streamed) == len(blocking)
+    for got, want in zip(streamed, blocking):
+        assert got.shape == want.shape
+        np.testing.assert_array_equal(got, want)
+    assert len(eng._free) <= depth + 1
+
+
+@pytest.mark.cuda
+def test_cuda_offsets_in_range_at_a_hub_row(cuda):
+    """A 23,980-edge row (the doc-word graph's largest): every draw on the
+    card stays in [0, d), and every sampled neighbor is one of the row's."""
+    from sgc_tpu_torch.ops import sampling
+
+    d, n = 23_980, 30_000
+    cols = np.sort(np.random.default_rng(1).choice(n, d, replace=False))
+    rows = np.concatenate([np.zeros(d, np.int64), np.arange(1, n)])
+    cols = np.concatenate([cols, np.arange(1, n)])
+    vals = np.full(len(rows), 0.25, np.float32)
+    g = PortGraph.from_coo(rows, cols, vals, n, n).to(cuda)
+    gen = torch.Generator(device=cuda)
+    gen.manual_seed(0)
+    degrees = torch.full((4096,), d, dtype=torch.int32, device=cuda)
+    offs = torch.cat([sampling.draw_offsets(degrees, 256, gen)
+                      for _ in range(4)])
+    assert int(offs.min()) == 0 and int(offs.max()) <= d - 1
+    assert int(offs.max()) >= d - 2
+    nbr, w = sampling.sample_neighbors(
+        g, torch.zeros(2048, dtype=torch.int32, device=cuda), gen, 64)
+    torch.cuda.synchronize()
+    assert bool(torch.isin(nbr.long(), torch.as_tensor(cols[:d],
+                                                       device=cuda)).all())
+    assert bool((w == 0.25 * d).all())

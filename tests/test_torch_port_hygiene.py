@@ -66,7 +66,7 @@ print(",".join(sorted(n for n in sys.modules if n.split(".")[0] in
 
 def _entry_points():
     from sgc_tpu_torch.cli import citation, crossval, reddit, sweep, tuning
-    from sgc_tpu_torch.cli import textsgc
+    from sgc_tpu_torch.cli import serve, textsgc
     from sgc_tpu_torch.data.textcorpus import load_corpus
     from sgc_tpu_torch.data.planetoid import load_citation
     from sgc_tpu_torch.data.reddit import load_reddit
@@ -76,6 +76,8 @@ def _entry_points():
     from sgc_tpu_torch.models.sgc import init_sgc, params_from_jax
     from sgc_tpu_torch.ops.calibrate import measured_rates
     from sgc_tpu_torch.ops.capability import require_cuda_kernels
+    from sgc_tpu_torch.serve import InferenceEngine
+    from sgc_tpu_torch.utils.checkpoint import load_params
     from sgc_tpu_torch.utils.device import resolve_device
 
     g = SparseGraph.from_coo(np.array([0, 1]), np.array([1, 0]),
@@ -118,6 +120,14 @@ def _entry_points():
             "covid", data_path="."),
         "cli.tuning.tune_text": lambda: tuning.tune_text(
             "covid", 2, 3, 1, 42, ".", "BCD"),
+        "InferenceEngine": lambda: InferenceEngine(
+            init_sgc(torch.Generator(), 3, 2, device="cpu"), features=feats),
+        "InferenceEngine inductive": lambda: InferenceEngine(
+            init_sgc(torch.Generator(), 3, 2, device="cpu"), graph=g,
+            raw_features=feats),
+        "load_params": lambda: load_params("model.npz"),
+        "cli.serve.run_bench": lambda: serve.run_bench(serve.parser(
+            ).parse_args(["--bench"])),
     }
 
 
@@ -128,7 +138,8 @@ def _entry_points():
     "load_reddit", "cli.citation.run", "cli.reddit.run", "cli.sweep.sweep",
     "init_gcn", "init_gat_layer", "init_multi_head", "init_deep_gcn",
     "cli.tuning.tune_citation", "load_corpus", "cli.textsgc.run",
-    "cli.crossval.run_crossval", "cli.tuning.tune_text"])
+    "cli.crossval.run_crossval", "cli.tuning.tune_text", "InferenceEngine",
+    "InferenceEngine inductive", "load_params", "cli.serve.run_bench"])
 def test_default_device_raises_without_cuda(monkeypatch, name):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA"):
