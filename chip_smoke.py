@@ -101,6 +101,29 @@ before each run and read just after:
                   bytes, and the HTTP endpoint's four routes against the
                   engine
 
+Then the text baselines and the text preparation, on one COVID-19-shape
+corpus (write_text_corpus, 7,362 train / 1,825 test docs, 31 classes),
+counters zeroed just before each run and read just after:
+
+    sequence_path:  cli.sequence.run at its defaults (the transformer at
+                    dim 256, 4 heads, 4 layers, max_len 256, vocab 30,000,
+                    batch 32) for 2 epochs: ms a step, tokens/s, predict
+                    ms, test accuracy >= 2x chance, a profiled window;
+                    two short trainings the same bits; one step against a
+                    CPU copy; an empty doc finite (the token-embedding
+                    gradient is kernel B)
+    word2vec_path:  cli.word2vec.run at its defaults for 1 epoch, twice
+                    (the same bits; two kernel-B launches a step), then
+                    one epoch at lr 0.0025 (finite); kernel B at
+                    F = 100 on one step's updates against its plain
+                    version, timed beside index_add_; cli.build_graph
+                    --embeddings on the written npz
+    embedding_path: a tiny BERT (no download) embeds the vocabulary on the
+                    card (grad mode left on) and train.finetune takes 8
+                    steps; skipped when transformers is not installed
+    text_prep:      write_scopus_csv -> prepare_covid_dataset (7,362 /
+                    1,825 abstracts, 34 labels) -> clean_corpus (host)
+
 Phases print one JSON line each on stdout; the line before the last is
 ``{"kernels": [...]}`` (each row also carries its launches on the new
 paths, ``launches_by_path``) and the last is ``{"ok": true, "device":
@@ -2199,6 +2222,528 @@ def phase_train_paths(args, device) -> dict:
             "deep_gcn": {"one_step": deep}, "tuning_cli": tune}
 
 
+# ------------------------------------------- the text baselines and prep
+
+SEQ_DEFAULTS = dict(dim=256, heads=4, layers=4, max_len=256,
+                    vocab_size=30_000, batch_size=32)
+# relative to max|CPU|: the bf16 recipe. The operands and the weight
+# gradients are bf16 values; where the card's f32 sums before a rounding
+# differ from the CPU's (order), an element lands one bf16 step away, at
+# most 2^-7 of its magnitude, so of the leaf's max (2^-7 exactly was read
+# on the H100); the margin is for the f32 leaves downstream of such a step
+SEQ_TOLERANCE = 2.0 ** -7 * 1.125
+SEQ_SAME_BITS_STEPS = 6
+# the sequence CLI's epochs here (its default is 4; cut for the smoke's
+# time, never the widths)
+SEQ_EPOCHS = 1
+# word2vec's epochs here (the CLI's default is 5; cut for the smoke's
+# time, each epoch 1,386 steps at the COVID-19 shape), and the learning rate
+# and epochs of the fit whose vectors feed the graph: at the CLI's 0.025
+# the batched update (each word's gradients summed over a batch of 8192
+# pairs) diverges on this corpus, in the reference too
+W2V_EPOCHS = 1
+W2V_FINITE_LR = 0.0025
+
+
+def seq_grads(model, ids, mask, y, w):
+    """``[logits, grad of each parameter]`` of one dropout-free step."""
+    from sgc_tpu_torch.models.transformer import transformer_apply
+    from sgc_tpu_torch.train.sequence import weighted_cross_entropy
+
+    for p in model.parameters():
+        p.grad = None
+    logits = transformer_apply(model, ids, mask)
+    weighted_cross_entropy(logits, y, w).backward()
+    return [logits.detach()] + [p.grad.clone() for p in model.parameters()]
+
+
+def phase_sequence_path(root, fx, device, reps) -> dict:
+    """The transformer baseline at the sequence CLI's full width (dim 256,
+    4 heads, 4 layers, max_len 256, vocab 30,000, batch 32) on the
+    COVID-19-shape corpus: ``cli.sequence.run`` at its defaults but
+    ``SEQ_EPOCHS`` (dropout 0.1), timed a step on the card (CUDA events
+    after each step; the first apart) and at predict, test accuracy at
+    least 2x chance; two short trainings from one init, seed and batch order give
+    the same bits; one step's logits and gradients held against a CPU
+    copy at ``SEQ_TOLERANCE``; a batch with an empty doc gives finite
+    logits. The token-embedding gradient is kernel B
+    (``ops.autograd.GatherRowsFn``), one launch a step, held against its
+    plain version on the operands of one step (``seq_embedding_width``)."""
+    import copy
+
+    import numpy as np
+    import torch
+
+    from sgc_tpu_torch.cli import sequence as cli
+    from sgc_tpu_torch.models.transformer import (
+        TransformerConfig,
+        init_transformer,
+        transformer_apply,
+    )
+    from sgc_tpu_torch.textgraph.graph import TextCorpus
+    from sgc_tpu_torch.train import sequence as seq
+
+    args = cli.parser().parse_args([
+        "--metadata", str(fx["metadata"]), "--corpus", str(fx["corpus"]),
+        "--epochs", str(SEQ_EPOCHS), "--device", str(device)])
+    marks, predict_s = [], []
+    real_step, real_predict = seq.train_step, cli.predict_sequence
+
+    def timed_step(*a, **kw):
+        if not marks:
+            marks.append(torch.cuda.Event(enable_timing=True))
+            marks[0].record()
+        out = real_step(*a, **kw)
+        marks.append(torch.cuda.Event(enable_timing=True))
+        marks[-1].record()
+        return out
+
+    def timed_predict(*a, **kw):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = real_predict(*a, **kw)
+        predict_s.append(time.perf_counter() - t0)
+        return out
+
+    seq.train_step, cli.predict_sequence = timed_step, timed_predict
+    try:
+        t0 = time.perf_counter()
+        res, launches_cli = counted(lambda: cli.run(args))
+        wall = time.perf_counter() - t0
+    finally:
+        seq.train_step, cli.predict_sequence = real_step, real_predict
+    steps = len(marks) - 1
+    first_ms = marks[0].elapsed_time(marks[1])
+    step_ms = marks[1].elapsed_time(marks[-1]) / (steps - 1)
+    tc = TextCorpus.from_files(fx["metadata"], fx["corpus"])
+    train_docs = [d for d, p in zip(tc.doc_tokens, tc.phases)
+                  if p == "train"]
+    real_tokens = sum(min(len(d), args.max_len) for d in train_docs)
+    chance = 1.0 / res["n_classes"]
+
+    # two short trainings from one init: the same bits
+    cfg = TransformerConfig(
+        vocab_size=args.vocab_size, n_classes=res["n_classes"],
+        max_len=args.max_len, dim=args.dim, n_heads=args.heads,
+        n_layers=args.layers, dropout=args.dropout)
+    init = init_transformer(cfg, torch.Generator(device=device).manual_seed(
+        7), device)
+    labels = np.arange(len(train_docs)) % res["n_classes"]
+    n_docs = SEQ_SAME_BITS_STEPS * args.batch_size
+    tcfg = seq.SeqTrainConfig(lr=args.lr, epochs=1, dropout=args.dropout)
+    fits = [counted(lambda: seq.train_sequence_classifier(
+        train_docs[:n_docs], labels[:n_docs], cfg, tcfg,
+        params=copy.deepcopy(init), device=device)) for _ in range(2)]
+    bits = same_bits(list(fits[0][0][0].parameters()),
+                     list(fits[1][0][0].parameters()))
+    launches_bits = fits[0][1]
+    del fits
+
+    # kernel B on the embedding gradient of the first batch; then one
+    # step on the card against a CPU copy, with an empty doc
+    vocab = seq.build_seq_vocab(train_docs, args.vocab_size)
+    ids, mask = seq.encode_batch(train_docs[:args.batch_size], vocab,
+                                 args.max_len)
+    y = torch.from_numpy(labels[:args.batch_size])
+    w = torch.ones(args.batch_size)
+    width = seq_embedding_width(init, *(t.to(device) for t in (
+        torch.from_numpy(ids), torch.from_numpy(mask), y, w)), reps)
+    ids[3], mask[3] = 0, 0.0                      # an empty doc
+    outs = []
+    for dev in (device, torch.device("cpu")):
+        m = copy.deepcopy(init).to(dev)
+        outs.append(seq_grads(m, torch.from_numpy(ids).to(dev),
+                              torch.from_numpy(mask).to(dev), y.to(dev),
+                              w.to(dev)))
+    logit_err = rel_err(outs[0][0].cpu(), outs[1][0])[1]
+    grad_err = max_rel_err(outs[0][1:], outs[1][1:])
+    with torch.no_grad():
+        empty = transformer_apply(init, torch.from_numpy(ids).to(device),
+                                  torch.from_numpy(mask).to(device))
+    empty_finite = bool(torch.isfinite(empty).all())
+    profile = seq_step_profile(init, tcfg, ids, mask, y, w, device)
+    del outs, init, empty
+
+    info = {"phase": "sequence_path", "config": {k: getattr(args, k) for k in (
+                *SEQ_DEFAULTS, "epochs", "lr", "dropout")},
+            "train_docs": len(train_docs), "classes": res["n_classes"],
+            "steps": steps, "first_step_ms": first_ms, "step_ms": step_ms,
+            "step_flop": seq_step_flops(args, res["n_classes"]),
+            "step_bound_ms": seq_step_flops(args, res["n_classes"])
+            / PEAK_FP32_FLOPS * 1e3,
+            "real_tokens_per_s": real_tokens * args.epochs
+            / (step_ms * steps / 1e3),
+            "padded_tokens_per_s": args.batch_size * args.max_len
+            / (step_ms / 1e3),
+            "predict_ms": predict_s[0] * 1e3, "wall_s": wall,
+            "test_accuracy": res["test_accuracy"],
+            "f1_weighted": res["f1_weighted"], "chance": chance,
+            "same_bits": bits, "same_bits_steps": SEQ_SAME_BITS_STEPS,
+            "logits_vs_cpu_rel_err": logit_err,
+            "grads_vs_cpu_rel_err": grad_err,
+            "tolerance_rel": SEQ_TOLERANCE,
+            "empty_doc_logits_finite": empty_finite,
+            "step_profile": profile, "kernel_b_width": width,
+            "launches": {"cli": launches_cli, "same_bits": launches_bits}}
+    emit(info)
+    if not res["test_accuracy"] >= 2 * chance:
+        raise AssertionError(f"sequence test accuracy {res}")
+    if not bits:
+        raise AssertionError("two transformer trainings gave other bits")
+    if not (logit_err <= SEQ_TOLERANCE and grad_err <= SEQ_TOLERANCE):
+        raise AssertionError(f"transformer step vs CPU: {logit_err:.3e}, "
+                             f"{grad_err:.3e}")
+    if not empty_finite:
+        raise AssertionError("an empty doc gave non-finite logits")
+    # the token-embedding gradient: one kernel-B launch a step
+    if launches_cli["csr_spmm"] != steps:
+        raise AssertionError(f"sequence path: {launches_cli}, {steps} steps")
+    return {"launches": info["launches"], "width": width}
+
+
+def seq_embedding_width(model, ids, mask, y, w, reps) -> dict:
+    """Kernel B on the token-embedding gradient of one dropout-free step
+    at full width: the operands ``GatherRowsFn``'s backward hands it
+    (``scatter_graph`` of the batch's ids over the vocabulary, the output
+    gradient's B*L rows; front padding makes the PAD id's row the hub),
+    taken from the step, then ``b_width``, the plain version's time and
+    ``index_add_`` (the library call for the same sum)."""
+    import copy
+
+    import torch
+
+    from sgc_tpu_torch.ops import autograd
+    from sgc_tpu_torch.ops.spmm import spmm_segment_plain
+
+    taken, real = [], autograd.spmm_segment
+
+    def take(graph, x, dense=None):
+        taken.append((graph, x))
+        return real(graph, x, dense)
+
+    autograd.spmm_segment = take
+    try:
+        seq_grads(copy.deepcopy(model), ids, mask, y, w)
+    finally:
+        autograd.spmm_segment = real
+    (g, rows), = taken
+    width = b_width("transformer token-embedding gradient", g, rows, None,
+                    reps)
+    width["csr_mm_ms"] = width.pop("library_ms")
+    zeros = torch.zeros((g.n_rows, rows.shape[1]), device=rows.device)
+    flat = ids.reshape(-1).long()
+    width["library_ms"] = time_ms(lambda: zeros.index_add(0, flat, rows),
+                                  reps)
+    width["plain_ms"] = time_ms(lambda: spmm_segment_plain(g, rows, None), 2)
+    return width
+
+
+def seq_step_profile(init, tcfg, ids, mask, y, w, device,
+                     steps: int = 5) -> dict:
+    """``torch.profiler`` over ``steps`` training steps of one full-width
+    batch (after two warm ones): the window's wall time, the device time
+    of every kernel summed (one stream, so the busy share is their ratio)
+    and the eight kernels that take the most."""
+    import copy
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from sgc_tpu_torch.train import sequence as seq
+
+    m = copy.deepcopy(init)
+    opt = torch.optim.Adam(m.parameters(), lr=tcfg.lr)
+    gen = torch.Generator(device=device).manual_seed(5)
+    batch = [torch.from_numpy(a).to(device) for a in (ids, mask)] + [
+        y.to(device), w.to(device)]
+
+    def run(n):
+        for _ in range(n):
+            seq.train_step(m, opt, *batch, tcfg, generator=gen)
+        torch.cuda.synchronize()
+
+    run(2)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        run(steps)
+        wall = time.perf_counter() - t0
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy_us = sum(e.self_device_time_total for e in kernels)
+    top = sorted(kernels, key=lambda e: e.self_device_time_total,
+                 reverse=True)[:8]
+    return {"steps": steps, "wall_ms_per_step": wall * 1e3 / steps,
+            "device_ms_per_step": busy_us / 1e3 / steps,
+            "busy_share": busy_us / 1e6 / wall,
+            "kernels_per_step": sum(e.count for e in kernels) / steps,
+            "top": [{"name": e.key[:80], "count": e.count / steps,
+                     "ms_per_step": e.self_device_time_total / 1e3 / steps}
+                    for e in top]}
+
+
+def seq_step_flops(args, n_classes) -> float:
+    """The products of one training step: forward (QKVO, MLP, attention
+    scores and context, head) and twice that backward."""
+    b, l, d = args.batch_size, args.max_len, args.dim
+    per_layer = 2 * b * l * d * (4 * d + 8 * d) + 2 * 2 * b * l * l * d
+    fwd = args.layers * per_layer + 2 * b * d * n_classes
+    return 3.0 * fwd
+
+
+def phase_word2vec_path(root, fx, device, reps) -> dict:
+    """``cli.word2vec.run`` at its defaults (dim 100, window 5, 5
+    negatives, batch 8192, lr 0.025) but ``W2V_EPOCHS`` on the
+    COVID-19-shape corpus, once (the reference's batched update diverges
+    at this lr: the non-finite rows are counted), then twice at
+    ``W2V_FINITE_LR``, which stays finite: the two finite fits give the
+    same bits. Pairs, steps, ms a step and the whole fit, two kernel-B
+    launches a step. The finite fit's ``.npz`` feeds
+    ``cli.build_graph --embeddings`` and its tables give the operands of
+    one step's updates
+    (``sgns_updates``: the out table's contexts and negatives, the in
+    table's centers): kernel B at F = 100 held against its plain version
+    at ``TOLERANCE`` and timed beside its bound, ``torch.addmm`` with a
+    CSR matrix and ``index_add_`` (the library call for the same sum)."""
+    import numpy as np
+    import torch
+
+    from sgc_tpu_torch.cli import word2vec as cli
+    from sgc_tpu_torch.cli.build_graph import build_and_export
+    from sgc_tpu_torch.ops.spmm import spmm_segment_plain
+    from sgc_tpu_torch.textgraph import word2vec as w2v
+
+    fits, launches = [], []
+    runs = ([], ["--lr", str(W2V_FINITE_LR)], ["--lr", str(W2V_FINITE_LR)])
+    for k, extra in enumerate(runs):
+        args = cli.parser().parse_args([
+            "--corpus", str(fx["corpus"]), "--out",
+            os.path.join(root, f"w2v{k}"), "--epochs", str(W2V_EPOCHS),
+            "--device", str(device)] + extra)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        model, n = counted(lambda: cli.run(args))
+        fits.append((model, time.perf_counter() - t0))
+        launches.append(n)
+    cfg = w2v.Word2VecConfig(epochs=W2V_EPOCHS)
+    docs = cli.read_docs(fx["corpus"])
+    pairs = w2v.skipgram_pairs(docs, fits[0][0].word_id, cfg.window)
+    steps = cfg.epochs * (len(pairs) // cfg.batch_size)
+    v0, vf, vf2 = (f.vectors for f, _ in fits)
+    bits = np.array_equal(vf.view(np.int32), vf2.view(np.int32))
+    nonfinite = [int((~np.isfinite(v).all(axis=1)).sum()) for v in (v0, vf)]
+
+    # one step's operands: a batch of a permutation, the finite fit's
+    # table (and its reverse for the out table)
+    gen = torch.Generator(device=device).manual_seed(3)
+    vecs = torch.from_numpy(vf).to(device)
+    out_emb = vecs.flip(0).contiguous()
+    pick = torch.from_numpy(np.random.default_rng(3).permutation(len(pairs))[
+        :cfg.batch_size]).to(device)
+    batch = torch.from_numpy(pairs).to(device)[pick]
+    cdf = w2v.noise_cdf(w2v.build_vocab(docs)[2], device)
+    (g_in, rows_in), (g_out, rows_out), _ = w2v.sgns_updates(
+        vecs, out_emb, batch[:, 0], batch[:, 1],
+        w2v.draw_uniforms(gen, cfg.batch_size, cfg.negatives), cdf, cfg.lr)
+    widths = {"100": b_width("word2vec out-table update", g_out, rows_out,
+                             out_emb, reps),
+              "100_in": b_width("word2vec in-table update", g_in, rows_in,
+                                vecs, reps)}
+    for (name, g, rows, table) in (("100", g_out, rows_out, out_emb),
+                                   ("100_in", g_in, rows_in, vecs)):
+        # the same sum by the library: index_add_ (float atomics)
+        ids, x = g.rows.long(), rows[g.cols.long()]
+        w = widths[name]
+        w["csr_addmm_ms"] = w.pop("library_ms")
+        w["library_ms"] = time_ms(
+            lambda: table.index_add(0, ids, x, alpha=-cfg.lr), reps)
+        w["plain_ms"] = time_ms(lambda: spmm_segment_plain(g, rows, table),
+                                2)
+    del vecs, out_emb, batch, g_in, g_out, rows_in, rows_out
+
+    t0 = time.perf_counter()
+    built = build_and_export(str(fx["metadata"]), str(fx["corpus"]),
+                             TEXT_DATASET, os.path.join(root, "emb_graph"),
+                             window=20, val_fraction=0.1, seed=42,
+                             embeddings=os.path.join(root, "w2v1.npz"))
+    build_s = time.perf_counter() - t0
+    adj = built["adjs"]["BCD"]
+    adj_finite = bool(np.isfinite(adj.data).all())
+    info = {"phase": "word2vec_path", "config": vars(cfg),
+            "words": len(fits[0][0].vocab), "pairs": int(len(pairs)),
+            "steps": steps, "fit_s": [f for _, f in fits],
+            "step_ms": [f / steps * 1e3 for _, f in fits],
+            "same_bits_at_finite_lr": bits,
+            "nonfinite_rows_at_defaults": nonfinite[0],
+            "finite_lr": W2V_FINITE_LR,
+            "nonfinite_rows_at_finite_lr": nonfinite[1],
+            "kernel_b_widths": widths, "tolerance_rel": TOLERANCE,
+            "build_graph_embeddings": {"build_s": build_s,
+                                       "nodes": int(adj.shape[0]),
+                                       "nnz": int(adj.nnz),
+                                       "finite": adj_finite},
+            "launches": {"fit": launches[0], "finite_lr_fit": launches[1],
+                         "second_finite_lr_fit": launches[2]}}
+    emit(info)
+    if not bits:
+        raise AssertionError("two word2vec fits gave other bits")
+    for n in launches:
+        if n["csr_spmm"] != 2 * steps:
+            raise AssertionError(f"word2vec: {n}, {steps} steps")
+    if nonfinite[1] or not adj_finite or not adj.nnz > 0 \
+            or adj.shape[0] != TEXT_NODES:
+        raise AssertionError(f"word2vec at lr {W2V_FINITE_LR} / "
+                             f"build_graph --embeddings: {info}")
+    return {"launches": info["launches"], "widths": widths}
+
+
+def phase_embedding_path(root, fx, device) -> dict:
+    """A tiny BERT (a ``BertConfig``: hidden 128, 2 layers, 2 heads; no
+    download) over the fixture's vocabulary: ``WordEmbedder`` embeds
+    every word on the card (words/s, grad mode still on after), and
+    ``train.finetune`` takes a few steps and predicts. Runs only when
+    ``transformers`` imports; then any error raises."""
+    os.environ["HF_HUB_OFFLINE"] = "1"
+    os.environ["TRANSFORMERS_OFFLINE"] = "1"
+    try:
+        import transformers  # noqa: F401
+    except ImportError:
+        emit({"embedding_path": "skipped: transformers not installed"})
+        return {}
+    import numpy as np
+    import torch
+    from transformers import (
+        BertConfig,
+        BertForSequenceClassification,
+        BertModel,
+        BertTokenizer,
+    )
+
+    from sgc_tpu_torch.textgraph.embedding import EmbedderConfig, WordEmbedder
+    from sgc_tpu_torch.textgraph.graph import TextCorpus
+    from sgc_tpu_torch.train.finetune import FinetuneConfig, finetune_pretrained
+
+    tc = TextCorpus.from_files(fx["metadata"], fx["corpus"])
+    words = sorted({w for d in tc.doc_tokens for w in d})
+    model_dir = os.path.join(root, "tiny_bert")
+    os.makedirs(model_dir, exist_ok=True)
+    with open(os.path.join(model_dir, "vocab.txt"), "w") as f:
+        f.write("\n".join(["[PAD]", "[UNK]", "[CLS]", "[SEP]", "[MASK]"]
+                          + words))
+    tok = BertTokenizer(vocab_file=os.path.join(model_dir, "vocab.txt"))
+    tok.save_pretrained(model_dir)
+    bcfg = BertConfig(vocab_size=len(words) + 5, hidden_size=128,
+                      num_hidden_layers=2, num_attention_heads=2,
+                      intermediate_size=256, max_position_embeddings=128,
+                      num_labels=len(tc.label_names))
+    torch.manual_seed(0)
+    BertModel(bcfg).save_pretrained(model_dir)
+
+    emb = WordEmbedder(EmbedderConfig(model_name=model_dir, backend="torch",
+                                      batch_size=256), device=device)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    table, n_embed = counted(lambda: emb.embed_words(words))
+    embed_s = time.perf_counter() - t0
+    grad_on = torch.is_grad_enabled()
+    vecs = np.stack([table[w] for w in words])
+
+    label_of = {l: i for i, l in enumerate(tc.label_names)}
+    texts = [" ".join(d[:64]) for d in tc.doc_tokens]
+    y = np.asarray([label_of[l] for l in tc.labels])
+    fcfg = FinetuneConfig(lr=5e-5, epochs=1, batch_size=32, max_length=64)
+    n_train = 8 * fcfg.batch_size
+    t0 = time.perf_counter()
+    (predict, (model, _)), n_ft = counted(lambda: finetune_pretrained(
+        texts[:n_train], y[:n_train], len(tc.label_names), fcfg,
+        tokenizer=tok, model=BertForSequenceClassification(bcfg),
+        device=device))
+    ft_s = time.perf_counter() - t0
+    held_out = texts[n_train:n_train + 256]
+    t0 = time.perf_counter()
+    preds = predict(held_out)
+    pred_s = time.perf_counter() - t0
+    info = {"phase": "embedding_path",
+            "transformers": transformers.__version__,
+            "words": len(words), "embed_s": embed_s,
+            "words_per_s": len(words) / embed_s, "dim": int(vecs.shape[1]),
+            "grad_mode_on_after": grad_on,
+            "finetune": {"steps": n_train // fcfg.batch_size, "s": ft_s,
+                         "eval_mode": not model.training,
+                         "predict_s": pred_s, "predicted": len(held_out)},
+            "launches": {"embed": n_embed, "finetune": n_ft}}
+    emit(info)
+    if not grad_on or not np.all(np.isfinite(vecs)):
+        raise AssertionError(f"embedding path: {info}")
+    if preds.shape != (len(held_out),) or not (
+            0 <= preds.min() and preds.max() < len(tc.label_names)):
+        raise AssertionError(f"finetune predictions {preds[:8]}")
+    return info["launches"]
+
+
+def phase_text_prep(root, args) -> None:
+    """The host prep at the COVID-19 corpus's shape: a seeded Scopus
+    export (``write_scopus_csv``) -> ``prepare_covid_dataset`` ->
+    ``clean_corpus`` (nltk stopwords, min_freq 5), each timed."""
+    from sgc_tpu_torch.data.covid import prepare_covid_dataset
+    from sgc_tpu_torch.data.fixtures import COVID, write_scopus_csv
+    from sgc_tpu_torch.textgraph.clean import clean_corpus
+    from sgc_tpu_torch.textgraph.stopwords import nltk_english, NLTK_ENGLISH
+
+    spans = {}
+    t0 = time.perf_counter()
+    fx = write_scopus_csv(os.path.join(root, "scopus.csv"), seed=args.seed)
+    spans["write_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    res = prepare_covid_dataset(fx["path"], os.path.join(root, "prep"))
+    spans["prepare_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    cleaned = clean_corpus(res.corpus_path, stopword_list="nltk",
+                           min_freq=5)
+    spans["clean_s"] = time.perf_counter() - t0
+    vocab = {w for d in cleaned for w in d.split()}
+    info = {"phase": "text_prep", **spans, "rows": fx["rows"],
+            "docs_kept": res.n_train + res.n_test, "train": res.n_train,
+            "test": res.n_test, "labels": len(res.label_counts),
+            "clean_vocab": len(vocab),
+            "clean_tokens_per_doc": sum(len(d.split()) for d in cleaned)
+            / len(cleaned),
+            "nltk_corpus": nltk_english() is not NLTK_ENGLISH}
+    emit(info)
+    if (res.n_train, res.n_test) != (COVID["n_train"], COVID["n_test"]) \
+            or len(res.label_counts) != fx["labels"]:
+        raise AssertionError(f"text prep off the COVID split: {info}")
+
+
+def phase_text_baselines(args, device, reps) -> dict:
+    """The text baselines and prep on one COVID-19-shape corpus."""
+    from sgc_tpu_torch.data.fixtures import COVID, write_text_corpus
+
+    seconds, out = {}, {}
+    with scratch_dir() as root:
+        t0 = time.perf_counter()
+        fx = write_text_corpus(root, TEXT_DATASET, seed=args.seed, **COVID)
+        seconds["write"] = time.perf_counter() - t0
+        phases = {
+            "sequence_path": lambda: phase_sequence_path(root, fx, device,
+                                                         reps),
+            "word2vec_path": lambda: phase_word2vec_path(root, fx, device,
+                                                         reps),
+            "embedding_path": lambda: phase_embedding_path(root, fx,
+                                                           device),
+            "text_prep": lambda: phase_text_prep(root, args)}
+        for name, run in phases.items():
+            t0 = time.perf_counter()
+            out[name] = run()
+            seconds[name] = time.perf_counter() - t0
+    emit({"phase": "text_baselines", "seconds": seconds})
+    return {"launches": {"sequence_path": out["sequence_path"]["launches"],
+                         "word2vec_path": out["word2vec_path"]["launches"],
+                         "embedding_path": out["embedding_path"]},
+            "w2v_widths": out["word2vec_path"]["widths"],
+            "seq_width": out["sequence_path"]["width"]}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--scale", type=float, default=1.0,
@@ -2250,6 +2795,8 @@ def main() -> int:
     text = phase_text_path(args, device, args.reps)
     by_path["text_cli"] = text["launches"]
     by_path["serve_path"] = phase_serve_path(args, device, card, args.reps)
+    baselines = phase_text_baselines(args, device, args.reps)
+    by_path.update(baselines["launches"])
     by_path["gat_train"]["reddit_2_steps"] = gat_reddit["launches"]
     for row in rows:
         row["launches_by_path"] = {
@@ -2266,13 +2813,22 @@ def main() -> int:
     rows[0]["max_abs_err"] = max(rows[0]["max_abs_err"],
                                  text["kernel_a_2048"]["max_abs_err"])
     rows[1]["max_abs_err"] = max([rows[1]["max_abs_err"]] + [
-        w["max_abs_err"] for w in text["kernel_b_widths"].values()])
+        w["max_abs_err"] for w in list(text["kernel_b_widths"].values())
+        + list(baselines["w2v_widths"].values()) + [baselines["seq_width"]]])
     rows[0]["text_2048"] = {k: text["kernel_a_2048"][k] for k in (
         "F", "cells", "precision", "ms", "plain_ms", "bound_ms", "bound_by",
         "library_ms", "rel_err")}
     rows[1]["text_widths"] = {F: {k: w[k] for k in (
         "ms", "bound_ms", "bound_by", "library_ms", "rel_err", "plan")}
         for F, w in text["kernel_b_widths"].items()}
+    rows[1]["word2vec_widths"] = {F: {k: w[k] for k in (
+        "nnz", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+        "csr_addmm_ms", "rel_err", "max_degree", "plan")}
+        for F, w in baselines["w2v_widths"].items()}
+    rows[1]["seq_widths"] = {"256": {k: baselines["seq_width"][k] for k in (
+        "nnz", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+        "csr_mm_ms", "rel_err", "max_degree", "max_degree_row_alone_ms",
+        "plan")}}
     rows[3]["gat_reddit_backward"] = {F: w["d"] for F, w in
                                       gat_reddit["widths"].items()
                                       if "d" in w}

@@ -18,11 +18,18 @@ where the real files are absent:
   (``<id>\t<train|test>\t<label>`` metadata lines) and
   ``<dataset>.clean.txt`` (one cleaned doc a line), which
   ``cli/build_graph.py`` turns into the doc-word graph; at the defaults
-  (``COVID``) the COVID-19 corpus's published shape.
+  (``COVID``) the COVID-19 corpus's published shape;
+* :func:`write_scopus_csv`: a Scopus export (``id``, ``title``,
+  ``abstract``, ``subject_areas``), the raw input of
+  ``data/covid.py::prepare_covid_dataset``, which at the defaults gives
+  the COVID-19 corpus's published split (7,362 train and 1,825 test
+  abstracts over the top-35 subject labels).
 """
 
 from __future__ import annotations
 
+import csv
+import math
 import pickle
 from collections import defaultdict
 from pathlib import Path
@@ -210,3 +217,183 @@ def write_text_corpus(root, dataset: str = "covid", n_train: int = 7_362,
             "train": int(n_docs - phases.sum()), "test": int(phases.sum()),
             "classes": n_classes, "vocab": vocab,
             "tokens": int(sum(len(d) for d in docs))}
+
+
+# Scopus subject areas as the export writes them (parentheses kept; the
+# prep strips them, so "Pharmacology (medical)" becomes the
+# "Pharmacology medical" it regroups into "Pharmacology"). TOP: the 35
+# labels the papers are drawn from; SECONDARY: labels that only appear
+# beside a paper's own (each rarer than any TOP label, so never chosen);
+# RARE: the sole label of a few papers, below the top 35 (dropped).
+SCOPUS_CATCH_ALL = "Medicine (all)"
+SCOPUS_TOP = (
+    "Infectious Diseases", "Public Health, Environmental and Occupational "
+    "Health", "Microbiology (medical)", "Immunology and Allergy", "Virology",
+    "Pulmonary and Respiratory Medicine", "Epidemiology",
+    "Pharmacology (medical)", "Cardiology and Cardiovascular Medicine",
+    "Psychiatry and Mental Health", "Immunology", "Pharmacology",
+    "Critical Care and Intensive Care Medicine",
+    "Pediatrics, Perinatology and Child Health", "Health Policy",
+    "Biochemistry", "Molecular Biology", "Multidisciplinary", "Oncology",
+    "Neurology (clinical)", "Gastroenterology",
+    "Radiology, Nuclear Medicine and Imaging", "Emergency Medicine",
+    "Surgery", "Nursing (miscellaneous)", "Genetics", "Drug Discovery",
+    "Hematology", "Endocrinology, Diabetes and Metabolism", "Nephrology",
+    "Dermatology", "Obstetrics and Gynecology", "Geriatrics and Gerontology",
+    "Anesthesiology and Pain Medicine", "Ophthalmology")
+SCOPUS_SECONDARY = (
+    "Medicine (miscellaneous)", "Cell Biology", "Structural Biology",
+    "Parasitology", "Veterinary (miscellaneous)", "Ecology",
+    "Applied Microbiology and Biotechnology", "Health Informatics",
+    "Computer Science Applications", "Statistics and Probability",
+    "Sociology and Political Science", "Economics and Econometrics",
+    "Education", "Physiology", "Rheumatology", "Urology",
+    "Otorhinolaryngology", "Toxicology", "Pathology and Forensic Medicine",
+    "Biochemistry, Genetics and Molecular Biology (miscellaneous)")
+SCOPUS_RARE = (
+    "Astronomy and Astrophysics", "Geology", "Ocean Engineering", "Music",
+    "Fuel Technology", "Ceramics and Composites", "Aerospace Engineering",
+    "Paleontology", "Linguistics and Language", "Archeology")
+# common English words the cleaning drops (all in the NLTK list)
+_FILLER = ("the of and in to a with for was were is that by on as from at "
+           "this these we or be are an which not have has been it its "
+           "their than between after during").split()
+
+
+def _label_sizes(n_docs: int, n_test: int, train_fraction: float = 0.8
+                 ) -> np.ndarray:
+    """Papers per TOP label, ~1/sqrt(rank), summing to ``n_docs``, such
+    that the prep's per-class ``ceil(train_fraction * n)`` train split
+    (after "Pharmacology (medical)" joins "Pharmacology") leaves
+    ``n_test`` test papers: one paper at a time moves between the other
+    labels until the count is met."""
+    w = 1.0 / np.sqrt(np.arange(1, len(SCOPUS_TOP) + 1))
+    sizes = np.floor(n_docs * w / w.sum()).astype(np.int64)
+    sizes[0] += n_docs - sizes.sum()
+    pharma = [SCOPUS_TOP.index("Pharmacology (medical)"),
+              SCOPUS_TOP.index("Pharmacology")]
+    free = [i for i in range(len(SCOPUS_TOP)) if i not in pharma]
+
+    def n_tests(s):
+        merged = np.append(np.delete(s, pharma), s[pharma].sum())
+        return int(sum(m - math.ceil(m * train_fraction) for m in merged))
+
+    while (t := n_tests(sizes)) != n_test:
+        step = 1 if t < n_test else -1
+        for a in free:
+            for b in free:
+                trial = sizes.copy()
+                trial[a] -= 1
+                trial[b] += 1
+                if a != b and n_tests(trial) == t + step:
+                    sizes = trial
+                    break
+            else:
+                continue
+            break
+        else:
+            raise ValueError(f"no split of {n_docs} papers leaves {n_test}")
+    return sizes
+
+
+def write_scopus_csv(path, n_train: int = 7_362, n_test: int = 1_825,
+                     vocab: int = 20_000, abstract_len: float = 180.0,
+                     topic: float = 0.08, topic_words: int = 300,
+                     seed: int = 42) -> dict:
+    """Write a Scopus-export CSV (``id``, ``title``, ``abstract``,
+    ``subject_areas`` as ``"('A', 'B')"``) that ``data/covid.py::
+    prepare_covid_dataset`` turns into the COVID-19 corpus's published
+    shape: the top-35 subject labels ("Pharmacology (medical)" regrouped
+    into "Pharmacology", so 34 classes), one label a paper, ``n_train``
+    train and ``n_test`` test abstracts.
+
+    Every kept paper has its own TOP label, "Medicine (all)" with
+    probability 0.4 and one SECONDARY label with probability 0.05; the
+    file also holds papers the prep drops: 80 with a RARE label only, 20
+    with "Medicine (all)" only and 30 with no abstract. Abstracts are
+    sentences of pseudo-words (a Zipf background over ``vocab`` words,
+    a ``topic`` share from the paper's label's own ``topic_words``), with
+    filler stopwords, numbers, capitals and punctuation for the cleaning
+    to remove. Rows are shuffled. Returns the path and the counts.
+    """
+    path = Path(path)
+    path.parent.mkdir(parents=True, exist_ok=True)
+    rng = np.random.default_rng(seed)
+    sizes = _label_sizes(n_train + n_test, n_test)
+    syll = np.array([c + v for c in "bcdfghklmnprstvz" for v in "aeiou"])
+    words = set()
+    while len(words) < vocab:
+        k = rng.integers(2, 5, 4 * vocab)
+        parts = rng.choice(syll, (4 * vocab, 4))
+        words.update("".join(p[:n]) for p, n in zip(parts.tolist(),
+                                                    k.tolist()))
+    words = np.array(sorted(words)[:vocab])
+    words = words[rng.permutation(vocab)]
+    lists = [rng.choice(np.arange(vocab // 50, vocab), topic_words,
+                        replace=False) for _ in SCOPUS_TOP]
+
+    cdfs = {n: np.cumsum(1.0 / np.arange(1, n + 1)) for n in (vocab,
+                                                              topic_words)}
+
+    def zipf_draw(n_words, size):
+        cdf = cdfs[n_words]
+        return np.minimum(np.searchsorted(cdf, rng.random(size) * cdf[-1],
+                                          side="right"), n_words - 1)
+
+    def text(label: int, n_tok: int) -> str:
+        toks = zipf_draw(vocab, n_tok)
+        own = rng.random(n_tok) < topic
+        if label >= 0:
+            toks[own] = lists[label][zipf_draw(topic_words, int(own.sum()))]
+        out = words[toks].astype(object)
+        fill = rng.random(n_tok) < 0.3
+        out[fill] = rng.choice(_FILLER, int(fill.sum()))
+        nums = rng.random(n_tok) < 0.01
+        out[nums] = [str(x) for x in rng.integers(1, 2021, int(nums.sum()))]
+        sents, i = [], 0
+        while i < n_tok:
+            j = min(n_tok, i + int(rng.integers(8, 25)))
+            s = list(out[i:j])
+            s[0] = s[0].capitalize()
+            if len(s) > 6 and rng.random() < 0.5:
+                s[len(s) // 2] += ","
+            sents.append(" ".join(s) + ".")
+            i = j
+        return " ".join(sents)
+
+    rows = []
+
+    def add(subjects, label, abstract=True):
+        n_tok = max(20, int(rng.lognormal(np.log(abstract_len), 0.35)))
+        rows.append({
+            "title": text(label, int(rng.integers(6, 16)))[:-1],
+            "abstract": text(label, n_tok) if abstract else "",
+            "subject_areas": "(" + ", ".join(f"'{s}'" for s in subjects)
+                             + ("," if len(subjects) == 1 else "") + ")"})
+
+    for label, n in enumerate(sizes.tolist()):
+        for _ in range(n):
+            subjects = [SCOPUS_TOP[label]]
+            if rng.random() < 0.4:
+                subjects.insert(int(rng.integers(0, 2)), SCOPUS_CATCH_ALL)
+            if rng.random() < 0.05:
+                subjects.append(str(rng.choice(SCOPUS_SECONDARY)))
+            add(subjects, label)
+    for i in range(80):
+        add([SCOPUS_RARE[i % len(SCOPUS_RARE)]], -1)
+    for _ in range(20):
+        add([SCOPUS_CATCH_ALL], -1)
+    for i in range(30):
+        add([SCOPUS_TOP[i % len(SCOPUS_TOP)]], i % len(SCOPUS_TOP),
+            abstract=False)
+    order = rng.permutation(len(rows))
+    with open(path, "w", newline="", encoding="utf-8") as f:
+        w = csv.DictWriter(f, fieldnames=["id", "title", "abstract",
+                                          "subject_areas"])
+        w.writeheader()
+        for k, i in enumerate(order.tolist()):
+            w.writerow({"id": f"2-s2.0-{85_000_000_000 + k}", **rows[i]})
+    return {"path": path, "rows": len(rows), "kept": int(sizes.sum()),
+            "train": n_train, "test": n_test,
+            "labels": len(SCOPUS_TOP) - 1,
+            "sizes": dict(zip(SCOPUS_TOP, sizes.tolist()))}

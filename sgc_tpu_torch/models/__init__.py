@@ -1,6 +1,6 @@
-"""Models: the SGC head, the two-layer GCN, the deep GCN stack and the
-GAT layers (the reference's ``models`` exports, but for the transformer,
-which is not ported yet: ROADMAP queue 1 item 3)."""
+"""Models: the SGC head, the two-layer GCN, the deep GCN stack, the GAT
+layers and the transformer sequence classifier (the reference's
+``models`` exports)."""
 
 from sgc_tpu_torch.models.deep_gcn import (  # noqa: F401
     DeepGCN,
@@ -21,6 +21,12 @@ from sgc_tpu_torch.models.registry import (  # noqa: F401
     register_model,
 )
 from sgc_tpu_torch.models.sgc import SGC, init_sgc, sgc_apply  # noqa: F401
+from sgc_tpu_torch.models.transformer import (  # noqa: F401
+    Transformer,
+    TransformerConfig,
+    init_transformer,
+    transformer_apply,
+)
 
 __all__ = [
     "SGC", "init_sgc", "sgc_apply",
@@ -29,4 +35,6 @@ __all__ = [
     "DeepGCN", "deep_gcn_apply", "init_deep_gcn", "stage_layers",
     "GATLayer", "gat_layer_apply", "init_gat_layer", "init_multi_head",
     "multi_head_gat",
+    "Transformer", "TransformerConfig", "init_transformer",
+    "transformer_apply",
 ]

@@ -25,6 +25,11 @@ CPU tests exercise the card's backward formulas.
   denominator and the backward's ``rowsum(alpha * g)`` are kernel B row
   sums, the row max an ``amax`` scatter (max does not depend on the
   order, so its bits do not either).
+* :class:`GatherRowsFn` ``(table, ids) -> table[ids]``: the embedding
+  lookup of the transformer (sgc_tpu/models/transformer.py:196); the
+  backward sums each id's gradient rows into its row with kernel B over
+  ``ops.spmm.scatter_graph(ids)``, positions in increasing order, as
+  the reference's sequential scatter-add does.
 
 No backward here goes through ``index_add_``, ``scatter_add_`` or
 ``index_put_(accumulate=True)``: on CUDA those sum with float atomics in
@@ -46,7 +51,7 @@ import torch
 
 from sgc_tpu_torch.graph.sparse import SparseGraph
 from sgc_tpu_torch.ops import spmm as _spmm
-from sgc_tpu_torch.ops.spmm import sddmm, spmm_segment
+from sgc_tpu_torch.ops.spmm import scatter_graph, sddmm, spmm_segment
 from sgc_tpu_torch.utils.buildcache import placed
 
 # kernel B launches over a transpose (backward products), also counted in
@@ -191,3 +196,24 @@ class SegmentSoftmaxFn(torch.autograd.Function):
         s = row_sums(graph, alpha * g)
         d = alpha * (g - s.index_select(0, graph.rows))
         return None, d, None
+
+
+class GatherRowsFn(torch.autograd.Function):
+    """``table[ids]`` (any shape of ids, rows appended), differentiable in
+    ``table``: the gradient of row v is the sum of the output gradient's
+    rows at the positions where ``ids == v``, in increasing position
+    order, by kernel B (``scatter_graph``); rows no id names get 0."""
+
+    @staticmethod
+    def forward(ctx, table: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
+        ctx.save_for_backward(ids)
+        ctx.n_rows = table.shape[0]
+        flat = ids.reshape(-1)
+        return table.index_select(0, flat).reshape(*ids.shape,
+                                                   table.shape[1])
+
+    @staticmethod
+    def backward(ctx, g: torch.Tensor):
+        (ids,) = ctx.saved_tensors
+        rows = g.reshape(-1, g.shape[-1]).float().contiguous()
+        return spmm_segment(scatter_graph(ids, ctx.n_rows), rows), None

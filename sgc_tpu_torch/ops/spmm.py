@@ -243,6 +243,30 @@ def _spmm_segment_cuda(graph, x, dense):
     return out
 
 
+def scatter_graph(ids: torch.Tensor, n_rows: int,
+                  value: float = 1.0) -> SparseGraph:
+    """The ``[n_rows, len(ids)]`` matrix with ``value`` at ``(ids[j], j)``
+    for every j, as a graph on ``ids``' device: rows are ``ids`` stably
+    sorted, columns the positions, so each row lists its positions in
+    increasing order. ``spmm_segment(scatter_graph(ids, n, v), rows,
+    dense=table)`` is ``table`` with ``v * rows[j]`` added into row
+    ``ids[j]`` for every j, in the order of j: the scatter-add
+    ``table.at[ids].add(v * rows)`` as one launch of kernel B, with no
+    float atomics. The sort and the row pointers stay on the device."""
+    ids = ids.reshape(-1)
+    order = torch.sort(ids, stable=True)
+    bounds = torch.arange(n_rows + 1, device=ids.device,
+                          dtype=order.values.dtype)
+    n = int(ids.shape[0])
+    return SparseGraph(
+        rows=order.values.to(torch.int32),
+        cols=order.indices.to(torch.int32),
+        vals=torch.full((n,), value, dtype=torch.float32,
+                        device=ids.device),
+        row_ptr=torch.searchsorted(order.values, bounds, out_int32=True),
+        n_rows=int(n_rows), n_cols=n, nnz=n)
+
+
 def spmm_chunked(graph: SparseGraph, x: torch.Tensor,
                  chunk: int = _DEFAULT_CHUNK) -> torch.Tensor:
     """Memory-bounded SpMM, f32 ``[n_rows, F]``.

@@ -985,3 +985,132 @@ def test_cuda_offsets_in_range_at_a_hub_row(cuda):
     assert bool(torch.isin(nbr.long(), torch.as_tensor(cols[:d],
                                                        device=cuda)).all())
     assert bool((w == 0.25 * d).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("f", [100, 256])
+def test_cuda_scatter_update_matches_plain(cuda, f):
+    """Kernel B over ``scatter_graph`` (repeated ids, empty rows) against
+    the plain version, the same bits twice, one launch each, at the main
+    paths' shapes: word2vec's out-table update (F = 100, 49,152 Zipf ids
+    into 14,832 words) and the transformer's embedding gradient (F = 256,
+    32 front-padded docs of 256 into 30,000 ids: the PAD id's row of
+    ~4,000 positions is the hub)."""
+    rng = np.random.default_rng(f)
+    if f == 100:
+        n_words, n = 14_832, 49_152
+        ids = np.minimum(rng.zipf(1.3, n), n_words) - 1
+    else:
+        n_words, n = 30_000, 32 * 256
+        ids = np.minimum(rng.zipf(1.3, (32, 256)), n_words - 2) + 1
+        for doc, length in zip(ids, rng.integers(20, 257, 32)):
+            doc[:256 - length] = 0
+        ids = ids.reshape(-1)
+    ids = torch.from_numpy(ids).to(cuda)
+    rows = torch.from_numpy(rng.standard_normal((n, f)).astype(
+        np.float32)).to(cuda)
+    table = torch.from_numpy(rng.standard_normal((n_words, f)).astype(
+        np.float32)).to(cuda)
+    g = port_spmm.scatter_graph(ids, n_words, -0.025)
+    before = port_spmm.LAUNCHES
+    got = port_spmm.spmm_segment(g, rows, dense=table)
+    again = port_spmm.spmm_segment(g, rows, dense=table)
+    torch.cuda.synchronize()
+    assert port_spmm.LAUNCHES - before == 2
+    assert torch.equal(got, again)
+    want = port_spmm.spmm_segment_plain(g, rows, table)
+    assert_close_rel(got.cpu(), want.cpu())
+    cpu = port_spmm.scatter_graph(ids.cpu(), n_words, -0.025)
+    for k in ("rows", "cols", "vals", "row_ptr"):
+        assert torch.equal(getattr(g, k).cpu(), getattr(cpu, k)), k
+
+
+@pytest.mark.cuda
+def test_cuda_gather_rows_backward_repeats(cuda):
+    from sgc_tpu_torch.ops.autograd import GatherRowsFn
+
+    rng = np.random.default_rng(2)
+    table = torch.from_numpy(rng.standard_normal((500, 64)).astype(
+        np.float32))
+    ids = torch.from_numpy(rng.integers(0, 500, (32, 128)).astype(np.int32))
+    g = torch.from_numpy(rng.standard_normal((32, 128, 64)).astype(
+        np.float32))
+    grads = []
+    for dev in (cuda, cuda, torch.device("cpu")):
+        t = table.to(dev).requires_grad_()
+        GatherRowsFn.apply(t, ids.to(dev)).backward(g.to(dev))
+        grads.append(t.grad.cpu())
+    assert torch.equal(grads[0], grads[1])
+    assert_close_rel(grads[0], grads[2])
+
+
+@pytest.mark.cuda
+def test_cuda_word2vec_fit_repeats_and_matches_cpu(cuda):
+    from sgc_tpu_torch.textgraph import word2vec as w2v
+
+    rng = np.random.default_rng(3)
+    words = [f"w{i}" for i in range(300)]
+    docs = [[words[j] for j in np.minimum(rng.zipf(1.4, 40), 300) - 1]
+            for _ in range(200)]
+    cfg = w2v.Word2VecConfig(dim=100, epochs=2, batch_size=1024, lr=0.002)
+    a = w2v.Word2Vec(cfg, device=cuda).train(docs)
+    b = w2v.Word2Vec(cfg, device=cuda).train(docs)
+    np.testing.assert_array_equal(a.vectors, b.vectors)
+    assert np.isfinite(a.vectors).all()
+    # one step on the card against the CPU on the same inputs
+    in_emb = torch.from_numpy(a.vectors)
+    out_emb = in_emb.flip(0).contiguous()
+    pairs = torch.from_numpy(w2v.skipgram_pairs(docs, a.word_id, 5)[:1024])
+    u = torch.rand((1024, 5), generator=torch.Generator().manual_seed(0))
+    cdf = w2v.noise_cdf(w2v.build_vocab(docs)[2], "cpu")
+    outs = [w2v.sgns_step(*(t.to(dev) for t in (in_emb, out_emb,
+                                               pairs[:, 0], pairs[:, 1], u,
+                                               cdf)), cfg.lr)
+            for dev in (cuda, torch.device("cpu"))]
+    for got, want in zip(outs[0][:2], outs[1][:2]):
+        assert_close_rel(got.cpu(), want)
+
+
+@pytest.mark.cuda
+def test_cuda_transformer_step_repeats_and_matches_cpu(cuda):
+    """Three steps from one init give the same bits; the logits and the
+    gradients agree with the CPU's to the bf16 recipe's bound (an f32
+    sum-order difference can move a bf16 value one step, at most 2^-7 of
+    it, so of the leaf's max; 1/8 of that again for the f32 leaves
+    downstream of such a step)."""
+    import copy
+
+    from sgc_tpu_torch.models import transformer as tr
+    from sgc_tpu_torch.train import sequence as seq
+
+    cfg = tr.TransformerConfig(vocab_size=200, n_classes=5, max_len=32,
+                               dim=64, n_heads=4, n_layers=2, dropout=0.1)
+    init = tr.init_transformer(cfg, torch.Generator().manual_seed(0), "cpu")
+    rng = np.random.default_rng(4)
+    ids = torch.from_numpy(rng.integers(0, 200, (8, 32)).astype(np.int32))
+    mask = torch.ones((8, 32))
+    mask[2] = 0.0                                   # an empty doc
+    mask[3, :10] = 0.0
+    y = torch.from_numpy(rng.integers(0, 5, 8))
+    w = torch.ones(8)
+    scfg = seq.SeqTrainConfig(lr=1e-3, dropout=0.1)
+    runs = []
+    for _ in range(2):
+        m = copy.deepcopy(init).to(cuda)
+        opt = torch.optim.Adam(m.parameters(), lr=scfg.lr)
+        gen = torch.Generator(device=cuda).manual_seed(1)
+        for _ in range(3):
+            seq.train_step(m, opt, ids.to(cuda), mask.to(cuda), y.to(cuda),
+                           w.to(cuda), scfg, generator=gen)
+        runs.append([p.detach().cpu() for p in m.parameters()])
+    assert all(torch.equal(a, b) for a, b in zip(*runs))
+    grads = []
+    for dev in (cuda, torch.device("cpu")):
+        m = copy.deepcopy(init).to(dev)
+        logits = tr.transformer_apply(m, ids.to(dev), mask.to(dev))
+        seq.weighted_cross_entropy(logits, y.to(dev), w.to(dev)).backward()
+        grads.append([logits.detach().cpu()]
+                     + [p.grad.cpu() for p in m.parameters()])
+    assert bool(torch.isfinite(grads[0][0]).all())
+    for got, want in zip(*grads):
+        assert_close_rel(got, want, tol=2.0 ** -7 * 1.125)

@@ -66,7 +66,8 @@ print(",".join(sorted(n for n in sys.modules if n.split(".")[0] in
 
 def _entry_points():
     from sgc_tpu_torch.cli import citation, crossval, reddit, sweep, tuning
-    from sgc_tpu_torch.cli import serve, textsgc
+    from sgc_tpu_torch.cli import sequence, serve, textsgc
+    from sgc_tpu_torch.cli import word2vec as w2v_cli
     from sgc_tpu_torch.data.textcorpus import load_corpus
     from sgc_tpu_torch.data.planetoid import load_citation
     from sgc_tpu_torch.data.reddit import load_reddit
@@ -79,10 +80,17 @@ def _entry_points():
     from sgc_tpu_torch.serve import InferenceEngine
     from sgc_tpu_torch.utils.checkpoint import load_params
     from sgc_tpu_torch.utils.device import resolve_device
+    from sgc_tpu_torch.models import transformer
+    from sgc_tpu_torch.textgraph.embedding import EmbedderConfig, WordEmbedder
+    from sgc_tpu_torch.textgraph.word2vec import Word2Vec
+    from sgc_tpu_torch.train.finetune import finetune_pretrained
+    from sgc_tpu_torch.train.sequence import train_sequence_classifier
 
     g = SparseGraph.from_coo(np.array([0, 1]), np.array([1, 0]),
                              np.ones(2, np.float32), 2, 2)
     feats = np.zeros((2, 3), np.float32)
+    tcfg = transformer.TransformerConfig(8, 2, max_len=4, dim=8, n_heads=2,
+                                         n_layers=1)
     return {
         "resolve_device": lambda: resolve_device(None),
         "SparseGraph.to": lambda: g.to(),
@@ -128,6 +136,19 @@ def _entry_points():
         "load_params": lambda: load_params("model.npz"),
         "cli.serve.run_bench": lambda: serve.run_bench(serve.parser(
             ).parse_args(["--bench"])),
+        "init_transformer": lambda: transformer.init_transformer(
+            tcfg, torch.Generator()),
+        "train_sequence_classifier": lambda: train_sequence_classifier(
+            [["a"]], np.zeros(1), tcfg),
+        "cli.sequence.run": lambda: sequence.run(sequence.parser(
+            ).parse_args(["--metadata", "m.txt", "--corpus", "c.txt"])),
+        "Word2Vec.train": lambda: Word2Vec().train([["a", "b"]]),
+        "cli.word2vec.run": lambda: w2v_cli.run(w2v_cli.parser(
+            ).parse_args(["--corpus", "c.txt", "--out", "w2v"])),
+        "WordEmbedder torch": lambda: WordEmbedder(EmbedderConfig(
+            backend="torch")).embed_words(["a"]),
+        "finetune_pretrained": lambda: finetune_pretrained(
+            ["a"], np.zeros(1), 2),
     }
 
 
@@ -139,7 +160,10 @@ def _entry_points():
     "init_gcn", "init_gat_layer", "init_multi_head", "init_deep_gcn",
     "cli.tuning.tune_citation", "load_corpus", "cli.textsgc.run",
     "cli.crossval.run_crossval", "cli.tuning.tune_text", "InferenceEngine",
-    "InferenceEngine inductive", "load_params", "cli.serve.run_bench"])
+    "InferenceEngine inductive", "load_params", "cli.serve.run_bench",
+    "init_transformer", "train_sequence_classifier", "cli.sequence.run",
+    "Word2Vec.train", "cli.word2vec.run", "WordEmbedder torch",
+    "finetune_pretrained"])
 def test_default_device_raises_without_cuda(monkeypatch, name):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA"):
