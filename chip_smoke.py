@@ -29,6 +29,33 @@ main operator (both precisions) and on the same graph in its shuffled
 order), checks that kernels A, C and D give identical bits across two
 launches, and drives ``spmm(impl=...)`` for every impl.
 
+The main path's plan build, repeated after its timed run, runs under
+``stack_sampler(0.05)`` and then bare (the sampler's cost), and one of
+its block-dense hops under ``device_trace`` (``prep_attribution``: the
+host's top 10 leaves, the top 5 device ops); ``roofline_report`` on
+the main split holds its bytes to kernel A's and kernel B's counts in
+the kernels line (``roofline``; every bound and count comes from
+``sgc_tpu_torch/ops/roofline.py``). Then the single-device remainder,
+counters zeroed just before each run and read just after:
+
+    ordering_path:    LocalityPlan.build(ordering=rcm | bfs | degree |
+                      none) on the main path's shuffled graph, two hops
+                      each (kernels A + B, each launch held against its
+                      plain version at f32), rows in the loader's
+                      numbering against the LPA plan's and kernel B's
+                      hops (bf16; f32 with no cell); spectral on a
+                      Cora-shape fixture, its largest eigensolve converged
+    graph_store:      eight Pubmed-shape graphs through block_diag, one
+                      kernel-B product at F = 500, each block bit-equal
+                      to its member's own; save_graph / load_graph of the
+                      batch, the same arrays and product bits
+    kernel_bench_cli: cli.pallas_bench --scale 1.0 --clustered
+                      --blockdense --flat (kernels A, B, C) and --scale
+                      0.1 --precision bf16 (kernel C's stripe entry),
+                      errors against kernel B, kernels A + B against the
+                      plain block-dense version, no *_error key
+    devices_cli:      cli.devices on the card names it
+
 Then it drives the user-facing entry points, counters zeroed just before
 each run and read just after:
 
@@ -144,11 +171,7 @@ import sys
 import time
 import warnings
 
-# device peaks of one H100 SXM (NVIDIA data sheet): FP32 outside the
-# tensor cores, dense bf16 on the tensor cores, and HBM bandwidth
-PEAK_FP32_FLOPS = 67e12
-PEAK_BF16_TC_FLOPS = 989e12
-PEAK_HBM_BYTES = 3.35e12
+# peaks, bounds and byte/operation counts: sgc_tpu_torch/ops/roofline.py
 # relative to max|plain|: kernel and plain differ only in f32 sum order
 TOLERANCE = 1e-5
 # relative to max|main path|: bf16 cells vs f32 edges (2^-8 per value)
@@ -188,14 +211,6 @@ def rel_err(got, want) -> tuple[float, float]:
         raise AssertionError("kernel output has non-finite values")
     abs_err = float((got - want).abs().max())
     return abs_err, abs_err / max(float(want.abs().max()), 1e-30)
-
-
-def bound_ms(ops: float, nbytes: float,
-             peak_flops: float = PEAK_FP32_FLOPS) -> tuple[float, str]:
-    t_ops = ops / peak_flops
-    t_bytes = nbytes / PEAK_HBM_BYTES
-    return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes
-                                       else "bytes")
 
 
 def phase_device() -> str:
@@ -353,7 +368,8 @@ def phase_main_path(args, device) -> dict:
     if min(launches.values()) <= 0:
         raise AssertionError(f"a kernel never launched: {launches}")
     return {"plan": plan, "x": x, "launches": launches,
-            "data": (graph, features, labels, idx_train), "tr": tr}
+            "data": (graph, features, labels, idx_train), "tr": tr,
+            "lpa_rows": rows_by_old_id(plan, tr), "prep_s": prep_s}
 
 
 def phase_onehot_path(data, device) -> dict:
@@ -492,30 +508,6 @@ def cells_csr(split, dargs, n_slots):
             (split.n_rows, split.n_cols)).coalesce().to_sparse_csr()
 
 
-def kernel_a_bound(split, dargs, n_cells, F, passes) -> dict:
-    """Kernel A's bound on this run's cells: 2 F flops per nonzero cell
-    entry and pass at the bf16 tensor-core peak (the work the function
-    needs), against the cells, x, out and the index read or written once.
-    Beside it, the one-pass bound and the dense form's bound (2 R W F
-    flops per real cell and pass, what the kernel does)."""
-    R, W = split.row_block, split.stripe
-    nnz = int(dargs.cells[: split.n_slots].count_nonzero())
-    ops = 2.0 * nnz * F
-    dense_ops = 2.0 * R * W * F * n_cells
-    nbytes = (split.n_slots * R * W * 2 + split.n_cols * F * 4
-              + split.n_rows * F * 4
-              + (split.n_row_blocks + 1 + 2 * split.n_slots) * 4)
-    b_ms, b_by = bound_ms(ops * passes, nbytes, PEAK_BF16_TC_FLOPS)
-    one_ms, _ = bound_ms(ops, nbytes, PEAK_BF16_TC_FLOPS)
-    dense_ms, dense_by = bound_ms(dense_ops * passes, nbytes,
-                                  PEAK_BF16_TC_FLOPS)
-    return {"bound_ms": b_ms, "bound_by": b_by, "bound_one_pass_ms": one_ms,
-            "cell_nonzeros": nnz, "ops": ops * passes, "bytes": nbytes,
-            "dense_form_ops": dense_ops * passes,
-            "dense_form_bound_ms": dense_ms,
-            "dense_form_bound_by": dense_by}
-
-
 def phase_kernel_a(plan, x, launches, reps) -> dict:
     """Kernel A in both cell orders at both precisions on the main split,
     and at both precisions on the last-hop split: two launches equal bit
@@ -523,6 +515,7 @@ def phase_kernel_a(plan, x, launches, reps) -> dict:
     the plain product on bf16-rounded x, both at 1e-5."""
     import torch
 
+    from sgc_tpu_torch.ops import roofline as rf
     from sgc_tpu_torch.ops import spmm_blockdense as bd
 
     R, W = plan.split_main.row_block, plan.split_main.stripe
@@ -584,7 +577,7 @@ def phase_kernel_a(plan, x, launches, reps) -> dict:
 
     main = "super_rows_8/f32"
     passes = bd.n_passes("f32")
-    bound = kernel_a_bound(split_super, args_super, n_real, F, passes)
+    bound = rf.kernel_a_bound(split_super, args_super, n_real, F, passes)
     if bound["cell_nonzeros"] != csr_nnz:
         raise AssertionError("kernel A's bound and its CSR yardstick count "
                              "different nonzeros")
@@ -597,7 +590,8 @@ def phase_kernel_a(plan, x, launches, reps) -> dict:
            "max_abs_err": max(o["max_abs_err"] for o in orders.values()),
            "ms": orders[main]["ms"], "plain_ms": orders[main]["plain_ms"],
            "bound_ms": bound["bound_ms"], "bound_by": bound["bound_by"],
-           "library_ms": library_ms}
+           "library_ms": library_ms, "ops": bound["ops"],
+           "bytes": bound["bytes"]}
     emit({"phase": "kernel_a", "cells": n_real, "F": F, "orders": orders,
           "final_split_cells": plan.split_final.n_cells,
           "final_split_ms": final_ms, "bf16_ms": bf16_ms,
@@ -622,6 +616,7 @@ def b_width(name, graph, x, dense, reps) -> dict:
     chain the kernel's tail waits for)."""
     import torch
 
+    from sgc_tpu_torch.ops import roofline as rf
     from sgc_tpu_torch.ops.spmm import (
         csr_plan,
         launch_csr,
@@ -654,7 +649,7 @@ def b_width(name, graph, x, dense, reps) -> dict:
     hub_ms = time_ms(lambda: launch_csr(
         hub_ptr, graph.cols[h0:h1], graph.vals[h0:h1], x, hub_dense,
         hub_out, plan=plan), reps)
-    b_ms, b_by = b_bound(graph, F, dense is not None)
+    b_ms, b_by = rf.b_bound(graph, F, dense is not None)
     return {"operand": name, "F": F, "nnz": graph.nnz,
             "plan": dataclasses.asdict(plan), "max_abs_err": abs_err,
             "rel_err": err, "ms": ms, "bound_ms": b_ms, "bound_by": b_by,
@@ -672,9 +667,9 @@ def phase_kernel_b(plan, x, launches, reps, shuffled) -> dict:
     shuffled order (a plain hop of ``cli.reddit``), and F = 1, 8 and 41
     on that graph (GAT's segment sums, hidden heads and output heads; x
     a column of ones at F = 1, as ``ops.autograd.row_sums``)."""
-    import numpy as np
     import torch
 
+    from sgc_tpu_torch.ops import roofline as rf
     from sgc_tpu_torch.ops import spmm_blockdense as bd
     from sgc_tpu_torch.ops.spmm import spmm_segment, spmm_segment_plain
 
@@ -702,11 +697,8 @@ def phase_kernel_b(plan, x, launches, reps, shuffled) -> dict:
 
     main = widths["602"]
     F = int(x.shape[1])
-    n_used_cols = int(np.unique(split.rest.cols[:rest.nnz]).size)
-    ops = 2.0 * rest.nnz * F + rest.n_rows * F
-    nbytes = (rest.nnz * 8 + (rest.n_rows + 1) * 4 + n_used_cols * F * 4
-              + 2 * rest.n_rows * F * 4)
-    b_ms, b_by = bound_ms(ops, nbytes)
+    ops, nbytes = rf.kernel_b_count(split.rest, F, dense=True)
+    b_ms, b_by = rf.bound_ms(ops, nbytes)
     row = {"name": "csr_spmm", "route": "cuda",
            "source": "sgc_tpu_torch/csrc/spmm_csr.cu",
            "replaces": "sgc_tpu/ops/spmm.py:45",
@@ -714,6 +706,7 @@ def phase_kernel_b(plan, x, launches, reps, shuffled) -> dict:
            "max_abs_err": max(w["max_abs_err"] for w in widths.values()),
            "ms": main["ms"], "plain_ms": plain_ms, "bound_ms": b_ms,
            "bound_by": b_by, "library_ms": main["library_ms"],
+           "ops": ops, "bytes": nbytes,
            "widths": {k: {m: w[m] for m in ("ms", "bound_ms", "library_ms",
                                             "rel_err", "max_degree")}
                       for k, w in widths.items()}}
@@ -734,6 +727,7 @@ def phase_kernel_a_grouped(plan, x, reps) -> None:
     import numpy as np
     import torch
 
+    from sgc_tpu_torch.ops import roofline as rf
     from sgc_tpu_torch.ops import spmm_blockdense as bd
 
     R, W, F = 512, 512, int(x.shape[1])
@@ -768,7 +762,7 @@ def phase_kernel_a_grouped(plan, x, reps) -> None:
     library_ms = time_ms(lambda: torch.addmm(zero, csr, x, beta=0.0), reps)
     csr_nnz = int(csr._nnz())
     del csr, zero
-    bound = kernel_a_bound(split, dargs, split.n_cells, F,
+    bound = rf.kernel_a_bound(split, dargs, split.n_cells, F,
                            bd.n_passes("f32"))
     if bound["cell_nonzeros"] != csr_nnz:
         raise AssertionError("the grouped bound and its CSR yardstick count "
@@ -804,6 +798,7 @@ def phase_kernel_c(onehot, reps) -> dict:
     import numpy as np
     import torch
 
+    from sgc_tpu_torch.ops import roofline as rf
     from sgc_tpu_torch.ops import spmm_tiled as ti
     from sgc_tpu_torch.ops.spmm import spmm_segment
 
@@ -895,11 +890,8 @@ def phase_kernel_c(onehot, reps) -> dict:
     F = int(x.shape[1])
     slots = int(tiled.rows.shape[0])
     edges = int(args_flat.cols.shape[0])
-    ops = 2.0 * split.dense_edges * F
-    # the edges' (col, val), the row pointer, x and out, once each
-    nbytes = (edges * 8 + (tiled.n_rows + 1) * 4 + tiled.n_cols * F * 4
-              + tiled.n_rows * F * 4)
-    b_ms, b_by = bound_ms(ops, nbytes)
+    ops, nbytes = rf.kernel_c_count(tiled, split.dense_edges, edges, F)
+    b_ms, b_by = rf.bound_ms(ops, nbytes)
     row = {"name": "tiled_spmm", "route": "cuda",
            "source": "sgc_tpu_torch/csrc/spmm_csr.cu",
            "replaces": "sgc_tpu/ops/spmm_pallas.py:169, :393",
@@ -910,7 +902,8 @@ def phase_kernel_c(onehot, reps) -> dict:
            "plain_ms": entries["flat"]["plain_ms"], "bound_ms": b_ms,
            "bound_by": b_by, "library_ms": library_ms,
            "bf16_ms": entries["flat_bf16"]["ms"],
-           "bf16_max_abs_err": entries["flat_bf16"]["max_abs_err"]}
+           "bf16_max_abs_err": entries["flat_bf16"]["max_abs_err"],
+           "ops": ops, "bytes": nbytes}
     emit({"phase": "kernel_c", "kernel": "csr_spmm on the re-sorted layout",
           "slots": slots, "index_edges": edges,
           "row_index_native_s": native_index_s,
@@ -926,17 +919,6 @@ def phase_kernel_c(onehot, reps) -> dict:
     return row
 
 
-def sddmm_bound(g, a, itemsize: int) -> tuple[float, str, float, float]:
-    """Kernel D's bound at one operand width: 2 F flops per edge at the
-    FP32 peak, against a and b read once each at ``itemsize`` bytes, the
-    edges' rows and cols and the output."""
-    F = int(a.shape[1])
-    ops = 2.0 * g.nnz * F
-    nbytes = ((g.n_rows + g.n_cols) * F * itemsize + g.nnz * 8
-              + g.n_edges_padded * 4)
-    return (*bound_ms(ops, nbytes), ops, nbytes)
-
-
 def sddmm_on(g, a, b, reps, precisions) -> dict:
     """Kernel D through ``sddmm`` on one graph: its warps' segments, the
     runs of one row within them (one read of a's row each) and the bytes
@@ -949,6 +931,7 @@ def sddmm_on(g, a, b, reps, precisions) -> dict:
     bf16 values is exact in f32, so it computes the same function."""
     import torch
 
+    from sgc_tpu_torch.ops import roofline as rf
     from sgc_tpu_torch.ops import spmm
 
     F, nnz = int(a.shape[1]), g.nnz
@@ -982,7 +965,7 @@ def sddmm_on(g, a, b, reps, precisions) -> dict:
             raise AssertionError("kernel D wrote a padding slot")
         del got, again, want
         itemsize = 2 if precision == "bf16" else 4
-        b_ms, b_by, ops, nbytes = sddmm_bound(g, a, itemsize)
+        b_ms, b_by, ops, nbytes = rf.sddmm_bound(g, F, itemsize)
         if precision == "bf16":
             ac, bct = spmm.bf16_round(a), spmm.bf16_round(b).t()
         else:
@@ -1436,21 +1419,6 @@ def phase_gat_pubmed(root, device) -> dict:
     return launches
 
 
-def b_bound(graph, F, dense=False) -> tuple[float, str]:
-    """Kernel B's bound on one graph at width F, as ``phase_kernel_b``
-    counts it: each edge's (col, val), the row pointer, the x rows that
-    are read, the dense term if any and the output once each; 2 F flops
-    an edge."""
-    import torch
-
-    nnz = graph.nnz
-    used = int(torch.unique(graph.cols[:nnz]).numel())
-    ops = 2.0 * nnz * F
-    nbytes = (nnz * 8 + (graph.n_rows + 1) * 4
-              + (used + graph.n_rows * (2 if dense else 1)) * F * 4)
-    return bound_ms(ops, nbytes)
-
-
 def phase_gat_reddit(data, device, reps) -> dict:
     """Three Adam steps of the same GAT on the Reddit-shape clustered
     graph (602 features, 41 classes), twice from one init (the same
@@ -1462,6 +1430,7 @@ def phase_gat_reddit(data, device, reps) -> dict:
     (``torch.sparse.mm`` on the transposed CSR, ``sampled_addmm``)."""
     import torch
 
+    from sgc_tpu_torch.ops import roofline as rf
     from sgc_tpu_torch.ops import autograd as ag
     from sgc_tpu_torch.ops.spmm import (
         sddmm,
@@ -1541,9 +1510,9 @@ def phase_gat_reddit(data, device, reps) -> dict:
                 raise AssertionError(f"{name} at F={F}: launches differ")
             out[name] = {"max_abs_err": abs_err, "rel_err": err}
         csr_t, csr = csr_of(gt), csr_of(att)
-        b_fwd, by_fwd = b_bound(att, F)
-        b_tr, by_tr = b_bound(gt, F)
-        d_ms, d_by, _, _ = sddmm_bound(g, a_d, 4)
+        b_fwd, by_fwd = rf.b_bound(att, F)
+        b_tr, by_tr = rf.b_bound(gt, F)
+        d_ms, d_by, _, _ = rf.sddmm_bound(g, int(a_d.shape[1]), 4)
         out["forward_b"] = {"ms": time_ms(fwd, reps), "bound_ms": b_fwd,
                             "bound_by": by_fwd,
                             "library_ms": time_ms(
@@ -1568,7 +1537,7 @@ def phase_gat_reddit(data, device, reps) -> dict:
     _, vals, _ = kept[("bt", 8)]
     ones = torch.ones((g.n_cols, 1), device=device)
     att = g.with_vals(vals)
-    b1, by1 = b_bound(att, 1)
+    b1, by1 = rf.b_bound(att, 1)
     csr = csr_of(att)
     got = ag.row_sums(g, vals)
     _, err1 = rel_err(got, spmm_segment_plain(att, ones)[:, 0])
@@ -1694,6 +1663,7 @@ def text_kernel_a(split, dargs, x, reps) -> dict:
     call (the cells' nonzeros as one CSR matrix against bf16-rounded x)."""
     import torch
 
+    from sgc_tpu_torch.ops import roofline as rf
     from sgc_tpu_torch.ops import spmm_blockdense as bd
     from sgc_tpu_torch.ops.spmm import bf16_round
 
@@ -1714,7 +1684,8 @@ def text_kernel_a(split, dargs, x, reps) -> dict:
     zero = x.new_zeros((split.n_rows, x.shape[1]))
     library_ms = time_ms(lambda: torch.addmm(zero, csr, xb, beta=0.0), reps)
     del csr, xb, zero
-    bound = kernel_a_bound(split, dargs, split.n_cells, int(x.shape[1]), 1)
+    bound = rf.kernel_a_bound(split, dargs, split.n_cells, int(x.shape[1]),
+                              1)
     return {"F": int(x.shape[1]), "cells": split.n_cells, "precision": "bf16",
             "max_abs_err": abs_err, "rel_err": err, "ms": ms,
             "plain_ms": plain_ms, "library_ms": library_ms, **bound}
@@ -2095,6 +2066,7 @@ def phase_serve_path(args, device, card, reps) -> dict:
     import numpy as np
     import torch
 
+    from sgc_tpu_torch.ops import roofline as rf
     from sgc_tpu_torch.cli.serve import _bench_variant, dispatch_floor_ms
     from sgc_tpu_torch.ops import sampling
     from sgc_tpu_torch.serve import EngineConfig, InferenceEngine
@@ -2192,7 +2164,7 @@ def phase_serve_path(args, device, card, reps) -> dict:
               "leaf_rows": gather_bytes // (4 * int(store.shape[1])),
               "gather_bytes": gather_bytes, "reduce_ms": reduce_ms,
               "sample_ms": sample_ms, "gather_bound_ms":
-                  gather_bytes / PEAK_HBM_BYTES * 1e3,
+                  gather_bytes / rf.PEAK_HBM_BYTES * 1e3,
               "tree_vs_float64_abs_err": tree_abs,
               "tree_vs_float64_rel_err": tree_err},
           "http": http, "launches": launches,
@@ -2274,6 +2246,7 @@ def phase_sequence_path(root, fx, device, reps) -> dict:
     import numpy as np
     import torch
 
+    from sgc_tpu_torch.ops import roofline as rf
     from sgc_tpu_torch.cli import sequence as cli
     from sgc_tpu_torch.models.transformer import (
         TransformerConfig,
@@ -2370,7 +2343,7 @@ def phase_sequence_path(root, fx, device, reps) -> dict:
             "steps": steps, "first_step_ms": first_ms, "step_ms": step_ms,
             "step_flop": seq_step_flops(args, res["n_classes"]),
             "step_bound_ms": seq_step_flops(args, res["n_classes"])
-            / PEAK_FP32_FLOPS * 1e3,
+            / rf.PEAK_FP32_FLOPS * 1e3,
             "real_tokens_per_s": real_tokens * args.epochs
             / (step_ms * steps / 1e3),
             "padded_tokens_per_s": args.batch_size * args.max_len
@@ -2744,6 +2717,450 @@ def phase_text_baselines(args, device, reps) -> dict:
             "seq_width": out["sequence_path"]["width"]}
 
 
+ORDERINGS_ON_REDDIT = ("rcm", "bfs", "degree", "none")
+
+
+def rows_by_old_id(plan, tr):
+    """A plan's train rows (``(S^K X)[idx_train]`` in its own numbering)
+    in the loader's numbering, ascending node id."""
+    import numpy as np
+    import torch
+
+    old = plan.order[plan.idx_train]
+    return tr[torch.as_tensor(np.argsort(old, kind="stable"),
+                              device=tr.device)]
+
+
+def held_hop(split, args, x, hop) -> tuple:
+    """One block-dense hop as the plan runs it, kernel A's dense term and
+    kernel B's remainder each held against its plain version on the same
+    inputs at ``TOLERANCE``: (the hop's output, the dense term, the
+    record)."""
+    from sgc_tpu_torch.ops import spmm_blockdense as bd
+    from sgc_tpu_torch.ops.spmm import spmm_segment, spmm_segment_plain
+
+    rec, dense, out = {}, None, None
+    if split.n_cells:
+        dense = bd.apply_cells(split, args, x, "f32")
+        rec["kernel_a_" + hop] = rel_err(
+            dense, bd.apply_cells_plain(split, args, x, "f32"))
+        out = dense
+    if args.rest is not None:
+        out = spmm_segment(args.rest, x, dense)
+        rec["kernel_b_" + hop] = rel_err(
+            out, spmm_segment_plain(args.rest, x, dense))
+    for name, (_, err) in rec.items():
+        if not err <= TOLERANCE:
+            raise AssertionError(f"{name} vs plain: {err:.3e}")
+    return out, dense, rec
+
+
+def ordering_run(data, name, device, reps) -> dict:
+    """``LocalityPlan.build(ordering=name)`` and its two hops, each kernel
+    launch of the hops held against its plain version on the hop's own
+    inputs (the terms recomputed give the plan's rows bit for bit), the
+    plan's train rows in the loader's numbering, and its kernels timed
+    on the plan's main split."""
+    import torch
+
+    from sgc_tpu_torch.graph.locality import LocalityPlan
+    from sgc_tpu_torch.ops import spmm_blockdense as bd
+    from sgc_tpu_torch.ops.spmm import spmm_segment
+    from sgc_tpu_torch.utils.profiling import sync
+
+    def build_and_hop():
+        t0 = time.perf_counter()
+        plan = LocalityPlan.build(*data, ordering=name, formulation="auto",
+                                  device=device)
+        prep_s = time.perf_counter() - t0
+        khop, dargs = plan.khop_traceable(degree=2, precision="f32")
+        x = torch.as_tensor(plan.features, device=device)
+        khop(x, dargs)
+        sync(device)
+        t0 = time.perf_counter()
+        tr = khop(x, dargs)
+        sync(device)
+        return plan, x, tr, prep_s, time.perf_counter() - t0
+
+    (plan, x, tr, prep_s, hops_s), launches = counted(build_and_hop)
+    # (the plain form on the CPU, where the phases are rehearsed)
+    if plan.formulation != ("blockdense_kernel" if device.type == "cuda"
+                            else "blockdense"):
+        raise AssertionError(f"ordering {name}: formulation "
+                             f"{plan.formulation}, not kernels A and B")
+    s, args = plan.split_main, plan._device_args()[0]
+    h1, dense, held = held_hop(s, args, x, "main")
+    out, _, rec = held_hop(plan.split_final, plan._device_args()[1], h1,
+                           "final")
+    held.update(rec)
+    if not torch.equal(out, tr):
+        raise AssertionError(f"ordering {name}: the held hops differ from "
+                             "the plan's rows")
+    del h1, out
+    a_ms = (time_ms(lambda: bd.apply_cells(s, args, x, "f32"), reps)
+            if s.n_cells else None)
+    b_ms = (time_ms(lambda: spmm_segment(args.rest, x, dense), reps)
+            if args.rest is not None else None)
+    edges = plan.graph.nnz + plan.graph_final.nnz
+    info = {"ordering": name, "formulation": plan.formulation,
+            "order_s": plan.prep_seconds["order_s"], "prep_s": prep_s,
+            "prep_stages": plan.prep_seconds,
+            "dense_frac": plan.dense_fraction, "cells_main": s.n_cells,
+            "cells_final": plan.split_final.n_cells,
+            "remainder_nnz_main": s.sparse_edges,
+            "remainder_nnz_final": plan.split_final.sparse_edges,
+            "hops_s": hops_s, "edges_per_s": edges / hops_s,
+            "kernel_a_f32_ms": a_ms, "kernel_b_remainder_ms": b_ms,
+            "vs_plain": {k: {"max_abs_err": a, "rel_err": r}
+                         for k, (a, r) in held.items()},
+            "vs_plain_tolerance_rel": TOLERANCE, "launches": launches}
+    rows = rows_by_old_id(plan, tr)
+    no_cells = s.n_cells == 0 and plan.split_final.n_cells == 0
+    return {"info": info, "rows": rows, "no_cells": no_cells,
+            "launches": launches, "order": plan.order,
+            "max_abs_err": {k: max((a for n, (a, _) in held.items()
+                                    if n.startswith(prefix)), default=0.0)
+                            for k, prefix in (("blockdense_cells",
+                                               "kernel_a"),
+                                              ("csr_spmm", "kernel_b"))}}
+
+
+def phase_ordering_path(data, lpa_rows, device, reps) -> dict:
+    """``LocalityPlan.build(ordering=...)`` for rcm, bfs, degree and none
+    on the main path's shuffled Reddit-shape graph (F = 602, 512 x 512
+    cells), two hops each through kernels A and B, each launch of the
+    hops held against its plain version at ``TOLERANCE`` (``held_hop``);
+    every plan's rows, in the loader's numbering, held against the LPA
+    plan's and against two hops of kernel B over the whole graph, both
+    at ``BF16_TOLERANCE`` (bf16 cells; ``TOLERANCE`` where a plan admits
+    no cell); then ``spectral`` on a Cora-shape fixture (2,708 nodes;
+    both packages' shift-invert ``eigsh`` took 243 s on the card's host
+    for the Pubmed shape's random graph, and would factorize 11.6M
+    nonzeros for the Reddit shape), its largest component's eigensolve
+    shown converged and its order unlike RCM's."""
+    import numpy as np
+    import scipy.sparse.linalg as spla
+    import torch
+
+    from sgc_tpu_torch.data.fixtures import CORA, write_planetoid
+    from sgc_tpu_torch.data.planetoid import load_citation
+    from sgc_tpu_torch.graph.reorder import rcm_order
+    from sgc_tpu_torch.ops.spmm import spmm_segment
+    from sgc_tpu_torch.utils.buildcache import clear_placed
+
+    t_phase = time.perf_counter()
+    graph, features, _, idx_train = data
+    g = graph.to(device)
+    x0 = torch.as_tensor(features, device=device)
+    # two hops of kernel B over the whole graph, in the loader's numbering
+    kernel_b_rows = spmm_segment(g, spmm_segment(g, x0))[
+        torch.as_tensor(np.sort(idx_train), device=device)]
+    del g, x0
+    runs, launches = {}, {}
+    max_abs = {"blockdense_cells": 0.0, "csr_spmm": 0.0}
+    for name in ORDERINGS_ON_REDDIT:
+        r = ordering_run(data, name, device, reps)
+        tol = TOLERANCE if r["no_cells"] else BF16_TOLERANCE
+        _, err_lpa = rel_err(r["rows"], lpa_rows)
+        if not err_lpa <= BF16_TOLERANCE:
+            raise AssertionError(f"ordering {name} vs the LPA plan: "
+                                 f"{err_lpa:.3e}")
+        _, err_b = rel_err(r["rows"], kernel_b_rows)
+        if not err_b <= tol:
+            raise AssertionError(f"ordering {name} vs kernel B's hops: "
+                                 f"{err_b:.3e}")
+        if r["launches"]["csr_spmm"] <= 0:
+            raise AssertionError(f"ordering {name} never launched kernel B")
+        runs[name] = {**r["info"], "rows_vs_lpa_rel_err": err_lpa,
+                      "rows_vs_kernel_b_rel_err": err_b,
+                      "tolerance_rel": tol}
+        launches[name] = r["launches"]
+        max_abs = {k: max(v, r["max_abs_err"][k]) for k, v in max_abs.items()}
+        del r
+        clear_placed()
+        torch.cuda.empty_cache()
+    if sum(n["blockdense_cells"] for n in launches.values()) <= 0:
+        raise AssertionError("no ordering's plan launched kernel A")
+
+    # spectral on the Cora-shape fixture, eigsh's calls recorded
+    calls = []
+    eigsh = spla.eigsh
+
+    def recorded(a, *pos, **kw):
+        try:
+            out = eigsh(a, *pos, **kw)
+        except Exception:
+            calls.append((a.shape[0], False))
+            raise
+        calls.append((a.shape[0], True))
+        return out
+
+    with scratch_dir() as root:
+        write_planetoid(root, "cora", **CORA, seed=42)
+        cora = load_citation("cora", data_path=root, device="cpu")
+    cora_data = (cora.graph, cora.features.numpy(), cora.labels.numpy(),
+                 cora.idx_train)
+    spla.eigsh = recorded
+    try:
+        r = ordering_run(cora_data, "spectral", device, reps)
+    finally:
+        spla.eigsh = eigsh
+    rcm = rcm_order(cora.graph.to_scipy().tocsr())
+    largest = max(calls, default=(0, False))
+    if not largest[1]:
+        raise AssertionError(f"spectral: the largest component's eigsh "
+                             f"failed ({largest[0]} nodes)")
+    if np.array_equal(r["order"], rcm):
+        raise AssertionError("spectral order equals RCM's")
+    gp = cora.graph.to(device)
+    xp = cora.features.to(device)
+    kernel_b_cora = spmm_segment(gp, spmm_segment(gp, xp))[
+        torch.as_tensor(np.sort(cora.idx_train), device=device)]
+    _, err = rel_err(r["rows"], kernel_b_cora)
+    tol = TOLERANCE if r["no_cells"] else BF16_TOLERANCE
+    if not err <= tol:
+        raise AssertionError(f"spectral plan vs kernel B's hops: {err:.3e}")
+    max_abs = {k: max(v, r["max_abs_err"][k]) for k, v in max_abs.items()}
+    runs["spectral_cora"] = {
+        **r["info"], "rows_vs_kernel_b_rel_err": err, "tolerance_rel": tol,
+        "eigsh_calls": len(calls),
+        "eigsh_failed": sum(1 for _, ok in calls if not ok),
+        "largest_component": largest[0]}
+    launches["spectral_cora"] = r["launches"]
+    del r, gp, xp
+    clear_placed()
+    emit({"phase": "ordering_path", "runs": runs,
+          "wall_s": time.perf_counter() - t_phase})
+    return {"launches": launches, "max_abs_err": max_abs}
+
+
+def phase_prep_attribution(data, main, device) -> None:
+    """Where the main path's ``prep_s`` goes: the same LPA plan build,
+    twice more after the main path's timed one (so that span stays
+    uninstrumented), first under ``stack_sampler(0.05)`` (its top 10
+    host leaves), then bare; the two warm builds' difference is what the
+    sampler costs. Then one block-dense hop under ``device_trace``."""
+    from sgc_tpu_torch.graph.locality import LocalityPlan
+    from sgc_tpu_torch.utils.profiling import stack_sampler
+
+    t_phase = time.perf_counter()
+    t0 = time.perf_counter()
+    with stack_sampler(0.05) as sampler:
+        plan = LocalityPlan.build(*data, formulation="auto", device=device)
+    sampled_s = time.perf_counter() - t0
+    stages_sampled = plan.prep_seconds
+    del plan
+    t0 = time.perf_counter()
+    plan = LocalityPlan.build(*data, formulation="auto", device=device)
+    bare_s = time.perf_counter() - t0
+    stages_bare = plan.prep_seconds
+    del plan
+    emit({"phase": "prep_attribution", "prep_s": main["prep_s"],
+          "prep_stages": main["plan"].prep_seconds,
+          "warm_sampled_prep_s": sampled_s,
+          "warm_sampled_prep_stages": stages_sampled,
+          "warm_bare_prep_s": bare_s, "warm_bare_prep_stages": stages_bare,
+          "sampler_cost_s": sampled_s - bare_s,
+          "host_samples": {"interval_s": sampler.interval,
+                           "samples": len(sampler.samples),
+                           "top_leaves": sampler.report(10)},
+          "hop": phase_prep_trace(main["plan"], main["x"]),
+          "wall_s": time.perf_counter() - t_phase})
+
+
+def phase_prep_trace(plan, x) -> dict:
+    """One block-dense hop of the main plan (kernels A and B) under
+    ``device_trace``: the top 5 device ops by self device time."""
+    from sgc_tpu_torch.utils.profiling import device_trace
+
+    full, _ = plan.hop_fns("f32")
+    full(x)
+    log_dir = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                           "build", "traces", "prep_attribution")
+    with device_trace(log_dir) as prof:
+        full(x)
+
+    def self_us(e):
+        return getattr(e, "self_device_time_total",
+                       getattr(e, "self_cuda_time_total", 0.0))
+
+    events = sorted(prof.key_averages(), key=self_us, reverse=True)
+    top = [{"op": e.key, "self_device_us": self_us(e), "count": e.count}
+           for e in events[:5] if self_us(e) > 0]
+    if not top:
+        raise AssertionError("device_trace recorded no device time")
+    return {"trace": os.path.join(log_dir, "trace.json"),
+            "top_device_ops": top}
+
+
+def phase_roofline(plan, rows) -> None:
+    """``roofline_report`` for the main split at F = 602 from kernel A's
+    "f32" and kernel B's remainder times, its bytes held equal to the
+    kernels line's counts and its HBM shares to bound / time."""
+    from sgc_tpu_torch.ops.roofline import roofline_report
+
+    a, b = rows[0], rows[1]
+    rep = roofline_report(plan.split_main, 602, dense_s=a["ms"] / 1e3,
+                          rest_s=b["ms"] / 1e3)
+    if rep["dense"]["bytes"] != a["bytes"]:
+        raise AssertionError(f"roofline dense bytes {rep['dense']['bytes']}"
+                             f" != kernel A's {a['bytes']}")
+    if rep["remainder"]["bytes"] != b["bytes"]:
+        raise AssertionError("roofline remainder bytes "
+                             f"{rep['remainder']['bytes']} != kernel B's "
+                             f"{b['bytes']}")
+    for term, row in (("dense", a), ("remainder", b)):
+        if row["bound_by"] != "bytes":
+            continue
+        if abs(rep[term]["hbm_frac"] - row["bound_ms"] / row["ms"]) > 5e-4:
+            raise AssertionError(f"roofline {term} hbm_frac "
+                                 f"{rep[term]['hbm_frac']} != bound / ms")
+    emit({"phase": "roofline", "report": rep,
+          "kernel_a_bound_over_ms": a["bound_ms"] / a["ms"],
+          "kernel_b_bound_over_ms": b["bound_ms"] / b["ms"]})
+
+
+GRAPH_STORE_MEMBERS = 8
+
+
+def phase_graph_store(device, reps) -> dict:
+    """Eight Pubmed-shape graphs (the Planetoid fixture at seeds 42-49)
+    batched by ``block_diag``: one kernel-B product at F = 500 over the
+    batch, each block equal bit for bit to its member's own product, held
+    against the plain version; then ``save_graph`` / ``load_graph`` of the
+    batch, the same arrays and the same product bits."""
+    import numpy as np
+    import torch
+
+    from sgc_tpu_torch.data.fixtures import PUBMED, write_planetoid
+    from sgc_tpu_torch.data.planetoid import load_citation
+    from sgc_tpu_torch.graph.sparse import block_diag, host, load_graph, \
+        save_graph
+    from sgc_tpu_torch.ops.spmm import spmm_segment, spmm_segment_plain
+
+    t_phase = time.perf_counter()
+    members = []
+    with scratch_dir() as root:
+        for k in range(GRAPH_STORE_MEMBERS):
+            d = os.path.join(root, str(k))
+            write_planetoid(d, "pubmed", **PUBMED, seed=42 + k)
+            members.append(load_citation("pubmed", data_path=d,
+                                         device="cpu"))
+        fixtures_s = time.perf_counter() - t_phase
+        t0 = time.perf_counter()
+        batch, offsets = block_diag([m.graph for m in members])
+        block_diag_s = time.perf_counter() - t0
+        gb = batch.to(device)
+        xb = torch.cat([m.features for m in members]).to(device)
+        out, launches = counted(lambda: {"batch": spmm_segment(gb, xb)})
+        out = out["batch"]
+        _, err = rel_err(out, spmm_segment_plain(gb, xb))
+        if not err <= TOLERANCE:
+            raise AssertionError(f"block_diag product vs plain: {err:.3e}")
+        for k, m in enumerate(members):
+            own = spmm_segment(m.graph.to(device), m.features.to(device))
+            if not torch.equal(out[offsets[k]:offsets[k + 1]], own):
+                raise AssertionError(f"block {k} differs from its member's "
+                                     "own product")
+        ms = time_ms(lambda: spmm_segment(gb, xb), reps)
+        path = os.path.join(root, "batch")
+        t0 = time.perf_counter()
+        save_graph(path, batch)
+        save_s = time.perf_counter() - t0
+        file_bytes = os.path.getsize(path + ".npz")
+        t0 = time.perf_counter()
+        loaded = load_graph(path)
+        load_s = time.perf_counter() - t0
+    for f in ("rows", "cols", "vals", "row_ptr"):
+        if not np.array_equal(host(getattr(loaded, f)),
+                              host(getattr(batch, f))):
+            raise AssertionError(f"load_graph: {f} differs")
+    if (loaded.shape, loaded.nnz) != (batch.shape, batch.nnz):
+        raise AssertionError("load_graph: shape or nnz differs")
+    if not torch.equal(spmm_segment(loaded.to(device), xb), out):
+        raise AssertionError("the loaded batch's product differs")
+    if launches["csr_spmm"] <= 0:
+        raise AssertionError("graph_store never launched kernel B")
+    emit({"phase": "graph_store", "members": GRAPH_STORE_MEMBERS,
+          "nodes": batch.n_rows, "nnz": batch.nnz, "F": int(xb.shape[1]),
+          "fixtures_s": fixtures_s, "block_diag_s": block_diag_s,
+          "kernel_b_ms": ms, "rel_err": err, "tolerance_rel": TOLERANCE,
+          "save_s": save_s, "load_s": load_s, "file_bytes": file_bytes,
+          "launches": launches, "wall_s": time.perf_counter() - t_phase})
+    return {"batch": launches}
+
+
+KERNEL_BENCH_RUNS = {
+    "clustered_blockdense_flat": ["--scale", "1.0", "--clustered",
+                                  "--blockdense", "--flat", "--json"],
+    "stripes_bf16": ["--scale", "0.1", "--precision", "bf16", "--json"],
+}
+
+
+def phase_kernel_bench_cli() -> dict:
+    """``cli.pallas_bench.main`` in this process, twice: the clustered
+    graph at full scale through the flat entry with the block-dense
+    split, and the uniform graph at 0.1 through the stripe entry at
+    "bf16"; errors against kernel B within TOLERANCE (kernel C at "f32")
+    or BF16_TOLERANCE, kernels A + B against the plain block-dense
+    version on the same split within TOLERANCE, no ``*_error`` key."""
+    import io
+
+    from sgc_tpu_torch.cli import pallas_bench
+
+    t_phase = time.perf_counter()
+    lines, launches = {}, {}
+    for name, argv in KERNEL_BENCH_RUNS.items():
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            rc, launches[name] = counted(lambda: pallas_bench.main(argv))
+        if rc != 0:
+            raise AssertionError(f"pallas_bench {name} exited {rc}")
+        line = json.loads(buf.getvalue().strip().splitlines()[-1])
+        errors = [k for k in line if k.endswith("_error")]
+        if errors:
+            raise AssertionError(f"pallas_bench {name}: {errors}")
+        f32 = "--precision" not in argv
+        checks = {"rel_err_vs_xla": TOLERANCE if f32 else BF16_TOLERANCE}
+        if "--blockdense" in argv:
+            # kernels A + B against the plain version on the same split
+            checks.update(blockdense_rel_err_vs_xla=BF16_TOLERANCE,
+                          blockdense_pallas_rel_err=BF16_TOLERANCE,
+                          blockdense_pallas_vs_plain_rel_err=TOLERANCE)
+        for key, tol in checks.items():
+            if not line[key] <= tol:
+                raise AssertionError(f"pallas_bench {name}: {key} "
+                                     f"{line[key]:.3e} > {tol}")
+        need = ["tiled_spmm", "csr_spmm"] + (
+            ["blockdense_cells"] if "--blockdense" in argv else [])
+        if min(launches[name][k] for k in need) <= 0:
+            raise AssertionError(f"pallas_bench {name}: a kernel never "
+                                 f"launched: {launches[name]}")
+        lines[name] = line
+    emit({"phase": "kernel_bench_cli", "runs": lines, "launches": launches,
+          "wall_s": time.perf_counter() - t_phase})
+    return launches
+
+
+def phase_devices_cli() -> None:
+    """``cli.devices.main`` on the card: its device line names the card
+    and its matmul smoke passes."""
+    import io
+
+    import torch
+
+    from sgc_tpu_torch.cli import devices
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = devices.main([])
+    text = buf.getvalue()
+    name = torch.cuda.get_device_name(0)
+    if rc != 0 or f"device 0: {name}" not in text or "OK" not in text:
+        raise AssertionError(f"cli.devices (rc {rc}): {text!r}")
+    emit({"phase": "devices_cli", "output": text.splitlines()})
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--scale", type=float, default=1.0,
@@ -2773,6 +3190,7 @@ def main() -> int:
     phase_calibrate(device)
     main = phase_main_path(args, device)
     data = main.pop("data")
+    phase_prep_attribution(data, main, device)
     phase_calibrated_path(data, main.pop("tr"), device)
     onehot = phase_onehot_path(data, device)
     shuffled = data[:2]
@@ -2781,6 +3199,8 @@ def main() -> int:
     phase_kernel_a_grouped(main["plan"], main["x"], args.reps)
     rows.append(phase_kernel_b(main["plan"], main["x"], main["launches"],
                                args.reps, shuffled))
+    phase_roofline(main["plan"], rows)
+    lpa_rows = main.pop("lpa_rows")
     del main
     rows.append(phase_kernel_c(onehot, args.reps))
     rows.append(phase_kernel_d(onehot, shuffled, args.reps))
@@ -2788,10 +3208,17 @@ def main() -> int:
     phase_dispatcher(onehot, args.reps)
     del onehot
     gat_reddit = phase_gat_reddit(data, device, args.reps)
-    del data
-    by_path = {"reddit_cli": phase_reddit_cli(args, device),
+    t_new = time.perf_counter()
+    orderings = phase_ordering_path(data, lpa_rows, device, args.reps)
+    by_path = {"ordering_path": orderings["launches"]}
+    del data, lpa_rows
+    by_path["graph_store"] = phase_graph_store(device, args.reps)
+    by_path["kernel_bench_cli"] = phase_kernel_bench_cli()
+    phase_devices_cli()
+    new_paths_s = time.perf_counter() - t_new
+    by_path.update({"reddit_cli": phase_reddit_cli(args, device),
                "citation_cli": phase_citation_cli(args, device),
-               **phase_train_paths(args, device)}
+               **phase_train_paths(args, device)})
     text = phase_text_path(args, device, args.reps)
     by_path["text_cli"] = text["launches"]
     by_path["serve_path"] = phase_serve_path(args, device, card, args.reps)
@@ -2810,9 +3237,11 @@ def main() -> int:
                                                    "transposed_b", "row_sum")
                                  if k in w}
                              for F, w in gat_reddit["widths"].items()}
-    rows[0]["max_abs_err"] = max(rows[0]["max_abs_err"],
-                                 text["kernel_a_2048"]["max_abs_err"])
-    rows[1]["max_abs_err"] = max([rows[1]["max_abs_err"]] + [
+    rows[0]["max_abs_err"] = max(
+        rows[0]["max_abs_err"], text["kernel_a_2048"]["max_abs_err"],
+        orderings["max_abs_err"]["blockdense_cells"])
+    rows[1]["max_abs_err"] = max([rows[1]["max_abs_err"],
+                                  orderings["max_abs_err"]["csr_spmm"]] + [
         w["max_abs_err"] for w in list(text["kernel_b_widths"].values())
         + list(baselines["w2v_widths"].values()) + [baselines["seq_width"]]])
     rows[0]["text_2048"] = {k: text["kernel_a_2048"][k] for k in (
@@ -2832,7 +3261,8 @@ def main() -> int:
     rows[3]["gat_reddit_backward"] = {F: w["d"] for F, w in
                                       gat_reddit["widths"].items()
                                       if "d" in w}
-    log(f"chip_smoke: {time.perf_counter() - t_start:.1f}s")
+    log(f"chip_smoke: {time.perf_counter() - t_start:.1f}s (ordering_path, "
+        f"graph_store, kernel_bench_cli, devices_cli: {new_paths_s:.1f}s)")
     emit({"kernels": rows})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

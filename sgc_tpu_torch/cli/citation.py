@@ -11,8 +11,9 @@ Load (``data/planetoid.py``); for SGC propagate ``S^K X`` once (``sgc``:
 same way), train the head with Adam on the train rows
 (``train_regression``); for GCN train through the graph (``train_gcn``,
 no precompute) and apply the model to the whole graph. Report val/test
-accuracy. ``--sharded`` is not ported yet and raises
-``NotImplementedError``.
+accuracy. ``--sharded`` with a propagator other than sgc raises the
+reference's ``ValueError``; a valid ``--sharded`` call is not ported yet
+and raises ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -43,6 +44,8 @@ def run(cfg: CitationConfig, data_path: str | None = None,
     one). ``trainer`` picks the sharded path's head trainer in the
     reference and is unused here, as there without ``sharded``."""
     if sharded:
+        if propagator != "sgc":
+            raise ValueError("--sharded supports the sgc propagator only")
         raise NotImplementedError(f"--sharded is not ported yet: "
                                   f"{SHARDED_TODO}")
     dev = resolve_device(device)

@@ -11,8 +11,10 @@ head (``--trainer newton``, the default, or ``lbfgs``, the oracle, ``lr``
 1 and ``epochs`` 2); report micro and macro F1. ``--locality`` runs both
 propagations through a ``LocalityPlan`` each (LPA reorder and per-hop
 splits, admission calibrated on the device), rows restored to the
-loader's numbering. ``--sharded`` and ``--formulation`` (the sharded
-path's kernel) are not ported yet and raise ``NotImplementedError``.
+loader's numbering. The reference's argument errors (``--locality``
+with ``--sharded``, ``--formulation`` without it) raise its
+``ValueError``; a valid ``--sharded`` call (the only one that uses
+``--formulation``) is not ported yet and raises ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -46,13 +48,17 @@ def run(inductive: bool = True, test: bool = True, degree: int = 2,
     (host seconds of the loader), with ``locality`` the plans'
     ``dense_frac``, and ``eval_features``, the propagated eval matrix in
     the loader's row numbering."""
+    if locality and sharded:
+        raise ValueError("--locality applies to the single-device path "
+                         "(the sharded path partitions by node range)")
+    if formulation != "auto" and not sharded:
+        raise ValueError(
+            "--formulation selects the SHARDED propagation kernel; pass "
+            "--sharded with it (the --locality path has its own "
+            "formulation auto-selection)")
     if sharded:
         raise NotImplementedError(f"--sharded is not ported yet: "
                                   f"{SHARDED_TODO}")
-    if formulation != "auto":
-        raise NotImplementedError(
-            f"--formulation selects the sharded path's kernel, which is "
-            f"not ported yet: {SHARDED_TODO}")
     dev = resolve_device(device)
     generator = set_seed(seed)
     t0 = perf_counter()

@@ -47,7 +47,9 @@ REDDIT_SPLIT = (152_410, 23_699, 55_334)
 # 24,019-node doc-word graph)
 COVID = dict(n_train=7_362, n_test=1_825, n_classes=31, vocab=14_832)
 
-# Pubmed's published shape and Planetoid split
+# Cora's and Pubmed's published shapes and Planetoid splits
+CORA = dict(n_nodes=2_708, n_edges=5_429, n_features=1_433, n_classes=7,
+            n_train=140, n_test=1_000)
 PUBMED = dict(n_nodes=19_717, n_edges=44_338, n_features=500, n_classes=3,
               n_train=60, n_test=1_000)
 

@@ -5,7 +5,9 @@ Discover a graph's community structure, then exploit it:
     plan = LocalityPlan.build(graph, features, labels, idx_train)
     tr   = plan.propagate_train(degree=2)
 
-* node reordering by LPA (:func:`sgc_tpu_torch.graph.reorder.lpa_order`),
+* node reordering by ``ordering`` (any name of
+  :data:`sgc_tpu_torch.graph.reorder.ORDERINGS`; LPA by default), timed
+  as ``prep_seconds["order_s"]`` on every path,
 * exact dead-row elimination for the last hop (``row_subgraph``: the
   last hop computes only the ``idx_train`` rows),
 * a split per hop operator, placed on the device once per plan: a

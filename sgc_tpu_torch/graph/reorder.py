@@ -1,16 +1,25 @@
-"""Node reordering by label propagation (the LPA path of
-sgc_tpu/graph/reorder.py).
+"""Node reordering (the counterpart of sgc_tpu/graph/reorder.py).
 
-Label propagation (Raghavan et al. 2007) finds the communities of a
-clustered graph; laying nodes out community by community (largest first,
-ascending old id inside) puts most edges into dense diagonal cells of a
-(row_block, stripe) tiling, which is what the block-dense SpMM feeds on.
+An ordering is a permutation ``order`` with ``order[new_pos] = old id``.
+Block consumers (the block-dense and hybrid splits, a row-block
+partitioner) see neighbourhoods that the numbering keeps together, so the
+ordering decides how many edges land in dense cells:
 
-Only the native asynchronous solver is ported, and it is required: the
-reference's synchronous numpy solver reaches a different fixpoint (a
-different order, split and dense fraction), so the port raises instead of
-falling back to it. The rcm, bfs, degree and spectral orderings wait for
-a later slice of the port.
+* :func:`lpa_order`: communities by label propagation (Raghavan et al.
+  2007), laid out largest first; the main path's ordering.
+* :func:`rcm_order`: reverse Cuthill-McKee (scipy), bandwidth reduction.
+* :func:`bfs_order`: BFS from a min-degree seed of each component.
+* :func:`degree_order`: by degree, hubs first by default.
+* :func:`spectral_order`: by the Fiedler vector of each component's
+  normalized Laplacian, largest component first.
+* ``"none"``: the identity.
+
+Every ordering but LPA runs the reference's scipy calls on the host, so
+the permutations are the reference's bit for bit. For LPA only the native
+asynchronous solver is ported, and it is required: the reference's
+synchronous numpy solver reaches a different fixpoint (a different order,
+split and dense fraction), so the port raises instead of falling back to
+it.
 """
 
 from __future__ import annotations
@@ -25,6 +34,89 @@ LPA_MAX_ITER = 20
 LPA_MIN_MOVED = 1e-3
 
 
+def rcm_order(adj: sp.spmatrix) -> np.ndarray:
+    """Reverse Cuthill-McKee permutation."""
+    return np.asarray(
+        sp.csgraph.reverse_cuthill_mckee(adj.tocsr(), symmetric_mode=True))
+
+
+def bfs_order(adj: sp.spmatrix) -> np.ndarray:
+    """BFS order from a min-degree seed of each connected component,
+    components taken by their seeds in ascending degree (stable)."""
+    csr = adj.tocsr()
+    n = csr.shape[0]
+    deg = np.diff(csr.indptr)
+    visited = np.zeros(n, bool)
+    order = np.empty(n, np.int64)
+    pos = 0
+    for seed in np.argsort(deg, kind="stable"):
+        if visited[seed]:
+            continue
+        nodes = sp.csgraph.breadth_first_order(
+            csr, int(seed), directed=False, return_predecessors=False)
+        order[pos:pos + len(nodes)] = nodes
+        pos += len(nodes)
+        visited[nodes] = True
+    return order
+
+
+def degree_order(adj: sp.spmatrix, descending: bool = True) -> np.ndarray:
+    """Nodes by stored-entry count per row (hubs first by default)."""
+    deg = np.diff(adj.tocsr().indptr)
+    order = np.argsort(deg, kind="stable")
+    return order[::-1].copy() if descending else order
+
+
+def apply_order(adj: sp.spmatrix, order: np.ndarray,
+                *aligned: np.ndarray) -> tuple:
+    """Permute the adjacency's rows and columns and any per-node arrays
+    (features, labels) by ``order``. Index sets (node ids) go through
+    :func:`remap_indices` instead."""
+    perm = np.asarray(order)
+    padj = adj.tocsr()[perm][:, perm]
+    return (padj, *(np.asarray(a)[perm] for a in aligned))
+
+
+def remap_indices(order: np.ndarray, indices: np.ndarray) -> np.ndarray:
+    """Map old node ids to their new positions under ``order``."""
+    inv = np.empty(len(order), np.int64)
+    inv[np.asarray(order)] = np.arange(len(order))
+    return inv[np.asarray(indices)]
+
+
+def spectral_order(adj: sp.spmatrix, tol: float = 1e-4) -> np.ndarray:
+    """Nodes sorted by the Fiedler vector (second eigenvector of the
+    normalized Laplacian), per connected component, largest component
+    first. A component whose eigensolve raises is ordered by RCM instead,
+    as in the reference."""
+    from scipy.sparse.linalg import eigsh
+
+    csr = adj.tocsr().astype(np.float64)
+    n_comp, comp = sp.csgraph.connected_components(csr, directed=False)
+
+    def order_component(nodes: np.ndarray) -> np.ndarray:
+        m = len(nodes)
+        if m <= 2:
+            return nodes
+        sub = csr[nodes][:, nodes]
+        deg = np.asarray(sub.sum(axis=1)).ravel()
+        dinv = np.where(deg > 0, deg**-0.5, 0.0)
+        d = sp.diags(dinv)
+        lap = sp.eye(m) - d @ sub @ d
+        try:
+            _, vecs = eigsh(lap, k=2, sigma=0, which="LM", tol=tol)
+        except Exception:  # the reference's fallback on any solver failure
+            return nodes[rcm_order(sub)]
+        fiedler = dinv * vecs[:, 1]
+        return nodes[np.argsort(fiedler, kind="stable")]
+
+    if n_comp == 1:
+        return order_component(np.arange(csr.shape[0]))
+    parts = [np.where(comp == c)[0] for c in range(n_comp)]
+    parts.sort(key=len, reverse=True)
+    return np.concatenate([order_component(p) for p in parts])
+
+
 def _require_native() -> None:
     if not native.available():
         raise RuntimeError(
@@ -37,9 +129,9 @@ def lpa_order(
     max_iter: int = LPA_MAX_ITER,
     min_moved: float = LPA_MIN_MOVED,
 ) -> np.ndarray:
-    """Community ordering (``order[new_pos] = old id``) of a square
-    adjacency. Stops when at most ``min_moved`` of the nodes change label
-    in a sweep, or after ``max_iter`` sweeps."""
+    """Community ordering of a square adjacency. Stops when at most
+    ``min_moved`` of the nodes change label in a sweep, or after
+    ``max_iter`` sweeps."""
     csr = adj.tocsr()
     n = csr.shape[0]
     if n == 0:
@@ -60,27 +152,40 @@ def _canonical_order_from_labels(labels: np.ndarray, n: int) -> np.ndarray:
     return np.lexsort((np.arange(n), rank[comm_inverse]))
 
 
+ORDERINGS = {
+    "rcm": rcm_order,
+    "bfs": bfs_order,
+    "degree": degree_order,
+    "spectral": spectral_order,
+    "lpa": lpa_order,
+    "none": lambda adj: np.arange(adj.shape[0]),
+}
+
+
+def fetch_ordering(name: str):
+    if name not in ORDERINGS:
+        raise ValueError(f"unknown ordering {name!r}; one of {list(ORDERINGS)}")
+    return ORDERINGS[name]
+
+
 def reorder_graph_arrays(graph: SparseGraph, name: str, features, labels,
                          idx):
-    """Reorder a square host graph and its node-aligned arrays.
+    """Reorder a host graph and its node-aligned arrays by the ordering
+    ``name``. Returns ``(graph_p, features_p, labels_p, idx_p, order)``
+    with ``graph_p`` on the host and ``idx_p`` sorted.
 
-    The reference's scipy-free LPA path: coalesce the (row, col)-sorted
-    edges (duplicates sum), run the native LPA on their CSR, permute the
-    COO directly and rebuild with the native sort. Returns ``(graph_p,
-    features_p, labels_p, idx_p, order)`` with ``graph_p`` on the host and
-    ``idx_p`` sorted.
+    ``"lpa"`` takes the reference's scipy-free path: coalesce the (row,
+    col)-sorted edges (duplicates sum), run the native LPA on their CSR,
+    permute the COO directly and rebuild with the native sort. Every
+    other name takes the reference's scipy path (:func:`reorder_scipy`).
     """
+    fetch_ordering(name)
     if name != "lpa":
-        raise NotImplementedError(
-            f"ordering {name!r} is not ported yet (only 'lpa')")
+        return reorder_scipy(graph, name, features, labels, idx)
     if graph.n_rows != graph.n_cols:
         raise ValueError("the LPA ordering needs a square graph")
     _require_native()
-    nnz = graph.nnz
-    rows = host(graph.rows)[:nnz].astype(np.int64)
-    cols = host(graph.cols)[:nnz].astype(np.int64)
-    vals = host(graph.vals)[:nnz].astype(np.float32)
-
+    rows, cols, vals = _live_edges(graph)
     rows, cols, vals = native.coalesce(rows, cols, vals)
     indptr = native.row_ptr_from_sorted(rows, graph.n_rows)
     lab, _ = native.lpa_labels(indptr, cols, max_iter=LPA_MAX_ITER,
@@ -94,3 +199,27 @@ def reorder_graph_arrays(graph: SparseGraph, name: str, features, labels,
     labels_p = np.asarray(labels)[order]
     idx_p = np.sort(inv[np.asarray(idx)])
     return graph_p, features_p, labels_p, idx_p, order
+
+
+def reorder_scipy(graph: SparseGraph, name: str, features, labels, idx):
+    """The reference's shared recipe on the host: coo -> csr (duplicates
+    sum) -> ordering -> :func:`apply_order` -> sorted indices ->
+    ``SparseGraph.from_scipy``. Same returns as
+    :func:`reorder_graph_arrays`."""
+    rows, cols, vals = _live_edges(graph)
+    adj = sp.coo_matrix((vals, (rows, cols)),
+                        shape=(graph.n_rows, graph.n_cols)).tocsr()
+    order = fetch_ordering(name)(adj)
+    adj_p, features_p, labels_p = apply_order(
+        adj, order, np.asarray(features), np.asarray(labels))
+    idx_p = np.sort(remap_indices(order, np.asarray(idx)))
+    adj_p.sort_indices()  # from_scipy's presorted path
+    return (SparseGraph.from_scipy(adj_p), features_p, labels_p, idx_p,
+            order)
+
+
+def _live_edges(graph: SparseGraph):
+    nnz = graph.nnz
+    return (host(graph.rows)[:nnz].astype(np.int64),
+            host(graph.cols)[:nnz].astype(np.int64),
+            host(graph.vals)[:nnz].astype(np.float32))

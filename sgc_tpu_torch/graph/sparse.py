@@ -243,3 +243,59 @@ class SparseGraph:
 
         g = self._on_tensors()
         return row_sums(g, (g.vals != 0).float())
+
+
+def save_graph(path, graph: SparseGraph) -> None:
+    """Write a graph to one ``.npz``: the unpadded ``rows``, ``cols`` and
+    ``vals`` and the int64 ``shape``, the reference's format (a file
+    written by either package loads in the other)."""
+    from pathlib import Path
+
+    p = Path(path)
+    p.parent.mkdir(parents=True, exist_ok=True)
+    n = graph.nnz
+    np.savez_compressed(p, rows=host(graph.rows)[:n],
+                        cols=host(graph.cols)[:n],
+                        vals=host(graph.vals)[:n],
+                        shape=np.asarray(graph.shape, np.int64))
+
+
+def load_graph(path, pad_multiple: int = EDGE_PAD_MULTIPLE) -> SparseGraph:
+    """A host graph from a file of :func:`save_graph`. A path without the
+    ``.npz`` suffix that does not exist gets it appended, as numpy's
+    ``savez`` did when writing."""
+    from pathlib import Path
+
+    p = Path(path)
+    if p.suffix != ".npz" and not p.exists():
+        p = p.with_suffix(p.suffix + ".npz")
+    with np.load(p) as z:
+        n_rows, n_cols = (int(x) for x in z["shape"])
+        return SparseGraph.from_coo(z["rows"], z["cols"], z["vals"], n_rows,
+                                    n_cols, pad_multiple)
+
+
+def block_diag(graphs: list, pad_multiple: int = EDGE_PAD_MULTIPLE
+               ) -> tuple[SparseGraph, np.ndarray]:
+    """Batch square graphs into one block-diagonal host graph: one SpMM
+    over it propagates every member on its own. Returns ``(graph,
+    offsets)``, ``offsets[i]`` member i's first node id and
+    ``offsets[-1]`` the node count. Raises for a non-square member."""
+    rows, cols, vals = [], [], []
+    offsets = [0]
+    for g in graphs:
+        if g.n_rows != g.n_cols:
+            raise ValueError("block_diag requires square member graphs")
+        off = offsets[-1]
+        n = g.nnz
+        rows.append(host(g.rows)[:n].astype(np.int64) + off)
+        cols.append(host(g.cols)[:n].astype(np.int64) + off)
+        vals.append(host(g.vals)[:n])
+        offsets.append(off + g.n_rows)
+    total = offsets[-1]
+    out = SparseGraph.from_coo(
+        np.concatenate(rows) if rows else np.zeros(0, np.int64),
+        np.concatenate(cols) if cols else np.zeros(0, np.int64),
+        np.concatenate(vals) if vals else np.zeros(0, np.float32),
+        total, total, pad_multiple)
+    return out, np.asarray(offsets)

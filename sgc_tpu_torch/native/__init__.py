@@ -4,14 +4,16 @@ The port's copy of the reference's C++ host library, built with ``g++``
 at first use into ``build/sgc_tpu_torch/`` (utils/buildlib.py). Only the
 calls the ported paths use are bound: ``sort_edges``,
 ``row_ptr_from_sorted``, ``coalesce``, ``lpa_labels``, ``cell_scatter``
-(block-dense split), ``tile_fill`` (the tiled one-hot layout) and
-``slot_row_index`` (kernel C's row index of that layout, the port's own).
+(block-dense split), ``tile_fill`` (the tiled one-hot layout),
+``slot_row_index`` (kernel C's row index of that layout, the port's own)
+and ``sym_normalize_edges``.
 
-There are no numpy fallbacks: when the library cannot be built every
-call raises. The reference falls back silently (to a synchronous numpy
-LPA, among others), and that fallback reaches a different LPA fixpoint,
-so a different ordering, split and dense fraction; the port refuses to
-change results that way.
+Only ``sym_normalize_edges`` has a numpy twin, which it takes when the
+library cannot be built: the twin gives the same bits. Every other call
+raises without the library. The reference falls back silently (to a
+synchronous numpy LPA, among others), and that fallback reaches a
+different LPA fixpoint, so a different ordering, split and dense
+fraction; the port refuses to change results that way.
 """
 
 from __future__ import annotations
@@ -36,6 +38,7 @@ _lib = None
 _I64P = ctypes.POINTER(ctypes.c_int64)
 _I32P = ctypes.POINTER(ctypes.c_int32)
 _F32P = ctypes.POINTER(ctypes.c_float)
+_F64P = ctypes.POINTER(ctypes.c_double)
 _U16P = ctypes.POINTER(ctypes.c_uint16)
 _U8P = ctypes.POINTER(ctypes.c_uint8)
 _I64 = ctypes.c_int64
@@ -69,6 +72,10 @@ def _load():
     lib.slot_row_index.argtypes = [_I32P, _I32P, _I64, _I64, _I64, _I32P,
                                    _I32P]
     lib.slot_row_index.restype = ctypes.c_int
+    lib.weighted_degrees.argtypes = [_I64P, _F32P, _I64, _I64, _F64P]
+    lib.weighted_degrees.restype = ctypes.c_int
+    lib.scale_sym_norm.argtypes = [_I64P, _I64P, _F32P, _I64, _F64P]
+    lib.scale_sym_norm.restype = ctypes.c_int
     _lib = lib
     return lib
 
@@ -227,3 +234,52 @@ def slot_row_index(rows, chunk_nnz, chunk: int, n_rows: int):
                        len(chunk_nnz), int(chunk), int(n_rows),
                        _p(row_ptr, _I32P), _p(perm, _I32P))
     return row_ptr, perm
+
+
+def _sym_normalize_inputs(rows, cols, vals, n_rows: int):
+    rows = np.array(rows, dtype=np.int64)
+    cols = np.array(cols, dtype=np.int64)
+    vals = np.array(vals, dtype=np.float32)
+    if not len(rows) == len(cols) == len(vals):
+        raise ValueError("rows, cols and vals must have one entry per edge")
+    # the scaling indexes the degree vector with both endpoints
+    if len(cols) and (cols.max() >= n_rows or cols.min() < 0):
+        raise ValueError(
+            f"sym_normalize_edges requires a square operator: col ids "
+            f"must be in [0, {n_rows})")
+    if len(rows) and (rows.max() >= n_rows or rows.min() < 0):
+        raise ValueError(f"row ids must lie in [0, {n_rows})")
+    return rows, cols, vals
+
+
+def sym_normalize_edges(rows, cols, vals, n_rows: int):
+    """``D^-1/2 A D^-1/2`` on an edge list, ``D`` the weighted row
+    degrees (f64 sums in edge order), each value scaled in f64 and
+    rounded to f32 once. Returns new ``(rows int64, cols int64, vals
+    f32)``; the inputs are not mutated. Takes
+    :func:`sym_normalize_edges_plain` when the library cannot be built
+    (the same bits)."""
+    if not available():
+        return sym_normalize_edges_plain(rows, cols, vals, n_rows)
+    lib = _load()
+    rows, cols, vals = _sym_normalize_inputs(rows, cols, vals, n_rows)
+    deg = np.zeros(n_rows, dtype=np.float64)
+    lib.weighted_degrees(_p(rows, _I64P), _p(vals, _F32P), len(rows),
+                         n_rows, _p(deg, _F64P))
+    lib.scale_sym_norm(_p(rows, _I64P), _p(cols, _I64P), _p(vals, _F32P),
+                       len(rows), _p(_inv_sqrt(deg), _F64P))
+    return rows, cols, vals
+
+
+def sym_normalize_edges_plain(rows, cols, vals, n_rows: int):
+    """The numpy twin of :func:`sym_normalize_edges`."""
+    rows, cols, vals = _sym_normalize_inputs(rows, cols, vals, n_rows)
+    deg = np.zeros(n_rows, dtype=np.float64)
+    np.add.at(deg, rows, vals.astype(np.float64))
+    dinv = _inv_sqrt(deg)
+    return rows, cols, (vals * dinv[rows] * dinv[cols]).astype(np.float32)
+
+
+def _inv_sqrt(deg: np.ndarray) -> np.ndarray:
+    with np.errstate(divide="ignore"):
+        return np.ascontiguousarray(np.where(deg > 0, deg ** -0.5, 0.0))

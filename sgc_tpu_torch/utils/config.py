@@ -1,7 +1,8 @@
 """Experiment configuration (the counterpart of sgc_tpu/utils/config.py).
 
-``CitationConfig`` is the citation CLI's configuration and ``TextConfig``
-the text CLI's; ``tuned=True`` overrides their fields from the port's own
+``CitationConfig`` is the citation CLI's configuration, ``RedditConfig``
+the Reddit CLI's defaults (as in the reference, no module reads it) and
+``TextConfig`` the text CLI's; ``tuned=True`` overrides their fields from the port's own
 copy of the tuned table, ``sgc_tpu_torch/configs/tuned.json`` (families
 ``citation``, ``gcn`` and ``text``), as the reference's ``--tuned`` does
 with its file.
@@ -44,6 +45,18 @@ class CitationConfig:
             for k, v in load_tuned(family, self.dataset).items():
                 setattr(self, k, v)
         return self
+
+
+@dataclasses.dataclass
+class RedditConfig:
+    seed: int = 42
+    epochs: int = 2
+    weight_decay: float = 0.0
+    normalization: str = "AugNormAdj"
+    model: str = "SGC"
+    degree: int = 2
+    inductive: bool = False
+    test: bool = False
 
 
 @dataclasses.dataclass

@@ -456,6 +456,21 @@ def test_citation_run_raises_for_unported_paths(planetoid_root):
                           sharded=True, device=CPU)
 
 
+def test_citation_run_sharded_argument_error_matches_reference(
+        planetoid_root):
+    """``sharded`` with a propagator other than sgc is the reference's
+    ``ValueError``, with its message, before any "not ported"."""
+    with pytest.raises(ValueError) as want:
+        ref_citation.run(RefConfig(dataset="cora"),
+                         str(planetoid_root), propagator="appnp",
+                         sharded=True)
+    with pytest.raises(ValueError) as got:
+        port_citation.run(CitationConfig(dataset="cora"),
+                          str(planetoid_root), propagator="appnp",
+                          sharded=True, device=CPU)
+    assert str(got.value) == str(want.value)
+
+
 def test_citation_main_prints_reference_lines(planetoid_root, monkeypatch):
     monkeypatch.setattr(sys, "argv", [
         "citation", "--dataset", "citeseer", "--tuned", "--data_path",

@@ -1114,3 +1114,117 @@ def test_cuda_transformer_step_repeats_and_matches_cpu(cuda):
     assert bool(torch.isfinite(grads[0][0]).all())
     for got, want in zip(*grads):
         assert_close_rel(got, want, tol=2.0 ** -7 * 1.125)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("ordering", ["rcm", "bfs", "degree", "none",
+                                      "spectral"])
+def test_cuda_plan_under_ordering_matches_cpu(cuda, ordering, monkeypatch):
+    """``LocalityPlan.build(ordering=...)`` on the card (kernels A and B)
+    against the plain form's plan on the CPU: the same order and split,
+    the two-hop rows within 1e-5. ``eigsh`` starts from one seeded
+    vector in both builds (ARPACK's default start changes per call)."""
+    import scipy.sparse.linalg as spla
+
+    from sgc_tpu_torch.data.synthetic import synthetic_reddit_clustered
+    from sgc_tpu_torch.graph.locality import LocalityPlan
+
+    eigsh = spla.eigsh
+    monkeypatch.setattr(spla, "eigsh", lambda a, *p, **k: eigsh(
+        a, *p, v0=np.random.default_rng(0).random(a.shape[0]), **k))
+    data = synthetic_reddit_clustered(0.01, shuffle=True)
+    card = LocalityPlan.build(*data, ordering=ordering, device=cuda)
+    host = LocalityPlan.build(*data, ordering=ordering,
+                              formulation="blockdense_kernel", device="cpu")
+    assert card.formulation == "blockdense_kernel"
+    np.testing.assert_array_equal(card.order, host.order)
+    assert card.split_main.n_cells == host.split_main.n_cells
+    before = (port_bd.LAUNCHES, port_spmm.LAUNCHES)
+    got = card.propagate_train(2)
+    torch.cuda.synchronize()
+    splits = (card.split_main, card.split_final)
+    assert (port_bd.LAUNCHES > before[0]) == any(s.n_cells for s in splits)
+    assert (port_spmm.LAUNCHES > before[1]) == any(
+        s.rest is not None for s in splits)
+    assert_close_rel(got.cpu().numpy(), host.propagate_train(2).numpy())
+
+
+@pytest.mark.cuda
+def test_cuda_spectral_on_pubmed_shape(cuda, tmp_path):
+    """``ordering="spectral"`` on the Pubmed-shape Planetoid fixture
+    (19,717 nodes), the size the smoke leaves out for its time budget:
+    the largest component's shift-invert ``eigsh`` converges, the order
+    differs from RCM's, and the plan's two hops on the card (kernels A
+    and B) equal the plain form's two hops of the same plan within
+    1e-5. Prints the eigensolves' seconds (run with ``-s``)."""
+    import time
+
+    import scipy.sparse.linalg as spla
+
+    from sgc_tpu_torch.data.fixtures import PUBMED, write_planetoid
+    from sgc_tpu_torch.data.planetoid import load_citation
+    from sgc_tpu_torch.graph.locality import LocalityPlan
+    from sgc_tpu_torch.graph.reorder import rcm_order
+
+    write_planetoid(tmp_path, "pubmed", **PUBMED, seed=42)
+    ds = load_citation("pubmed", data_path=tmp_path, device="cpu")
+    calls, eigsh = [], spla.eigsh
+
+    def recorded(a, *pos, **kw):
+        t0 = time.perf_counter()
+        try:
+            out = eigsh(a, *pos, **kw)
+        except Exception:
+            calls.append((a.shape[0], False, time.perf_counter() - t0))
+            raise
+        calls.append((a.shape[0], True, time.perf_counter() - t0))
+        return out
+
+    spla.eigsh = recorded
+    try:
+        plan = LocalityPlan.build(ds.graph, ds.features.numpy(),
+                                  ds.labels.numpy(), ds.idx_train,
+                                  ordering="spectral", device=cuda)
+    finally:
+        spla.eigsh = eigsh
+    largest = max(calls)
+    print(f"spectral on the Pubmed shape: {len(calls)} eigsh calls, "
+          f"largest component {largest[0]} nodes in {largest[2]:.1f} s, "
+          f"order_s {plan.prep_seconds['order_s']:.1f}")
+    assert largest[1], "the largest component's eigsh failed"
+    assert not np.array_equal(plan.order,
+                              rcm_order(ds.graph.to_scipy().tocsr()))
+    assert plan.formulation == "blockdense_kernel"
+    x = torch.as_tensor(plan.features, device=cuda)
+    got = plan.propagate_train(2)
+    a_main, a_final = plan._device_args()
+    want = port_bd.spmm_block_dense(
+        plan.split_final, port_bd.spmm_block_dense(
+            plan.split_main, x, a_main, "f32"), a_final, "f32")
+    assert_close_rel(got.cpu().numpy(), want.cpu().numpy())
+
+
+@pytest.mark.cuda
+def test_cuda_block_diag_blocks_equal_members(cuda, tmp_path):
+    """Kernel B over a block-diagonal batch: each block bit-equal to its
+    member's own product at F = 500, and the batch saved and loaded gives
+    the same bits."""
+    from sgc_tpu_torch.graph.sparse import block_diag, load_graph, save_graph
+
+    members, xs = [], []
+    for k, n in enumerate((700, 1, 1500, 333)):
+        rows, cols, vals = community_coo(20 + k, max(n, 1), 1, 0, 0, 4 * n)
+        members.append(PortGraph.from_coo(rows % n, cols % n, vals, n, n))
+        xs.append(torch.from_numpy(np.random.default_rng(k).standard_normal(
+            (n, 500)).astype(np.float32)))
+    batch, offsets = block_diag(members)
+    xb = torch.cat(xs).to(cuda)
+    out = port_spmm.spmm_segment(batch.to(cuda), xb)
+    assert_close_rel(out.cpu().numpy(), port_spmm.spmm_segment(
+        batch.to("cpu"), xb.cpu()).numpy())
+    for k, (g, x) in enumerate(zip(members, xs)):
+        own = port_spmm.spmm_segment(g.to(cuda), x.to(cuda))
+        assert torch.equal(out[offsets[k]:offsets[k + 1]], own)
+    save_graph(tmp_path / "batch", batch)
+    loaded = load_graph(tmp_path / "batch")
+    assert torch.equal(port_spmm.spmm_segment(loaded.to(cuda), xb), out)

@@ -210,9 +210,22 @@ def test_reference_lpa_guard_restores_the_native_solver(monkeypatch,
 
 
 def test_reorder_rejects_unported_orderings(clustered):
-    g, f, l, i = clustered[1]
-    with pytest.raises(NotImplementedError, match="rcm"):
-        port_reorder.reorder_graph_arrays(g, "rcm", f, l, i)
+    """Every ordering of the reference is ported: "rcm" gives the
+    reference's arrays; a name outside ``ORDERINGS`` is rejected with the
+    reference's ``ValueError``."""
+    ref, port = clustered
+    got = port_reorder.reorder_graph_arrays(port[0], "rcm", *port[1:])
+    want = ref_reorder.reorder_graph_arrays(ref[0], "rcm", *ref[1:])
+    for f in ("rows", "cols", "vals"):
+        np.testing.assert_array_equal(getattr(got[0], f),
+                                      np.asarray(getattr(want[0], f)))
+    for a, b in zip(got[1:], want[1:]):
+        np.testing.assert_array_equal(a, b)
+    with pytest.raises(ValueError) as want_err:
+        ref_reorder.reorder_graph_arrays(ref[0], "metis", *ref[1:])
+    with pytest.raises(ValueError) as got_err:
+        port_reorder.reorder_graph_arrays(port[0], "metis", *port[1:])
+    assert str(got_err.value) == str(want_err.value)
 
 
 @pytest.mark.parametrize("super_rows,group_cells,min_edges", [

@@ -66,7 +66,7 @@ print(",".join(sorted(n for n in sys.modules if n.split(".")[0] in
 
 def _entry_points():
     from sgc_tpu_torch.cli import citation, crossval, reddit, sweep, tuning
-    from sgc_tpu_torch.cli import sequence, serve, textsgc
+    from sgc_tpu_torch.cli import pallas_bench, sequence, serve, textsgc
     from sgc_tpu_torch.cli import word2vec as w2v_cli
     from sgc_tpu_torch.data.textcorpus import load_corpus
     from sgc_tpu_torch.data.planetoid import load_citation
@@ -101,6 +101,10 @@ def _entry_points():
         "LocalityPlan.build onehot": lambda: LocalityPlan.build(
             g, feats, np.zeros(2, np.int32), np.arange(2),
             formulation="onehot"),
+        "LocalityPlan.build rcm": lambda: LocalityPlan.build(
+            g, feats, np.zeros(2, np.int32), np.arange(2), ordering="rcm"),
+        "cli.pallas_bench.run": lambda: pallas_bench.run(
+            pallas_bench.parser().parse_args([])),
         "measured_rates": lambda: measured_rates(),
         "require_cuda_kernels": lambda: require_cuda_kernels(),
         "init_sgc xavier_normal": lambda: init_sgc(
@@ -163,7 +167,8 @@ def _entry_points():
     "InferenceEngine inductive", "load_params", "cli.serve.run_bench",
     "init_transformer", "train_sequence_classifier", "cli.sequence.run",
     "Word2Vec.train", "cli.word2vec.run", "WordEmbedder torch",
-    "finetune_pretrained"])
+    "finetune_pretrained", "LocalityPlan.build rcm",
+    "cli.pallas_bench.run"])
 def test_default_device_raises_without_cuda(monkeypatch, name):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA"):

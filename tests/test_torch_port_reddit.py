@@ -205,9 +205,18 @@ def test_reddit_locality_features_match_plain_path(clustered_root):
 
 
 def test_reddit_run_raises_for_unported_paths(clustered_root):
+    """The reference's argument errors come first, with its messages;
+    only a valid ``sharded=True`` call raises "not ported"."""
     root, _ = clustered_root
+    for bad in (dict(formulation="segment"),
+                dict(locality=True, sharded=True)):
+        with pytest.raises(ValueError) as want:
+            ref_reddit.run(data_path=str(root), **bad)
+        with pytest.raises(ValueError) as got:
+            port_reddit.run(data_path=str(root), device=CPU, **bad)
+        assert str(got.value) == str(want.value), bad
     with pytest.raises(NotImplementedError, match="item 8"):
         port_reddit.run(data_path=str(root), sharded=True, device=CPU)
     with pytest.raises(NotImplementedError, match="item 8"):
-        port_reddit.run(data_path=str(root), formulation="segment",
-                        device=CPU)
+        port_reddit.run(data_path=str(root), sharded=True,
+                        formulation="segment", device=CPU)
