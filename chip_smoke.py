@@ -35,7 +35,28 @@ its block-dense hops under ``device_trace`` (``prep_attribution``: the
 host's top 10 leaves, the top 5 device ops); ``roofline_report`` on
 the main split holds its bytes to kernel A's and kernel B's counts in
 the kernels line (``roofline``; every bound and count comes from
-``sgc_tpu_torch/ops/roofline.py``). Then the single-device remainder,
+``sgc_tpu_torch/ops/roofline.py``). Then the sharded path
+(``sgc_tpu_torch.parallel``) on the main path's plan-order graph, each
+rank zeroing its counters just before a run and reading them just
+after:
+
+    sharded_path: partition_graph(P = 4), build_halo(overlap=True) and
+                  build_sharded_blockdense at the committed admission, and
+                  P = 2 and 1 plans, written under build/ for the ranks;
+                  4 ranks on cuda:0 over gloo (parallel.distributed.launch:
+                  spawn, a file:// store): all-gather, halo, overlapped
+                  halo, block-dense at "f32" and "bf16", edge_chunk and
+                  col_chunk on mesh (4, 1) and halo on (2, 2), every kernel
+                  A and B launch held against its plain version and each
+                  form's fetch_global against two kernel-B hops on one
+                  device; validate_exchange clean and faulted;
+                  assert_deterministic; 8 Adam steps on (2, 2) against
+                  (1, 1); measure_spmm_scaling (P ranks on one card, gloo
+                  over host: not a scaling figure); an NCCL world of one
+                  rank whose block-dense hop and train step equal a gloo
+                  mesh's bit for bit
+
+Then the single-device remainder,
 counters zeroed just before each run and read just after:
 
     ordering_path:    LocalityPlan.build(ordering=rcm | bfs | degree |
@@ -2717,6 +2738,222 @@ def phase_text_baselines(args, device, reps) -> dict:
             "seq_width": out["sequence_path"]["width"]}
 
 
+SHARDED_EDGE_CHUNK = 1 << 20      # edges per kernel-B launch (edge_chunk)
+SHARDED_COL_CHUNK = 256           # feature columns per panel (col_chunk)
+SHARDED_STEPS = 8                 # Adam steps of the sharded head
+SHARDED_LR, SHARDED_WD = 0.2, 5e-6    # the reference's fit_sharded defaults
+SHARDED_TRANSPORT = "gloo, through pinned host memory; 4 ranks on cuda:0"
+# the forms of the 4-rank world: (name, mesh, plan, hop keywords, the
+# reference file and tolerance of the gathered rows, timed); every form's
+# launches are held and its rows gathered, the phase's budget times four
+SHARDED_FORMS = (
+    ("allgather", (4, 1), "allgather", {}, "segment", TOLERANCE, True),
+    ("halo", (4, 1), "halo", {}, "segment", TOLERANCE, True),
+    ("overlap", (4, 1), "overlap", {}, "segment", TOLERANCE, True),
+    ("blockdense_f32", (4, 1), "blockdense", {"precision": "f32"},
+     "blockdense", TOLERANCE, True),
+    ("blockdense_bf16", (4, 1), "blockdense", {"precision": "bf16"},
+     "blockdense", BF16_TOLERANCE, False),
+    ("edge_chunk", (4, 1), "overlap", {"edge_chunk": SHARDED_EDGE_CHUNK},
+     "segment", TOLERANCE, False),
+    ("col_chunk", (4, 1), "halo", {"col_chunk": SHARDED_COL_CHUNK},
+     "segment", TOLERANCE, False),
+    ("halo_2x2", (2, 2), "halo", {}, "segment", TOLERANCE, False),
+)
+
+
+def sharded_host_work(root, graph, features, device, f) -> dict:
+    """The parent's part of ``sharded_path``: the plans at P = 4 (with the
+    block-dense plan at the committed admission), 2 and 1 written for the
+    ranks, and the two single-device references (two kernel-B hops over
+    the graph, and over the operator the block-dense plan computes).
+    Returns the plan's stats under the reference bench's keys."""
+    import numpy as np
+    import torch
+
+    from sgc_tpu_torch.ops.spmm import spmm_segment
+    from sgc_tpu_torch.parallel.bodies import (
+        blockdense_operator_vals,
+        write_plans,
+    )
+    from sgc_tpu_torch.parallel.halo import halo_stats
+
+    t0 = time.perf_counter()
+    built = write_plans(root, graph, {4: True, 2: False, 1: False},
+                        n_features=f)
+    pg, ho, bd = built["plans"][4]
+    secs = built["seconds"][4]
+    plan = {"n_parts": 4, "dense_fraction": bd.dense_fraction,
+            "n_cells": bd.n_cells,
+            "cells_interior_width": int(bd.cells_int.shape[1]),
+            "cells_boundary_width": int(bd.cells_bnd.shape[1]),
+            "cells_interior_per_part": bd.part_cells_int.tolist(),
+            "cells_boundary_per_part": bd.part_cells_bnd.tolist(),
+            "halo_width": ho.halo_width, "halo_stats": halo_stats(pg),
+            "build_s": secs["partition_s"] + secs["halo_s"]
+            + secs["blockdense_s"],
+            "partition_s": secs["partition_s"], "halo_s": secs["halo_s"],
+            "cells_s": secs["blockdense_s"], "write_s": secs["write_s"],
+            "p2": built["seconds"][2], "p1": built["seconds"][1]}
+    g = graph.to(device)
+    x = torch.as_tensor(features, device=device)
+    np.save(os.path.join(root, "ref_segment.npy"),
+            spmm_segment(g, spmm_segment(g, x)).cpu().numpy())
+    g = graph.with_vals(blockdense_operator_vals(graph, pg, ho,
+                                                 bd)).to(device)
+    np.save(os.path.join(root, "ref_blockdense.npy"),
+            spmm_segment(g, spmm_segment(g, x)).cpu().numpy())
+    plan["host_s"] = time.perf_counter() - t0
+    return plan
+
+
+def phase_sharded_path(data, device, card, seed, reps) -> dict:
+    """The sharded path on the main path's plan-order graph (F = 602, 41
+    classes): host plans at P = 4 (partition, overlapped halo, block-dense
+    at the committed admission), 2 and 1 (``sharded_host_work``); a world
+    of 4 ranks on the card over gloo running every form of
+    ``SHARDED_FORMS`` (each launch held against its plain version, the
+    gathered rows against two kernel-B hops on one device),
+    validate_exchange, assert_deterministic, 8 train steps on (2, 2)
+    against (1, 1), measure_spmm_scaling; and an NCCL world of one rank
+    against gloo, which runs while the plans are built. The counters are
+    the ranks': each rank zeroes them just before a form's held run and
+    reads them just after."""
+    import concurrent.futures
+    import shutil
+
+    import numpy as np
+    import torch
+
+    from sgc_tpu_torch.parallel.bodies import (
+        smoke_world,
+        smoke_world_of_one,
+        write_inputs,
+    )
+    from sgc_tpu_torch.parallel.distributed import launch
+    from sgc_tpu_torch.utils.buildcache import clear_placed
+
+    graph, features, labels, idx_train = data
+    clear_placed()
+    torch.cuda.empty_cache()
+    t_phase = time.perf_counter()
+    root = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build",
+                        "chip_smoke_sharded")
+    shutil.rmtree(root, ignore_errors=True)
+    rng = np.random.default_rng(seed)
+    f, c = int(features.shape[1]), int(labels.max()) + 1
+    bound = 1.0 / np.sqrt(f)
+    state = {"w": rng.uniform(-bound, bound, (f, c)).astype(np.float32),
+             "b": rng.uniform(-bound, bound, c).astype(np.float32),
+             "count": 0, "mu_w": np.zeros((f, c), np.float32),
+             "nu_w": np.zeros((f, c), np.float32),
+             "mu_b": np.zeros(c, np.float32), "nu_b": np.zeros(c, np.float32)}
+    cfg = {"degree": 2, "tolerance": TOLERANCE, "state": state,
+           "steps": SHARDED_STEPS, "lr": SHARDED_LR,
+           "weight_decay": SHARDED_WD, "scaling_repeats": 1,
+           "reps": reps,
+           "forms": [{"name": n, "mesh": list(m), "plan": pl, "kw": kw,
+                      "ref": f"ref_{ref}.npy", "ref_tolerance": tol,
+                      "timed": timed,
+                      **({"keep": True} if n == "halo" else {}),
+                      **({"same_bits_as": "halo"} if n == "col_chunk"
+                         else {})}
+                     for n, m, pl, kw, ref, tol, timed in SHARDED_FORMS]}
+    try:
+        t0 = time.perf_counter()
+        write_inputs(root, graph, features, labels, idx_train)
+        inputs_s = time.perf_counter() - t0
+        # both worlds start now; the 4 ranks import, join their group and
+        # wait for the "ready" marker while this process builds the plans
+        # and the NCCL world of one rank runs (its own P = 1 plan), so no
+        # timed run shares the card with either
+        with concurrent.futures.ThreadPoolExecutor(2) as pool:
+            t_world, t_world_unix = time.perf_counter(), time.time()
+            pending = pool.submit(launch, smoke_world, 4, "gloo",
+                                  os.path.join(root, "init"), (root, cfg),
+                                  420)
+            pending_one = pool.submit(
+                launch, smoke_world_of_one, 1, "nccl",
+                os.path.join(root, "init1"), (root, cfg), 300)
+            try:
+                host = sharded_host_work(root, graph, features, device, f)
+                one = pending_one.result()[0]
+            except BaseException:
+                # the waiting ranks see this and stop at once
+                open(os.path.join(root, "abort"), "w").close()
+                raise
+            one_s = time.perf_counter() - t_world
+            open(os.path.join(root, "ready"), "w").close()
+            ranks = pending.result()
+            world_s = time.perf_counter() - t_world
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    plan = {**host, "inputs_write_s": inputs_s}
+
+    forms, launches, worst = {}, {}, {}
+    for n, *_ in SHARDED_FORMS:
+        per_rank = [r["forms"][n] for r in ranks]
+        errs = {}
+        for rec in per_rank:
+            for k, (a, r) in rec["vs_plain"].items():
+                pa, pr = errs.get(k, (0.0, 0.0))
+                errs[k] = (max(pa, a), max(pr, r))
+                wa = worst.get(k, 0.0)
+                worst[k] = max(wa, a)
+        timed = per_rank[0]["hops_s"] is not None
+        forms[n] = {
+            "hops_s": max(rec["hops_s"] for rec in per_rank) if timed
+            else None,
+            "hops_s_per_rank": [rec["hops_s"] for rec in per_rank],
+            "exchange_ms": max(rec["exchange_ms"] for rec in per_rank)
+            if timed else None,
+            "sections_s_per_rank": [rec["sections_s"] for rec in per_rank],
+            "launches_per_rank": [rec["launches"] for rec in per_rank],
+            "held_launches_per_rank": [rec["held_launches"]
+                                       for rec in per_rank],
+            "vs_plain": {k: {"max_abs_err": a, "rel_err": r}
+                         for k, (a, r) in errs.items()},
+            "gathered": dict(zip(("max_abs_err", "rel_err"),
+                                 ranks[0]["gathered"][n])),
+            "transport": SHARDED_TRANSPORT}
+        if "same_bits" in per_rank[0]:
+            forms[n]["same_bits_as_halo"] = all(rec["same_bits"]
+                                                for rec in per_rank)
+            if not forms[n]["same_bits_as_halo"]:
+                raise AssertionError("col_chunk hop differs from the "
+                                     "unpaneled one")
+        launches[n] = {k: sum(rec["launches"][k] for rec in per_rank)
+                       for k in per_rank[0]["launches"]}
+        uses = ("blockdense_cells", "csr_spmm") if n.startswith(
+            "blockdense") else ("csr_spmm",)
+        for k in uses:
+            if min(rec["launches"][k] for rec in per_rank) <= 0:
+                raise AssertionError(f"sharded {n}: a rank never launched "
+                                     f"{k}: {forms[n]['launches_per_rank']}")
+    launches["nccl_world_of_one"] = one["nccl"]["launches"]
+    phase_s = time.perf_counter() - t_phase
+    emit({"phase": "sharded_path", "nvidia_smi": card,
+          "transport": SHARDED_TRANSPORT,
+          "sharded_blockdense_plan": plan, "forms": forms,
+          "kernels_per_rank": [r["kernels"] for r in ranks],
+          "validate_exchange": {"deltas_max": ranks[0]["deltas_max"],
+                                "fault": ranks[0]["fault"]},
+          "train": {"mesh": [2, 2], "steps": SHARDED_STEPS,
+                    "train_s": max(r["train_s"] for r in ranks),
+                    **ranks[0]["train"], "transport": SHARDED_TRANSPORT},
+          "nccl_world_of_one": {**one, "transport": "nccl, 1 rank"},
+          "scaling": {**ranks[0]["scaling"],
+                      "label": "P ranks on one card, gloo over host; not a "
+                               "scaling figure"},
+          "sections_s_per_rank": [r["sections_s"] for r in ranks],
+          "rank_start_s": max(r["started_unix"] for r in ranks)
+          - t_world_unix,
+          "world_s": world_s, "world_of_one_s": one_s, "phase_s": phase_s})
+    log(f"sharded_path: {phase_s:.1f}s ({ranks[0]['scaling_line']}; P "
+        "ranks on one card, gloo over host)")
+    return {"launches": launches, "max_abs_err": worst}
+
+
 ORDERINGS_ON_REDDIT = ("rcm", "bfs", "degree", "none")
 
 
@@ -3190,6 +3427,9 @@ def main() -> int:
     phase_calibrate(device)
     main = phase_main_path(args, device)
     data = main.pop("data")
+    plan = main["plan"]
+    sharded_data = (plan.graph, plan.features, plan.labels, plan.idx_train)
+    del plan
     phase_prep_attribution(data, main, device)
     phase_calibrated_path(data, main.pop("tr"), device)
     onehot = phase_onehot_path(data, device)
@@ -3207,11 +3447,15 @@ def main() -> int:
     del shuffled
     phase_dispatcher(onehot, args.reps)
     del onehot
+    sharded = phase_sharded_path(sharded_data, device, card, args.seed,
+                                 args.reps)
+    del sharded_data
     gat_reddit = phase_gat_reddit(data, device, args.reps)
     t_new = time.perf_counter()
     orderings = phase_ordering_path(data, lpa_rows, device, args.reps)
     by_path = {"ordering_path": orderings["launches"]}
     del data, lpa_rows
+    by_path["sharded_path"] = sharded["launches"]
     by_path["graph_store"] = phase_graph_store(device, args.reps)
     by_path["kernel_bench_cli"] = phase_kernel_bench_cli()
     phase_devices_cli()
@@ -3239,9 +3483,11 @@ def main() -> int:
                              for F, w in gat_reddit["widths"].items()}
     rows[0]["max_abs_err"] = max(
         rows[0]["max_abs_err"], text["kernel_a_2048"]["max_abs_err"],
-        orderings["max_abs_err"]["blockdense_cells"])
+        orderings["max_abs_err"]["blockdense_cells"],
+        sharded["max_abs_err"]["blockdense_cells"])
     rows[1]["max_abs_err"] = max([rows[1]["max_abs_err"],
-                                  orderings["max_abs_err"]["csr_spmm"]] + [
+                                  orderings["max_abs_err"]["csr_spmm"],
+                                  sharded["max_abs_err"]["csr_spmm"]] + [
         w["max_abs_err"] for w in list(text["kernel_b_widths"].values())
         + list(baselines["w2v_widths"].values()) + [baselines["seq_width"]]])
     rows[0]["text_2048"] = {k: text["kernel_a_2048"][k] for k in (

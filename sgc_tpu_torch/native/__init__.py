@@ -5,11 +5,14 @@ at first use into ``build/sgc_tpu_torch/`` (utils/buildlib.py). Only the
 calls the ported paths use are bound: ``sort_edges``,
 ``row_ptr_from_sorted``, ``coalesce``, ``lpa_labels``, ``cell_scatter``
 (block-dense split), ``tile_fill`` (the tiled one-hot layout),
-``slot_row_index`` (kernel C's row index of that layout, the port's own)
-and ``sym_normalize_edges``.
+``slot_row_index`` (kernel C's row index of that layout, the port's own),
+``sym_normalize_edges`` and, for the sharded path, ``edge_counts``,
+``partition_edges`` and ``sort_edges_inplace``.
 
-Only ``sym_normalize_edges`` has a numpy twin, which it takes when the
-library cannot be built: the twin gives the same bits. Every other call
+``sym_normalize_edges`` has a numpy twin, which it takes when the
+library cannot be built: the twin gives the same bits. The three
+partitioning entries have numpy twins with the same bits too
+(``*_plain``), which the tests hold them against. Every other call
 raises without the library. The reference falls back silently (to a
 synchronous numpy LPA, among others), and that fallback reaches a
 different LPA fixpoint, so a different ordering, split and dense
@@ -76,6 +79,11 @@ def _load():
     lib.weighted_degrees.restype = ctypes.c_int
     lib.scale_sym_norm.argtypes = [_I64P, _I64P, _F32P, _I64, _F64P]
     lib.scale_sym_norm.restype = ctypes.c_int
+    lib.partition_count.argtypes = [_I64P, _I64, _I64, _I64, _I64P]
+    lib.partition_count.restype = ctypes.c_int
+    lib.partition_fill.argtypes = [_I64P, _I64P, _F32P, _I64, _I64, _I64,
+                                   _I64, _I32P, _I32P, _F32P]
+    lib.partition_fill.restype = ctypes.c_int
     _lib = lib
     return lib
 
@@ -103,6 +111,112 @@ def sort_edges(rows, cols, vals, n_rows: int, n_cols: int):
     lib.sort_edges_by_row_col(_p(rows, _I64P), _p(cols, _I64P),
                               _p(vals, _F32P), len(rows), n_rows, n_cols)
     return rows, cols, vals
+
+
+def _check_sort_buffers(rows, cols, vals) -> None:
+    for name, a, dt in (("rows", rows, np.int64), ("cols", cols, np.int64),
+                        ("vals", vals, np.float32)):
+        if (a.dtype != dt or not a.flags.c_contiguous
+                or not a.flags.writeable):
+            raise ValueError(f"{name} must be a writeable contiguous "
+                             f"{dt.__name__} array")
+    if not len(rows) == len(cols) == len(vals):
+        raise ValueError("rows, cols and vals must have one entry per edge")
+
+
+def sort_edges_inplace(rows, cols, vals, n_rows: int, n_cols: int) -> None:
+    """Sort COO edges by (row, col) in place with the parallel radix sort
+    (stable: duplicates keep their order). The caller owns the buffers:
+    contiguous int64 / int64 / f32 arrays, never copied."""
+    lib = _load()
+    _check_sort_buffers(rows, cols, vals)
+    lib.sort_edges_by_row_col(_p(rows, _I64P), _p(cols, _I64P),
+                              _p(vals, _F32P), len(rows), n_rows, n_cols)
+
+
+def sort_edges_inplace_plain(rows, cols, vals, n_rows: int,
+                             n_cols: int) -> None:
+    """The numpy twin of :func:`sort_edges_inplace` (a stable lexsort)."""
+    _check_sort_buffers(rows, cols, vals)
+    order = np.lexsort((cols, rows))
+    rows[:] = rows[order]
+    cols[:] = cols[order]
+    vals[:] = vals[order]
+
+
+def _part_rows(rows, n_parts: int, rows_per_part: int) -> np.ndarray:
+    rows = np.ascontiguousarray(rows, dtype=np.int64)
+    if n_parts < 1 or rows_per_part < 1:
+        raise ValueError("n_parts and rows_per_part must be >= 1")
+    if len(rows) and rows.min() < 0:
+        raise ValueError("row ids must be >= 0")
+    return rows
+
+
+def edge_counts(rows, n_parts: int, rows_per_part: int) -> np.ndarray:
+    """int64 edge count of each contiguous block of ``rows_per_part``
+    rows; rows past the last block count in the last."""
+    lib = _load()
+    rows = _part_rows(rows, n_parts, rows_per_part)
+    out = np.zeros(n_parts, dtype=np.int64)
+    lib.partition_count(_p(rows, _I64P), len(rows), n_parts, rows_per_part,
+                        _p(out, _I64P))
+    return out
+
+
+def edge_counts_plain(rows, n_parts: int, rows_per_part: int) -> np.ndarray:
+    """The numpy twin of :func:`edge_counts`."""
+    rows = _part_rows(rows, n_parts, rows_per_part)
+    part = np.minimum(rows // rows_per_part, n_parts - 1)
+    return np.bincount(part, minlength=n_parts).astype(np.int64)
+
+
+def _partition_inputs(rows, cols, vals, n_parts, rows_per_part, e_max,
+                      n_cols):
+    rows = _part_rows(rows, n_parts, rows_per_part)
+    cols = np.ascontiguousarray(cols, dtype=np.int64)
+    vals = np.ascontiguousarray(vals, dtype=np.float32)
+    if not len(rows) == len(cols) == len(vals):
+        raise ValueError("rows, cols and vals must have one entry per edge")
+    if len(rows) and int(edge_counts_plain(rows, n_parts,
+                                           rows_per_part).max()) > e_max:
+        raise ValueError(f"a part holds more than e_max={e_max} edges")
+    return (rows, cols, vals,
+            np.full((n_parts, e_max), rows_per_part - 1, dtype=np.int32),
+            np.full((n_parts, e_max), max(n_cols - 1, 0), dtype=np.int32),
+            np.zeros((n_parts, e_max), dtype=np.float32))
+
+
+def partition_edges(rows, cols, vals, n_parts: int, rows_per_part: int,
+                    e_max: int, n_cols: int):
+    """Scatter edges into the padded ``[n_parts, e_max]`` layout of a
+    partitioned graph, each part's edges in input order: block-local
+    rows, global columns, values. Padding edges are (row
+    ``rows_per_part - 1``, col ``n_cols - 1``, val 0). Returns ``(rows
+    int32, cols int32, vals f32)``."""
+    lib = _load()
+    rows, cols, vals, p_rows, p_cols, p_vals = _partition_inputs(
+        rows, cols, vals, n_parts, rows_per_part, e_max, n_cols)
+    lib.partition_fill(_p(rows, _I64P), _p(cols, _I64P), _p(vals, _F32P),
+                       len(rows), n_parts, rows_per_part, e_max,
+                       _p(p_rows, _I32P), _p(p_cols, _I32P),
+                       _p(p_vals, _F32P))
+    return p_rows, p_cols, p_vals
+
+
+def partition_edges_plain(rows, cols, vals, n_parts: int,
+                          rows_per_part: int, e_max: int, n_cols: int):
+    """The numpy twin of :func:`partition_edges`."""
+    rows, cols, vals, p_rows, p_cols, p_vals = _partition_inputs(
+        rows, cols, vals, n_parts, rows_per_part, e_max, n_cols)
+    part = np.minimum(rows // rows_per_part, n_parts - 1)
+    for p in range(n_parts):
+        sel = part == p
+        k = int(sel.sum())
+        p_rows[p, :k] = rows[sel] - p * rows_per_part
+        p_cols[p, :k] = cols[sel]
+        p_vals[p, :k] = vals[sel]
+    return p_rows, p_cols, p_vals
 
 
 def row_ptr_from_sorted(rows, n_rows: int) -> np.ndarray:

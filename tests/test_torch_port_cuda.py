@@ -1228,3 +1228,56 @@ def test_cuda_block_diag_blocks_equal_members(cuda, tmp_path):
     save_graph(tmp_path / "batch", batch)
     loaded = load_graph(tmp_path / "batch")
     assert torch.equal(port_spmm.spmm_segment(loaded.to(cuda), xb), out)
+
+
+@pytest.mark.cuda
+def test_cuda_sharded_blockdense_hop_on_two_ranks(cuda, tmp_path):
+    """Two ranks on the card over gloo: one block-dense hop at "f32",
+    each kernel A and B launch held against its plain version at 1e-5,
+    the gathered hop against the plain forms on one device; then an NCCL
+    world of one rank, its (1, 1) hop and train step bit-equal to a gloo
+    mesh's."""
+    import scipy.sparse as sp
+
+    from sgc_tpu_torch.parallel.bodies import (
+        held_hop_check,
+        smoke_world_of_one,
+        write_inputs,
+        write_plans,
+    )
+    from sgc_tpu_torch.parallel.distributed import launch
+
+    rows, cols, vals = community_coo(31, 3000, 512, 4, 60000, 40000)
+    a = sp.coo_matrix((np.abs(vals), (rows, cols)), shape=(3000, 3000))
+    g = PortGraph.from_scipy(a.tocsr())
+    x = np.random.default_rng(5).standard_normal((3000, 96)).astype(
+        np.float32)
+    write_inputs(tmp_path / "plans", g, x, np.arange(3000) % 3,
+                 np.arange(0, 3000, 3))
+    built = write_plans(tmp_path / "plans", g, {2: True}, n_features=96,
+                        min_edges=2000.0)
+    bd = built["plans"][2][2]
+    assert bd.part_cells_int.min() > 0 and bd.sparse_edges > 0
+    out = launch(held_hop_check, 2, "gloo", tmp_path / "init",
+                 args=(str(tmp_path / "plans"), 2, "f32"), timeout_s=300)
+    for r in out:
+        assert r["same_bits"] and r["kernels"] == ["blockdense_cells",
+                                                   "csr_spmm"]
+        if torch.cuda.device_count() < 2:
+            assert "NCCL refuses two ranks" in r["nccl_refused"]
+        assert r["device"] == "cuda:0"
+        for name, (_, rel) in r["worst"].items():
+            assert rel <= TOL, f"{name}: {rel:.3e}"
+    xt = torch.from_numpy(x)
+    want = port_spmm.spmm_segment(g.to("cpu"), xt).numpy()
+    assert_close_rel(out[0]["out"][:3000], want, tol=1e-2)
+    state = {"w": np.full((96, 3), 0.01, np.float32),
+             "b": np.zeros(3, np.float32), "count": 0,
+             **{k: np.zeros(s, np.float32) for k, s in (
+                 ("mu_w", (96, 3)), ("nu_w", (96, 3)), ("mu_b", 3),
+                 ("nu_b", 3))}}
+    one = launch(smoke_world_of_one, 1, "nccl", tmp_path / "init1",
+                 args=(str(tmp_path / "plans"), {
+                     "state": state, "degree": 2, "lr": 0.2,
+                     "weight_decay": 0.0}), timeout_s=300)[0]
+    assert one["same_bits"] == {"hop": True, "train": True}
