@@ -55,6 +55,27 @@ after:
                   over host: not a scaling figure); an NCCL world of one
                   rank whose block-dense hop and train step equal a gloo
                   mesh's bit for bit
+    sharded_training_path:
+                  on sharded_path's plans and inputs, one 4-rank gloo
+                  world on cuda:0: fit_sharded on (2, 2) (the auto
+                  formulation, block-dense), Adam epochs checkpointed and
+                  resumed bit for bit, the Newton trainer against the
+                  single-device Newton fit, the staged form (mmap_rows)
+                  bit for bit the ndarray form; fit_gcn_sharded on (4, 1)
+                  through the halo plan against the single-device GCN
+                  from the same parameters, then steps through the
+                  block-dense plan with every kernel A and B launch of
+                  one step, forward and backward (the transposed cell
+                  plan and remainders), held against its plain version;
+                  inductive_dual_propagate on the full and train graphs,
+                  segment and block-dense, against single-device kernel-B
+                  hops; beside it an NCCL world of one rank whose
+                  fit_sharded equals a gloo mesh's bit for bit;
+                  InferenceEngine(shard_store=True), f32 and int8, bit for
+                  bit the unsharded engine; and the entry points as
+                  processes: cli.reddit --sharded --inductive,
+                  cli.citation --sharded (SGC and GCN), cli.scaling and
+                  cli.dist_demo
 
 Then the single-device remainder,
 counters zeroed just before each run and read just after:
@@ -2859,6 +2880,7 @@ def phase_sharded_path(data, device, card, seed, reps) -> dict:
                       **({"same_bits_as": "halo"} if n == "col_chunk"
                          else {})}
                      for n, m, pl, kw, ref, tol, timed in SHARDED_FORMS]}
+    done = False
     try:
         t0 = time.perf_counter()
         write_inputs(root, graph, features, labels, idx_train)
@@ -2886,8 +2908,11 @@ def phase_sharded_path(data, device, card, seed, reps) -> dict:
             open(os.path.join(root, "ready"), "w").close()
             ranks = pending.result()
             world_s = time.perf_counter() - t_world
+        done = True
     finally:
-        shutil.rmtree(root, ignore_errors=True)
+        # the plans and inputs stay for sharded_training_path
+        if not done:
+            shutil.rmtree(root, ignore_errors=True)
     plan = {**host, "inputs_write_s": inputs_s}
 
     forms, launches, worst = {}, {}, {}
@@ -2951,7 +2976,366 @@ def phase_sharded_path(data, device, card, seed, reps) -> dict:
           "world_s": world_s, "world_of_one_s": one_s, "phase_s": phase_s})
     log(f"sharded_path: {phase_s:.1f}s ({ranks[0]['scaling_line']}; P "
         "ranks on one card, gloo over host)")
-    return {"launches": launches, "max_abs_err": worst}
+    return {"launches": launches, "max_abs_err": worst, "root": root}
+
+
+TRAINING_EPOCHS = 20              # Adam epochs of the sharded SGC fit
+TRAINING_SAVE_EVERY = 10          # checkpoint period (the resumed half)
+TRAINING_LR, TRAINING_WD = 0.2, 5e-6  # fit_sharded's defaults
+TRAINING_ONE_EPOCHS = 5           # the NCCL world of one's fit
+GCN_SMOKE = {"hidden": 16, "epochs": 5, "bd_steps": 3, "lr": 0.01,
+             "weight_decay": 5e-4, "precision": "bf16"}
+SHARD_STORE_BATCHES, SHARD_STORE_BATCH = 8, 1024
+TRAINING_CLI_REDDIT_SCALE = 0.1   # the cli.reddit fixture's fraction
+TRAINING_TRANSPORT = ("gloo, through pinned host memory; 4 ranks on "
+                      "cuda:0")
+
+
+def gcn_init(f, hidden, c, seed) -> dict:
+    """A two-layer GCN's parameters drawn with numpy from ``seed``, each
+    layer U(-1/sqrt(fan_in), 1/sqrt(fan_in)) as ``models/gcn.py``."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+
+    def u(shape, fan_in):
+        b = 1.0 / np.sqrt(fan_in)
+        return rng.uniform(-b, b, shape).astype(np.float32)
+
+    return {"w1": u((f, hidden), f), "b1": u(hidden, f),
+            "w2": u((hidden, c), hidden), "b2": u(c, hidden)}
+
+
+def gcn_single_device(graph, features, labels, idx_train, init, device):
+    """The single-device GCN (``train/loops.py``'s Adam epochs, no
+    dropout) from ``init``: the loss of every epoch before its update."""
+    from types import SimpleNamespace
+
+    import torch
+
+    from sgc_tpu_torch.models.gcn import gcn_apply, params_from_jax
+    from sgc_tpu_torch.train.loops import (
+        _adam_steps,
+        node_cross_entropy,
+        train_target,
+    )
+
+    g = GCN_SMOKE
+    model = params_from_jax(SimpleNamespace(**init), device=device)
+    x = torch.as_tensor(features, device=device)
+    gd = graph.to(device)
+    lab, weights = train_target(graph.n_rows, idx_train, torch.as_tensor(
+        labels[idx_train], device=device))
+    losses = torch.zeros(g["epochs"], device=device)
+    _adam_steps([{"params": list(model.parameters()),
+                  "weight_decay": g["weight_decay"]}], g["lr"],
+                lambda: node_cross_entropy(gcn_apply(model, x, gd), lab,
+                                           weights), g["epochs"], losses)
+    return losses.cpu().tolist()
+
+
+def training_host_work(root, data, device) -> dict:
+    """The parent's part of ``sharded_training_path``: the (2, 2) fit plan
+    (``plan_fit``, block-dense at a rank's feature width), the train
+    graph (the train rows' and columns' block of the operator) with its
+    P = 4 partition, halo and block-dense plans, the single-device
+    references of the dual propagation (two kernel-B hops over the train
+    graph, and over the operator its block-dense plan computes)."""
+    import numpy as np
+    import torch
+
+    from sgc_tpu_torch.graph.sparse import SparseGraph
+    from sgc_tpu_torch.ops.spmm import spmm_segment
+    from sgc_tpu_torch.parallel.blockdense import build_sharded_blockdense
+    from sgc_tpu_torch.parallel.bodies import blockdense_operator_vals
+    from sgc_tpu_torch.parallel.distributed import save_host
+    from sgc_tpu_torch.parallel.fit import plan_fit, save_fit_plan
+    from sgc_tpu_torch.parallel.halo import build_halo
+    from sgc_tpu_torch.parallel.partition import partition_graph
+
+    graph, features, _, idx_train = data
+    f = int(features.shape[1])
+    secs = {}
+    t0 = time.perf_counter()
+    plan = plan_fit(graph, 2, 2, f)
+    save_fit_plan(os.path.join(root, "fit22"), plan)
+    secs["fit22_plan_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    idx = np.asarray(idx_train)
+    sub = graph.to_scipy().tocsr()[idx][:, idx]
+    tg = SparseGraph.from_scipy(sub)
+    pt = partition_graph(tg, 4, device=False)
+    ht = build_halo(pt, device=False)
+    bdt = build_sharded_blockdense(pt, ht, f, device=False)
+    for name, obj in (("pgraph", pt), ("halo", ht), ("bd", bdt)):
+        save_host(os.path.join(root, "train4", name), obj)
+    secs["train_plans_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    xt = torch.as_tensor(np.asarray(features)[idx], device=device)
+    for name, g in (("segment", tg), ("blockdense", tg.with_vals(
+            blockdense_operator_vals(tg, pt, ht, bdt)))):
+        gd = g.to(device)
+        np.save(os.path.join(root, f"ref_train_{name}.npy"),
+                spmm_segment(gd, spmm_segment(gd, xt)).cpu().numpy())
+    secs["references_s"] = time.perf_counter() - t0
+    return {"seconds": secs,
+            "fit22": {"formulation": plan.formulation,
+                      "halo_fraction": plan.halo_fraction,
+                      "dense_fraction": plan.dense_fraction},
+            "train_graph": {"nodes": tg.n_rows, "nnz": tg.nnz,
+                            "cells": bdt.n_cells,
+                            "dense_fraction": bdt.dense_fraction}}
+
+
+def shard_store_check(root, device, seed) -> dict:
+    """InferenceEngine(shard_store=True), f32 and int8, over the
+    propagated store (S^2 X of the sharded path): every card of the
+    process holds a shard (one here); 8 batches of 1,024 random ids,
+    bit for bit the unsharded engine's logits."""
+    import numpy as np
+    import torch
+
+    from sgc_tpu_torch.models.sgc import SGC
+    from sgc_tpu_torch.serve.engine import EngineConfig, InferenceEngine
+
+    feats = np.load(os.path.join(root, "ref_segment.npy"))
+    rng = np.random.default_rng(seed)
+    n, f = feats.shape
+    head = SGC(torch.tensor(rng.standard_normal((f, 41)).astype(np.float32)
+                            / np.sqrt(f), device=device),
+               torch.zeros(41, device=device))
+    out = {}
+    for name, q in (("f32", False), ("int8", True)):
+        t0 = time.perf_counter()
+        cfg = dict(max_batch=SHARD_STORE_BATCH, quantize_int8=q)
+        plain = InferenceEngine(head, features=feats, device=device,
+                                config=EngineConfig(**cfg))
+        sharded = InferenceEngine(head, features=feats, device=device,
+                                  config=EngineConfig(shard_store=True,
+                                                      **cfg))
+        equal = True
+        for _ in range(SHARD_STORE_BATCHES):
+            ids = rng.integers(0, n, SHARD_STORE_BATCH)
+            equal &= bool(np.array_equal(sharded.predict_logits(ids),
+                                         plain.predict_logits(ids)))
+        out[name] = {"shards": len(sharded._shards), "same_bits": equal,
+                     "seconds": time.perf_counter() - t0}
+        if not equal:
+            raise AssertionError(f"shard_store {name} differs from the "
+                                 "unsharded engine")
+        del plain, sharded
+    return out
+
+
+TRAINING_CLIS = ("reddit_sharded_inductive", "citation_sharded_sgc",
+                 "citation_sharded_gcn", "scaling", "dist_demo")
+
+
+def start_training_clis(root, seed, pool) -> tuple:
+    """Write the entry points' fixtures (a Reddit pair at
+    ``TRAINING_CLI_REDDIT_SCALE``, a Pubmed-shape set) and start the
+    entry points as processes on the card in ``pool`` (each launches its
+    own world: one NCCL rank for cli.reddit and cli.citation, gloo ranks
+    on the card for cli.scaling --ranks 4 and cli.dist_demo). Returns
+    ``(fixtures, {name: future of (completed process, seconds)})``."""
+    from sgc_tpu_torch.data.fixtures import (
+        PUBMED,
+        write_planetoid,
+        write_reddit,
+    )
+
+    rd, pm = os.path.join(root, "cli_rd"), os.path.join(root, "cli_pm")
+    pubmed = write_planetoid(pm, "pubmed", seed=seed, **PUBMED)
+    fixtures = {"reddit": write_reddit(rd, scale=TRAINING_CLI_REDDIT_SCALE,
+                                       seed=seed),
+                "pubmed": {k: pubmed[k] for k in ("n_nodes", "n_edges",
+                                                  "n_allx")}}
+    py = [sys.executable, "-m"]
+    cmds = {
+        "reddit_sharded_inductive": py + [
+            "sgc_tpu_torch.cli.reddit", "--sharded", "--inductive",
+            "--test", "--data_path", rd],
+        "citation_sharded_sgc": py + [
+            "sgc_tpu_torch.cli.citation", "--dataset", "pubmed",
+            "--sharded", "--data_path", pm],
+        "citation_sharded_gcn": py + [
+            "sgc_tpu_torch.cli.citation", "--dataset", "pubmed",
+            "--model", "GCN", "--lr", "0.01", "--sharded",
+            "--data_path", pm],
+        "scaling": py + ["sgc_tpu_torch.cli.scaling", "--ranks", "4",
+                         "--transport", "gloo", "--repeats", "1",
+                         "--json"],
+        "dist_demo": py + ["sgc_tpu_torch.cli.dist_demo", "--procs", "2",
+                           "--devices-per-proc", "2"],
+    }
+    env = {**os.environ,
+           "PYTHONPATH": os.path.dirname(os.path.abspath(__file__))}
+
+    def run(cmd):
+        t0 = time.perf_counter()
+        p = subprocess.run(cmd, capture_output=True, text=True, env=env,
+                           timeout=600)
+        return p, time.perf_counter() - t0
+
+    return fixtures, {k: pool.submit(run, cmds[k]) for k in TRAINING_CLIS}
+
+
+def finish_training_clis(fixtures, pending) -> dict:
+    """Wait for the entry points: every one exits 0; cli.reddit's
+    micro-F1 above 5x chance, cli.citation's test accuracies above 1.5x
+    chance, cli.dist_demo's parity ``ok``; their result lines."""
+    from sgc_tpu_torch.data.fixtures import PUBMED
+
+    out = {}
+    for k, fut in pending.items():
+        p, secs = fut.result()
+        out[k] = {"rc": p.returncode, "seconds": secs,
+                  "lines": p.stdout.strip().splitlines()}
+        if p.returncode != 0:
+            raise AssertionError(f"{k} exited {p.returncode}:\n"
+                                 f"{p.stderr[-3000:]}")
+    for k in ("scaling", "dist_demo"):
+        out[k]["json"] = [json.loads(line) for line in out[k]["lines"]
+                          if line.startswith("{")]
+    if not out["dist_demo"]["json"][-1]["ok"]:
+        raise AssertionError(f"dist_demo: {out['dist_demo']['json']}")
+    f1 = float(out["reddit_sharded_inductive"]["lines"][-2].rsplit(
+        " ", 1)[1])
+    chance = 1.0 / fixtures["reddit"]["classes"]
+    if not f1 > 5 * chance:
+        raise AssertionError(f"cli.reddit --sharded micro-F1 {f1}")
+    for k in ("citation_sharded_sgc", "citation_sharded_gcn"):
+        acc = float(out[k]["lines"][-2].rsplit(" ", 1)[1])
+        if not acc > 1.5 / PUBMED["n_classes"]:
+            raise AssertionError(f"{k}: test accuracy {acc}")
+    out["fixtures"] = fixtures
+    return out
+
+
+def phase_sharded_training_path(data, root, device, card, seed,
+                                reps) -> dict:
+    """Distributed training and its entry points on the main path's
+    plan-order graph (F = 602, 41 classes), on ``sharded_path``'s plans
+    and inputs under ``root`` (removed at the end): the 4-rank gloo world
+    of ``bodies.smoke_training_world`` (started at once; it waits while
+    this process builds the (2, 2) fit plan, the train graph's plans and
+    the references), the NCCL world of one of
+    ``bodies.smoke_training_world_of_one`` beside it, then the sharded
+    serving store and the entry points as processes. Each rank zeroes
+    its counters just before a part and reads them just after; the parts
+    of the ranks' own worlds count their launches, the entry points'
+    worlds are processes of their own and report their results."""
+    import concurrent.futures
+    import shutil
+
+    import numpy as np
+
+    from sgc_tpu_torch.parallel.bodies import (
+        smoke_training_world,
+        smoke_training_world_of_one,
+    )
+    from sgc_tpu_torch.parallel.distributed import launch
+
+    t_phase = time.perf_counter()
+    cfg = {"degree": 2, "epochs": TRAINING_EPOCHS,
+           "save_every": TRAINING_SAVE_EVERY, "lr": TRAINING_LR,
+           "weight_decay": TRAINING_WD, "seed": seed,
+           "one_epochs": TRAINING_ONE_EPOCHS, "tolerance": TOLERANCE,
+           "bf16_tolerance": BF16_TOLERANCE, "reps": reps}
+    init = gcn_init(int(data[1].shape[1]), GCN_SMOKE["hidden"],
+                    int(data[2].max()) + 1, seed)
+    cfg["gcn"] = {**GCN_SMOKE, "init": init}
+    try:
+        with concurrent.futures.ThreadPoolExecutor(
+                2 + len(TRAINING_CLIS)) as pool:
+            # the entry points, both worlds, then this process's host
+            # work run at once; the 4 ranks wait for the marker while this
+            # process builds the plans and references
+            t0 = time.perf_counter()
+            fixtures, clis_pending = start_training_clis(root, seed, pool)
+            fixtures_s = time.perf_counter() - t0
+            t_world, t_world_unix = time.perf_counter(), time.time()
+            world = pool.submit(launch, smoke_training_world, 4, "gloo",
+                                os.path.join(root, "init_t4"), (root, cfg),
+                                420)
+            pending_one = pool.submit(
+                launch, smoke_training_world_of_one, 1, "nccl",
+                os.path.join(root, "init_t1"), (root, cfg), 300)
+            try:
+                host = training_host_work(root, data, device)
+                open(os.path.join(root, "ready_training"), "w").close()
+            except BaseException:
+                open(os.path.join(root, "abort"), "w").close()
+                raise
+            ready_s = time.perf_counter() - t_world
+            t0 = time.perf_counter()
+            host["gcn_single"] = gcn_single_device(*data, init, device)
+            host["seconds"]["gcn_single_device_s"] = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            store = shard_store_check(root, device, seed)
+            store_s = time.perf_counter() - t0
+            ranks = world.result()
+            world_s = time.perf_counter() - t_world
+            one = pending_one.result()[0]
+            clis = finish_training_clis(fixtures, clis_pending)
+            clis["fixtures_s"] = fixtures_s
+            clis_s = time.perf_counter() - t_world
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+    parts, launches = {}, {}
+    for name in ranks[0]["parts"]:
+        per_rank = [r["parts"][name] for r in ranks]
+        parts[name] = {
+            "seconds": max(p["seconds"] for p in per_rank),
+            "launches_per_rank": [p["launches"] for p in per_rank],
+            **{k: v for k, v in per_rank[0].items()
+               if k not in ("seconds", "launches")}}
+        launches[name] = {k: sum(p["launches"][k] for p in per_rank)
+                          for k in per_rank[0]["launches"]}
+        uses = ["csr_spmm"]
+        if "blockdense" in name or name.startswith(("fit_", "staged")):
+            uses.append("blockdense_cells")
+        if name == "gcn_blockdense":
+            uses += ["blockdense_cells_backward", "csr_spmm_backward"]
+        for k in uses:
+            if min(p["launches"][k] for p in per_rank) <= 0:
+                raise AssertionError(f"{name}: a rank never launched {k}: "
+                                     f"{parts[name]['launches_per_rank']}")
+    launches["nccl_world_of_one"] = one["nccl"]["launches"]
+    sharded = np.asarray(parts["gcn_halo"]["losses"])
+    single = np.asarray(host["gcn_single"])
+    gcn_err = float(np.max(np.abs(sharded - single) / np.abs(single)))
+    if not np.allclose(sharded, single, rtol=1e-4, atol=1e-5):
+        raise AssertionError(f"sharded GCN losses {sharded} vs single "
+                             f"device {single}")
+    worst = {"blockdense_cells": 0.0, "csr_spmm": 0.0}
+    for r in ranks:
+        held = r["parts"]["gcn_blockdense"]["held"]
+        for direction in ("forward", "backward"):
+            for k, (a, _) in held[direction].items():
+                worst[k] = max(worst[k], a)
+    phase_s = time.perf_counter() - t_phase
+    emit({"phase": "sharded_training_path", "nvidia_smi": card,
+          "transport": TRAINING_TRANSPORT, "host": {
+              k: host[k] for k in ("seconds", "fit22", "train_graph")},
+          "parts": parts,
+          "gcn_vs_single_device": {"losses": host["gcn_single"],
+                                   "max_rel_err": gcn_err},
+          "held_max_abs_err": worst,
+          "backward_kernels_per_rank": [r["backward_kernels"]
+                                        for r in ranks],
+          "nccl_world_of_one": {**one, "transport": "nccl, 1 rank"},
+          "shard_store": {**store, "seconds": store_s},
+          "clis": {**clis, "seconds_from_world_start": clis_s},
+          "sections_s_per_rank": [r["sections_s"] for r in ranks],
+          "rank_start_s": max(r["started_unix"] for r in ranks)
+          - t_world_unix, "ready_s": ready_s, "world_s": world_s,
+          "phase_s": phase_s})
+    log(f"sharded_training_path: {phase_s:.1f}s (4 ranks on one card, gloo "
+        "over host)")
+    return {"launches": launches, "max_abs_err": worst,
+            "backward": [r["backward_kernels"] for r in ranks]}
 
 
 ORDERINGS_ON_REDDIT = ("rcm", "bfs", "degree", "none")
@@ -3449,6 +3833,9 @@ def main() -> int:
     del onehot
     sharded = phase_sharded_path(sharded_data, device, card, args.seed,
                                  args.reps)
+    training = phase_sharded_training_path(sharded_data, sharded["root"],
+                                           device, card, args.seed,
+                                           args.reps)
     del sharded_data
     gat_reddit = phase_gat_reddit(data, device, args.reps)
     t_new = time.perf_counter()
@@ -3456,6 +3843,7 @@ def main() -> int:
     by_path = {"ordering_path": orderings["launches"]}
     del data, lpa_rows
     by_path["sharded_path"] = sharded["launches"]
+    by_path["sharded_training_path"] = training["launches"]
     by_path["graph_store"] = phase_graph_store(device, args.reps)
     by_path["kernel_bench_cli"] = phase_kernel_bench_cli()
     phase_devices_cli()
@@ -3484,10 +3872,12 @@ def main() -> int:
     rows[0]["max_abs_err"] = max(
         rows[0]["max_abs_err"], text["kernel_a_2048"]["max_abs_err"],
         orderings["max_abs_err"]["blockdense_cells"],
-        sharded["max_abs_err"]["blockdense_cells"])
+        sharded["max_abs_err"]["blockdense_cells"],
+        training["max_abs_err"]["blockdense_cells"])
     rows[1]["max_abs_err"] = max([rows[1]["max_abs_err"],
                                   orderings["max_abs_err"]["csr_spmm"],
-                                  sharded["max_abs_err"]["csr_spmm"]] + [
+                                  sharded["max_abs_err"]["csr_spmm"],
+                                  training["max_abs_err"]["csr_spmm"]] + [
         w["max_abs_err"] for w in list(text["kernel_b_widths"].values())
         + list(baselines["w2v_widths"].values()) + [baselines["seq_width"]]])
     rows[0]["text_2048"] = {k: text["kernel_a_2048"][k] for k in (
@@ -3504,6 +3894,13 @@ def main() -> int:
         "nnz", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
         "csr_mm_ms", "rel_err", "max_degree", "max_degree_row_alone_ms",
         "plan")}}
+    # the sharded GCN's backward kernels at F = 41, each rank alone
+    rows[0]["sharded_backward"] = [{k: v for k, v in r.items()
+                                    if k.startswith("a_t_")}
+                                   for r in training["backward"]]
+    rows[1]["sharded_backward"] = [{k: v for k, v in r.items()
+                                    if k.startswith("b_")}
+                                   for r in training["backward"]]
     rows[3]["gat_reddit_backward"] = {F: w["d"] for F, w in
                                       gat_reddit["widths"].items()
                                       if "d" in w}

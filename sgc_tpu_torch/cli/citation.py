@@ -11,9 +11,17 @@ Load (``data/planetoid.py``); for SGC propagate ``S^K X`` once (``sgc``:
 same way), train the head with Adam on the train rows
 (``train_regression``); for GCN train through the graph (``train_gcn``,
 no precompute) and apply the model to the whole graph. Report val/test
-accuracy. ``--sharded`` with a propagator other than sgc raises the
-reference's ``ValueError``; a valid ``--sharded`` call is not ported yet
-and raises ``NotImplementedError``.
+accuracy.
+
+``--sharded`` trains over a world of ranks the CLI launches
+(``parallel.distributed.cli_world``: one rank per card over NCCL, or with
+``--device cpu`` the gloo ranks ``SGC_TPU_TORCH_CPU_RANKS`` names): SGC
+through ``fit_sharded`` (``--trainer adam`` or ``newton``), GCN through
+``fit_gcn_sharded``; the head is then evaluated, as in the reference, on
+the single-device propagation. A propagator other than sgc raises the
+reference's ``ValueError``.
+
+    python -m sgc_tpu_torch.cli.citation --dataset cora --sharded
 """
 
 from __future__ import annotations
@@ -34,26 +42,26 @@ from sgc_tpu_torch.utils.device import resolve_device
 from sgc_tpu_torch.utils.profiling import sync
 from sgc_tpu_torch.utils.seeding import set_seed
 
-SHARDED_TODO = "ROADMAP queue 1 item 8 (distribution)"
+# seconds a sharded world may take before every rank is stopped
+SHARDED_TIMEOUT_S = 3600.0
 
 
 def run(cfg: CitationConfig, data_path: str | None = None,
         propagator: str = "sgc", sharded: bool = False,
         trainer: str = "adam", device=None) -> dict:
     """One citation run; ``device=None`` means the card (raises without
-    one). ``trainer`` picks the sharded path's head trainer in the
-    reference and is unused here, as there without ``sharded``."""
-    if sharded:
-        if propagator != "sgc":
-            raise ValueError("--sharded supports the sgc propagator only")
-        raise NotImplementedError(f"--sharded is not ported yet: "
-                                  f"{SHARDED_TODO}")
+    one). ``trainer`` picks the sharded SGC head's trainer and is unused
+    without ``sharded``, as in the reference."""
+    if sharded and propagator != "sgc":
+        raise ValueError("--sharded supports the sgc propagator only")
     dev = resolve_device(device)
     cfg = cfg.resolve()
     init_fn, apply_fn = get_model(cfg.model)
     generator = set_seed(cfg.seed)
     data = load_citation(cfg.dataset, cfg.normalization, data_path,
                          device=dev)
+    if sharded:
+        return _run_sharded(cfg, data, dev, trainer)
     if cfg.model == "GCN":
         return _run_gcn(cfg, data, init_fn, apply_fn, generator, dev)
 
@@ -94,6 +102,60 @@ def _run_gcn(cfg, data, init_fn, apply_fn, generator, dev) -> dict:
                    train_time)
 
 
+def _run_sharded(cfg, data, dev, trainer: str) -> dict:
+    """Citation training over the world ``cli_world(dev)`` starts; the
+    reference's keys, with ``formulation`` and ``halo_fraction`` (SGC) or
+    ``final_loss`` (GCN)."""
+    import tempfile
+    from types import SimpleNamespace
+
+    from sgc_tpu_torch.graph.sparse import host
+    from sgc_tpu_torch.models.gcn import gcn_apply, params_from_jax
+    from sgc_tpu_torch.models.sgc import SGC
+    from sgc_tpu_torch.ops.propagate import propagate
+    from sgc_tpu_torch.parallel import bodies
+    from sgc_tpu_torch.parallel.distributed import cli_world, launch
+
+    ranks, backend, rank_dev = cli_world(dev)
+    t0 = perf_counter()
+    with tempfile.TemporaryDirectory(prefix="sgc_citation_") as root:
+        bodies.write_inputs(root, data.graph, host(data.features),
+                            host(data.labels), data.idx_train)
+        common = {"epochs": cfg.epochs, "lr": cfg.lr,
+                  "weight_decay": cfg.weight_decay, "seed": cfg.seed}
+        if cfg.model == "SGC":
+            body, kw = bodies.cli_sgc, {**common, "degree": cfg.degree,
+                                        "trainer": trainer}
+        else:
+            body, kw = bodies.cli_gcn, {**common,
+                                        "n_hidden": cfg.hidden or 16}
+        out = launch(body, ranks, backend, f"{root}/init",
+                     (root, {"n_classes": data.n_classes, "kw": kw,
+                             "device": rank_dev}), SHARDED_TIMEOUT_S)[0]
+    if cfg.model == "SGC":
+        # the single-device propagation evaluates the head (params are
+        # node-order independent; W cut back to the unpadded width)
+        feats = propagate(data.features, data.graph, cfg.degree)
+        n_feat = data.features.shape[1]
+        head = SGC(torch.as_tensor(out["w"][:n_feat], device=dev),
+                   torch.as_tensor(out["b"], device=dev))
+        with torch.no_grad():
+            logits_val = head(feats[data.idx_val])
+            logits_test = head(feats[data.idx_test])
+        extra = {"formulation": out["report"]["formulation"],
+                 "halo_fraction": out["report"]["halo_fraction"]}
+    else:
+        model = params_from_jax(SimpleNamespace(**out["params"]),
+                                device=dev)
+        with torch.no_grad():
+            logits = gcn_apply(model, data.features, data.graph)
+        logits_val, logits_test = logits[data.idx_val], logits[
+            data.idx_test]
+        extra = {"final_loss": out["losses"][-1]}
+    total = perf_counter() - t0
+    return {**_result(data, logits_val, logits_test, 0.0, total), **extra}
+
+
 def _result(data, logits_val, logits_test, precompute_time,
             train_time) -> dict:
     return {
@@ -120,11 +182,12 @@ def main() -> None:
                         help="propagation scheme for the SGC path")
     parser.add_argument("--normalization", default="AugNormAdj")
     parser.add_argument("--sharded", action="store_true",
-                        help="multi-device training (not ported yet: "
-                             "raises)")
+                        help="train over a world of ranks (fit_sharded / "
+                             "fit_gcn_sharded)")
     parser.add_argument("--trainer", default="adam",
                         choices=["adam", "newton"],
-                        help="--sharded head trainer (unused without it)")
+                        help="--sharded SGC head trainer: adam epochs or "
+                             "the newton fit (unused without --sharded)")
     parser.add_argument("--degree", type=int, default=2)
     parser.add_argument("--tuned", action="store_true")
     parser.add_argument("--data_path", default=None)

@@ -11,10 +11,17 @@ head (``--trainer newton``, the default, or ``lbfgs``, the oracle, ``lr``
 1 and ``epochs`` 2); report micro and macro F1. ``--locality`` runs both
 propagations through a ``LocalityPlan`` each (LPA reorder and per-hop
 splits, admission calibrated on the device), rows restored to the
-loader's numbering. The reference's argument errors (``--locality``
-with ``--sharded``, ``--formulation`` without it) raise its
-``ValueError``; a valid ``--sharded`` call (the only one that uses
-``--formulation``) is not ported yet and raises ``NotImplementedError``.
+loader's numbering. ``--sharded`` propagates over a world of ranks the
+CLI launches (``parallel.distributed.cli_world``: one rank per card over
+NCCL, or with ``--device cpu`` the gloo ranks ``SGC_TPU_TORCH_CPU_RANKS``
+names): the full graph partitioned over the ranks (transductive) or, with
+``--inductive``, both adjacencies through ``parallel/inductive.py``;
+``--formulation`` picks the sharded hop (``auto`` = ``blockdense``,
+kernels A and B; ``segment``, kernel B); the head is fitted on the
+gathered rows. The reference's argument errors (``--locality`` with
+``--sharded``, ``--formulation`` without it) raise its ``ValueError``.
+
+    python -m sgc_tpu_torch.cli.reddit --inductive --test --sharded
 """
 
 from __future__ import annotations
@@ -34,7 +41,8 @@ from sgc_tpu_torch.utils.device import resolve_device
 from sgc_tpu_torch.utils.profiling import sync
 from sgc_tpu_torch.utils.seeding import set_seed
 
-SHARDED_TODO = "ROADMAP queue 1 item 8 (distribution)"
+# seconds a sharded world may take before every rank is stopped
+SHARDED_TIMEOUT_S = 3600.0
 
 
 def run(inductive: bool = True, test: bool = True, degree: int = 2,
@@ -56,9 +64,6 @@ def run(inductive: bool = True, test: bool = True, degree: int = 2,
             "--formulation selects the SHARDED propagation kernel; pass "
             "--sharded with it (the --locality path has its own "
             "formulation auto-selection)")
-    if sharded:
-        raise NotImplementedError(f"--sharded is not ported yet: "
-                                  f"{SHARDED_TODO}")
     dev = resolve_device(device)
     generator = set_seed(seed)
     t0 = perf_counter()
@@ -70,6 +75,10 @@ def run(inductive: bool = True, test: bool = True, degree: int = 2,
     if locality:
         feats_eval, feats_train, t_full, t_train_pre, extra = (
             _locality_propagate(data, degree, inductive, dev))
+    elif sharded:
+        feats_eval, feats_train, t_full = _sharded_propagate(
+            data, degree, inductive, formulation, dev)
+        t_train_pre = 0.0
     else:
         # eval features from the full graph
         feats_eval, t_full = sgc_precompute(data.features, data.graph,
@@ -155,12 +164,49 @@ def _locality_propagate(data, degree: int, inductive: bool, dev):
     return feats_eval, feats_train, t_full, t_train_pre, extra
 
 
+def _sharded_propagate(data, degree: int, inductive: bool,
+                       formulation: str, dev):
+    """Eval (and, inductive, train) features from the sharded propagation
+    over the world ``cli_world(dev)`` starts, gathered into the loader's
+    numbering on ``dev``; the time is the slowest rank's."""
+    import tempfile
+
+    from sgc_tpu_torch.graph.sparse import host
+    from sgc_tpu_torch.parallel import bodies
+    from sgc_tpu_torch.parallel.distributed import (
+        cli_world,
+        launch,
+        save_host,
+    )
+
+    if formulation == "auto":
+        formulation = "blockdense"
+    if formulation not in ("segment", "blockdense"):
+        raise ValueError(f"unknown formulation {formulation!r}")
+    ranks, backend, rank_dev = cli_world(dev)
+    with tempfile.TemporaryDirectory(prefix="sgc_reddit_") as root:
+        bodies.write_inputs(root, data.graph, host(data.features),
+                            host(data.labels), data.idx_train)
+        if inductive:
+            save_host(f"{root}/train_graph", data.train_graph)
+        out = launch(bodies.cli_reddit, ranks, backend, f"{root}/init",
+                     (root, {"degree": degree, "inductive": inductive,
+                             "formulation": formulation,
+                             "device": rank_dev}), SHARDED_TIMEOUT_S)[0]
+        feats_eval = torch.as_tensor(np.load(f"{root}/eval.npy"),
+                                     device=dev)
+        feats_train = (torch.as_tensor(np.load(f"{root}/train.npy"),
+                                       device=dev) if inductive
+                       else feats_eval[data.idx_train])
+    return feats_eval, feats_train, out["seconds"]
+
+
 def main() -> None:
     parser = argparse.ArgumentParser(description=__doc__)
     parser.add_argument("--inductive", action="store_true")
     parser.add_argument("--sharded", action="store_true",
-                        help="partition both adjacencies over all devices "
-                             "(not ported yet: raises)")
+                        help="partition both adjacencies over a world of "
+                             "ranks (one per card)")
     parser.add_argument("--locality", action="store_true",
                         help="LPA community reorder + per-hop splits "
                              "(single device)")
@@ -174,8 +220,8 @@ def main() -> None:
     parser.add_argument("--data_path", default=None)
     parser.add_argument("--formulation", default="auto",
                         choices=["auto", "segment", "blockdense"],
-                        help="sharded propagation kernel (not ported yet: "
-                             "any value but auto raises)")
+                        help="sharded propagation kernel (auto = the "
+                             "block-dense path)")
     parser.add_argument("--trainer", default="newton",
                         choices=["newton", "lbfgs"],
                         help="linear-head fit: accelerated Newton/MM "

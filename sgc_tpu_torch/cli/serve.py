@@ -19,7 +19,8 @@ batch) beside ``dispatch_floor_ms`` (a trivial launch closed by a sync):
     python -m sgc_tpu_torch.cli.serve --bench                # f32 + int8
     python -m sgc_tpu_torch.cli.serve --bench --variants f32,int8,inductive
 
-The ``shard`` variant (``shard_store``) is not ported yet and raises.
+The ``shard`` variant row-shards the store over every card of the
+process (``EngineConfig.shard_store``; one shard on one card).
 """
 
 from __future__ import annotations

@@ -14,7 +14,14 @@ every rank (each reads its own part).
                  (kernel B)
   blockdense.py  the sharded block-dense plan and its hop (kernels A, B)
   spmm.py        spmm_sharded / propagate_sharded over every plan
+  autograd.py    the hops' backwards: the same kernels over transposed
+                 operands, the exchanges in reverse
   train.py       the sharded SGC train step (Adam)
+  fit.py         fit_sharded: plan, propagate once, fit the head (Adam
+                 with sharded checkpoints, or Newton)
+  gcn.py         the sharded two-layer GCN and its fit
+  inductive.py   the inductive dual-adjacency propagation
+  staging.py     row providers and per-rank tile staging
   debug.py       checksum exchange validation, fault injection,
                  determinism assertions
   scaling.py     init_distributed, the host-only comm models, the
@@ -22,8 +29,6 @@ every rank (each reads its own part).
   distributed.py put_global / fetch_global and the rank launcher
   bodies.py      rank bodies the CPU tests and the chip smoke spawn
 
-Not ported yet: ``fit``, ``gcn``, ``inductive`` and ``staging`` (the
-sharded fit, GCN and inductive paths, host staging; ROADMAP queue 1).
 """
 
 from sgc_tpu_torch.parallel.mesh import make_mesh  # noqa: F401

@@ -10,6 +10,10 @@ counterpart of sgc_tpu/parallel/distributed.py).
 * :func:`save_host` / :func:`load_host` move host plans to ranks as
   one ``.npy`` file per array (memory-mapped on load, so a rank reads
   only its own part), never through the spawn pipe.
+* :func:`cli_world` says how many ranks an entry point starts, and over
+  which backend: one rank per card over NCCL on the card; on the CPU the
+  number of gloo ranks ``SGC_TPU_TORCH_CPU_RANKS`` names (default 1), the
+  counterpart of the reference's virtual CPU device count.
 * :func:`launch` starts ``world_size`` ranks with the ``spawn`` start
   method (a parent that holds a CUDA context cannot ``fork``), each
   joining one process group that rendezvouses through a ``file://``
@@ -50,6 +54,23 @@ from sgc_tpu_torch.parallel.mesh import FEAT_AXIS, NODES_AXIS, Mesh
 
 # the sharding of node features: rows over "nodes", columns over "feat"
 NODE_FEAT = (NODES_AXIS, FEAT_AXIS)
+# the gloo ranks an entry point starts on the CPU
+CPU_RANKS_ENV = "SGC_TPU_TORCH_CPU_RANKS"
+
+
+def cli_world(device=None) -> tuple[int, str, str | None]:
+    """``(ranks, backend, rank device)`` of an entry point's world:
+    ``device`` on a card (``None`` included) gives one rank per card over
+    NCCL, each on its own card; ``"cpu"`` gives ``SGC_TPU_TORCH_CPU_RANKS``
+    gloo ranks (default 1) on the CPU. Never one for the other."""
+    from sgc_tpu_torch.utils.device import resolve_device
+
+    if resolve_device(device).type == "cuda":
+        return torch.cuda.device_count(), "nccl", None
+    n = int(os.environ.get(CPU_RANKS_ENV, "1"))
+    if n < 1:
+        raise ValueError(f"{CPU_RANKS_ENV}={n}: need at least one rank")
+    return n, "gloo", "cpu"
 
 
 def _tile_slices(mesh: Mesh, spec: tuple, shape: tuple) -> tuple:
@@ -92,13 +113,16 @@ def fetch_global(mesh: Mesh, tile: torch.Tensor,
 
 
 def save_host(path, obj) -> None:
-    """Write a host dataclass of the port (a SparseGraph or a plan: numpy
-    arrays, tuples of them, scalars) under directory ``path``."""
+    """Write a dataclass of the port (a SparseGraph or a plan: arrays,
+    tuples of them, scalars; tensors are copied to the host) under
+    directory ``path``."""
     path = Path(path)
     path.mkdir(parents=True, exist_ok=True)
     fields = {}
     for f in dataclasses.fields(obj):
         v = getattr(obj, f.name)
+        if torch.is_tensor(v):
+            v = host(v)
         if isinstance(v, np.ndarray):
             np.save(path / f"{f.name}.npy", v)
             fields[f.name] = "array"

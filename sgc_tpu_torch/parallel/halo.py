@@ -269,10 +269,20 @@ class LocalCsr:
     (val != 0; padding adds exact zeros, so leaving it out changes no
     sum) sorted by (row, col), with CSR row pointers. ``chunks(n)`` are
     the graphs of consecutive ranges of ``n`` sorted edges (views of the
-    same arrays, row pointers clipped), built once per size."""
+    same arrays, row pointers clipped), built once per size;
+    ``transposed()`` the transpose, built once."""
 
     graph: SparseGraph
     _chunks: dict = dataclasses.field(default_factory=dict)
+    _transposed: "LocalCsr | None" = None
+
+    def transposed(self) -> "LocalCsr":
+        """The transpose as a LocalCsr on the same device (built on the
+        host the first time, then kept): the backward of a product
+        over these edges."""
+        if self._transposed is None:
+            self._transposed = LocalCsr(self.graph.transpose())
+        return self._transposed
 
     def chunks(self, edge_chunk: int) -> list:
         got = self._chunks.get(edge_chunk)

@@ -128,6 +128,25 @@ class Mesh:
         dist.all_reduce(wire, op=ops[op], group=g)
         return wire.to(x.device)
 
+    def barrier(self) -> None:
+        """Return once every rank of the mesh has called it (an all-reduce
+        over each axis; the identity without a process group)."""
+        for axis in (FEAT_AXIS, NODES_AXIS):
+            self.all_reduce(axis, torch.zeros(1, device=self.device))
+
+    def sum_in_order(self, axis: str, x: torch.Tensor) -> torch.Tensor:
+        """The sum of ``x`` over the axis in rank order, ``((x_0 + x_1) +
+        x_2) + ...``, the same bits on every rank and every run,
+        whatever order a library's reduction would take."""
+        g = self.groups[axis]
+        if g is None:
+            return x.clone()
+        parts = self.all_gather(axis, x[None])
+        out = parts[0].clone()
+        for p in parts[1:]:
+            out += p
+        return out
+
 
 def make_mesh(n_nodes_parts: int | None = None, n_feat_parts: int = 1,
               device=None, transport: str | None = None) -> Mesh | None:

@@ -25,6 +25,13 @@ from __future__ import annotations
 
 import torch
 
+from sgc_tpu_torch.parallel.autograd import (
+    AllGatherHopFn,
+    BlockDenseHopFn,
+    HaloHopFn,
+    live_send_slots,
+    transposed_view,
+)
 from sgc_tpu_torch.parallel.blockdense import (
     blockdense_exchange_and_spmm,
     local_blockdense,
@@ -52,8 +59,15 @@ def local_view(kind: str, mesh: Mesh, pgraph: PartitionedGraph,
     """The rank's device view of one formulation, placed on first use:
     ``"allgather"`` (a LocalCsr of the part's edges over global
     columns), ``"halo"`` (a LocalHalo of ``plan``) or ``"blockdense"`` (a
-    LocalBlockDense of ``plan``)."""
+    LocalBlockDense of ``plan``); with the suffix ``"_t"`` the backward
+    operands of that view (``parallel/autograd.py::LocalTranspose``)."""
     def build():
+        if kind.endswith("_t"):
+            fwd = kind[:-2]
+            live = (None if plan is None else live_send_slots(
+                pgraph, plan.halo_width, mesh.coords[NODES_AXIS]))
+            return transposed_view(fwd, local_view(fwd, mesh, pgraph, plan),
+                                   mesh.device, live)
         p = mesh.coords[NODES_AXIS]
         if kind == "allgather":
             return local_csr(pgraph.rows_local[p], pgraph.cols[p],
@@ -71,14 +85,6 @@ def local_view(kind: str, mesh: Mesh, pgraph: PartitionedGraph,
 def clear_local() -> None:
     """Drop every cached device view (and the device memory it holds)."""
     _LOCAL.clear()
-
-
-def _local_spmm(mesh: Mesh, pgraph: PartitionedGraph,
-                x_full: torch.Tensor, edge_chunk: int | None = None):
-    """Kernel B over the rank's edges against the gathered features;
-    ``edge_chunk`` as ``halo.segment_spmm``."""
-    return segment_spmm(local_view("allgather", mesh, pgraph), x_full,
-                        edge_chunk)
 
 
 def spmm_sharded(
@@ -102,30 +108,48 @@ def spmm_sharded(
               ``interpret`` as ``blockdense.check_form`` says.
       edge_chunk: the segment formulations in launches of that many
               sorted edges each.
+
+    When x needs a gradient the hop is differentiable: its backward runs
+    the same kernels over transposed operands and the exchanges in
+    reverse (``parallel/autograd.py``); every rank must then run the
+    backward, in the same order.
     """
     if pgraph.n_parts != mesh.shape[NODES_AXIS]:
         raise ValueError(
             f"graph has {pgraph.n_parts} parts, mesh nodes axis is "
             f"{mesh.shape[NODES_AXIS]}")
     x = x.contiguous()
+    grad = torch.is_grad_enabled() and x.requires_grad
+    plan = blockdense if blockdense is not None else halo
+    kind = ("blockdense" if blockdense is not None
+            else "halo" if halo is not None else "allgather")
+
+    def transposed():
+        return local_view(kind + "_t", mesh, pgraph, plan)
+
+    if blockdense is not None and edge_chunk:
+        raise ValueError(
+            "edge_chunk applies to the segment formulations; the "
+            "block-dense formulation's dense term is already "
+            "tile-bounded and its remainder is not chunked — use "
+            "formulation='segment' for memory-bounded hops")
+    local = local_view(kind, mesh, pgraph, plan)
     if blockdense is not None:
-        if edge_chunk:
-            raise ValueError(
-                "edge_chunk applies to the segment formulations; the "
-                "block-dense formulation's dense term is already "
-                "tile-bounded and its remainder is not chunked — use "
-                "formulation='segment' for memory-bounded hops")
+        if grad:
+            return BlockDenseHopFn.apply(x, mesh, local, transposed,
+                                         precision, form, interpret)
         return blockdense_exchange_and_spmm(
-            mesh, local_view("blockdense", mesh, pgraph, blockdense), x,
-            precision=precision, form=form, interpret=interpret)
+            mesh, local, x, precision=precision, form=form,
+            interpret=interpret)
+    if grad:
+        fn = HaloHopFn if halo is not None else AllGatherHopFn
+        return fn.apply(x, mesh, local, transposed, edge_chunk)
     if halo is not None and halo.overlapped:
-        return exchange_and_spmm_overlapped(
-            mesh, local_view("halo", mesh, pgraph, halo), x, edge_chunk)
+        return exchange_and_spmm_overlapped(mesh, local, x, edge_chunk)
     if halo is not None:
-        return exchange_and_spmm(
-            mesh, local_view("halo", mesh, pgraph, halo), x, edge_chunk)
+        return exchange_and_spmm(mesh, local, x, edge_chunk)
     x_full = mesh.all_gather(NODES_AXIS, x)
-    return _local_spmm(mesh, pgraph, x_full, edge_chunk)
+    return segment_spmm(local, x_full, edge_chunk)
 
 
 def _spmm_col_paneled(mesh: Mesh, pgraph: PartitionedGraph, xbox: list,

@@ -12,6 +12,14 @@ Two modes:
   With ``quantize_int8`` the store is per-row symmetric int8 (quantized
   on the host with numpy exactly as the reference, engine.py:157-167),
   dequantized after the gather.
+  With ``shard_store`` the store (and its scales) is row-sharded over
+  every card the process drives (:func:`store_devices`), rows
+  zero-padded to the card count, one shard per ``cuda:i``; a request
+  gathers its rows from each shard and reassembles them in request order
+  on the engine's device before the same dequantize and matmul, so the
+  logits equal the unsharded engine's bit for bit. A row provider
+  (``parallel/staging.py``) is staged shard by shard, so the full store
+  never exists in one buffer.
 * **inductive**: logits for nodes from fixed-fanout sampled propagation
   over the graph and the raw features (ops/sampling.py), both placed on
   the device once; the sampling generator is seeded from
@@ -37,9 +45,8 @@ import torch
 from sgc_tpu_torch.graph.sparse import host
 from sgc_tpu_torch.models.sgc import SGC, sgc_apply
 from sgc_tpu_torch.ops.sampling import sampled_propagate
+from sgc_tpu_torch.parallel.staging import is_provider, stage_block
 from sgc_tpu_torch.utils.device import resolve_device
-
-SHARD_TODO = "ROADMAP queue 1 item 8 (distribution)"
 
 
 @dataclasses.dataclass
@@ -49,8 +56,7 @@ class EngineConfig:
     warmup: bool = True            # run every bucket once at start-up
     fanouts: tuple = (25, 10)      # inductive sampling fanouts
     quantize_int8: bool = False    # store features int8 + per-row scales
-    shard_store: bool = False      # row-shard the store over devices:
-    #                                not ported (raises)
+    shard_store: bool = False      # row-shard the store over the cards
     seed: int = 0
 
 
@@ -96,12 +102,13 @@ class Stats:
         return 1e3 * float(np.percentile(np.asarray(self._lat), q))
 
 
-def is_provider(obj) -> bool:
-    """A row provider (sgc_tpu/parallel/staging.py:47-54): callable with a
-    2-D ``shape``, and not an array."""
-    return (callable(obj)
-            and not isinstance(obj, (np.ndarray, torch.Tensor))
-            and hasattr(obj, "shape") and len(obj.shape) == 2)
+def store_devices(device: torch.device) -> list:
+    """The devices a sharded store spans: every card of the process for
+    an engine on a card, the engine's own device otherwise."""
+    if device.type == "cuda":
+        return [torch.device("cuda", i)
+                for i in range(torch.cuda.device_count())]
+    return [device]
 
 
 class _Slot:
@@ -168,18 +175,20 @@ class InferenceEngine:
                 raise ValueError(
                     "quantize_int8 quantizes the full store up front — "
                     "pre-quantize the provider instead")
+        self._shards = None
         if self._mode == "transductive":
-            if self.config.shard_store:
-                raise NotImplementedError(
-                    f"shard_store is not ported yet: {SHARD_TODO}")
+            store, scale = features, None
             if self.config.quantize_int8:
                 f = np.asarray(host(features), np.float32)
                 scale = np.abs(f).max(axis=1, keepdims=True) / 127.0
-                scale = np.maximum(scale, 1e-12)
-                q = np.clip(np.round(f / scale), -127, 127).astype(np.int8)
-                self._features = torch.tensor(q, device=self.device)
-                self._scales = torch.tensor(scale.astype(np.float32),
-                                            device=self.device)
+                scale = np.maximum(scale, 1e-12).astype(np.float32)
+                store = np.clip(np.round(f / scale), -127, 127).astype(
+                    np.int8)
+            if self.config.shard_store:
+                self._shards = self._shard(store, scale)
+            elif scale is not None:
+                self._features = torch.tensor(store, device=self.device)
+                self._scales = torch.tensor(scale, device=self.device)
             else:
                 self._features = self._place(features)
         else:
@@ -203,6 +212,63 @@ class InferenceEngine:
         if self.config.warmup:
             self.warmup()
 
+    def _shard(self, store, scale) -> list:
+        """``[(rows, scales or None), ...]``, one shard per store device,
+        each ``ceil(N / D)`` rows (the last zero-padded)."""
+        devs = store_devices(self.device)
+        n, f = (int(d) for d in store.shape)
+        self._rows_per_shard = per = -(-n // len(devs))
+        out = []
+        for i, dev in enumerate(devs):
+            rows = slice(i * per, (i + 1) * per)
+            if is_provider(store):
+                block = stage_block(store, rows, slice(0, f), store.dtype,
+                                    dev)
+            else:
+                a = host(store)[rows]
+                block = self._pad_block(
+                    a if scale is not None else a.astype(np.float32), per,
+                    dev)
+            sc = (None if scale is None
+                  else self._pad_block(scale[rows], per, dev))
+            out.append((block, sc))
+        return out
+
+    @staticmethod
+    def _pad_block(a: np.ndarray, rows: int, device) -> torch.Tensor:
+        out = np.zeros((rows,) + a.shape[1:], a.dtype)
+        out[: a.shape[0]] = a
+        return torch.from_numpy(out).to(device)
+
+    def _gather_shards(self, ids: np.ndarray) -> torch.Tensor:
+        """The store's rows ``ids`` (dequantized) on the engine's device:
+        each shard gathers its own rows, and they are copied into request
+        order (each position once)."""
+        per = self._rows_per_shard
+        shard = ids // per
+        parts = []
+        for s, (block, sc) in enumerate(self._shards):
+            pos = np.flatnonzero(shard == s)
+            if not len(pos):
+                continue
+            local = torch.from_numpy(ids[pos] - s * per).to(block.device)
+            at = torch.from_numpy(pos).to(self.device)
+            parts.append((at, block.index_select(0, local).to(self.device),
+                          None if sc is None
+                          else sc.index_select(0, local).to(self.device)))
+        block0, sc0 = self._shards[0]
+        rows = torch.empty((len(ids), block0.shape[1]), dtype=block0.dtype,
+                           device=self.device)
+        scales = (None if sc0 is None else torch.empty(
+            (len(ids), 1), dtype=torch.float32, device=self.device))
+        for at, r, sc in parts:
+            rows.index_copy_(0, at, r)
+            if scales is not None:
+                scales.index_copy_(0, at, sc)
+        if scales is not None:
+            return rows.to(torch.float32) * scales
+        return rows.to(torch.float32)
+
     def _place(self, a) -> torch.Tensor:
         if torch.is_tensor(a):
             return a.detach().to(self.device, torch.float32).contiguous()
@@ -214,7 +280,10 @@ class InferenceEngine:
 
     # -- device work ---------------------------------------------------------
 
-    def _forward(self, ids: torch.Tensor) -> torch.Tensor:
+    def _forward(self, ids: torch.Tensor,
+                 host_ids: np.ndarray) -> torch.Tensor:
+        if self._shards is not None:
+            return sgc_apply(self.params, self._gather_shards(host_ids))
         if self._mode == "transductive":
             rows = self._features.index_select(0, ids)
             if self._scales is not None:
@@ -237,7 +306,8 @@ class InferenceEngine:
         b = ids.shape[0]
         slot.ids[:b].copy_(torch.from_numpy(ids))
         dev_ids = slot.ids[:b].to(self.device, non_blocking=True)
-        slot.out[:n].copy_(self._forward(dev_ids)[:n], non_blocking=True)
+        slot.out[:n].copy_(self._forward(dev_ids, ids)[:n],
+                           non_blocking=True)
         if slot.event is not None:
             slot.event.record()
 

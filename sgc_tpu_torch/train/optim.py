@@ -23,6 +23,7 @@ def newton_linear_fit(
     sample_weights: torch.Tensor | None = None,   # [n]
     steps: int = 8,
     binary: bool = False,
+    row_sum=None,
 ):
     """Fit a linear softmax (or sigmoid) head by majorize-minimize Newton
     steps under the fixed Böhning curvature bound ``H <= c * Z'Z/n + wd I``
@@ -31,6 +32,11 @@ def newton_linear_fit(
 
     Returns ``(w, b, loss)``; ``b`` is None iff ``b0`` is None. The loss
     includes ``0.5 * wd * ||W||^2``.
+
+    ``row_sum`` completes every sum over the rows (the Gram matrix, the
+    gradient, the weights' total and the losses): for a row-sharded fit
+    it sums this rank's partial over the ranks that hold the other rows
+    (``parallel/fit.py``); by default the rows are all here.
     """
     n = features.shape[0]
     C = w0.shape[1]
@@ -49,9 +55,12 @@ def newton_linear_fit(
 
     sw = (torch.ones((n,), dtype=f32, device=dev) if sample_weights is None
           else sample_weights.to(f32))
-    sw_sum = sw.sum()
+    if row_sum is None:
+        def row_sum(t):
+            return t
+    sw_sum = row_sum(sw.sum())
     curv = 0.25 if binary else 0.5
-    A = (Z.T @ (Z * sw[:, None])) / sw_sum
+    A = row_sum(Z.T @ (Z * sw[:, None])) / sw_sum
     # wd penalizes W only; the bias keeps a small ridge so the factor
     # stays positive definite when wd == 0
     ridge = 1e-6 * torch.trace(A) / d
@@ -72,11 +81,12 @@ def newton_linear_fit(
         l2 = 0.5 * weight_decay * (w ** 2).sum(dim=(1, 2))
         if binary:
             ll = F.logsigmoid(logits) * y + F.logsigmoid(-logits) * (1.0 - y)
-            return -(sw[None, :, None] * ll).sum(dim=(1, 2)) / sw_sum + l2
+            return -row_sum((sw[None, :, None] * ll).sum(dim=(1, 2))) \
+                / sw_sum + l2
         lp = torch.log_softmax(logits, dim=-1)
         picked = lp.gather(
             -1, y_idx[None, :, None].expand(lp.shape[0], n, 1))[..., 0]
-        return -(sw[None] * picked).sum(dim=1) / sw_sum + l2
+        return -row_sum((sw[None] * picked).sum(dim=1)) / sw_sum + l2
 
     def probs(logits):
         return torch.sigmoid(logits) if binary else torch.softmax(logits, -1)
@@ -90,7 +100,7 @@ def newton_linear_fit(
         mom = (k - 1.0) / (k + 2.0)
         v = theta + mom * (theta - theta_prev)
         logits = Z @ v
-        G = Z.T @ ((probs(logits) - y) * sw[:, None]) / sw_sum
+        G = row_sum(Z.T @ ((probs(logits) - y) * sw[:, None])) / sw_sum
         if has_bias:
             G = torch.cat([G[:-1] + weight_decay * w_of(v), G[-1:]], dim=0)
         else:

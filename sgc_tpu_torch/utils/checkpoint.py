@@ -8,10 +8,13 @@
   one), so a head saved by either package loads in the other;
 * ``PropagationCheckpointer`` / ``propagate_with_checkpoints``: per-hop
   checkpoints of the K-hop propagation, whose hop k is a complete
-  restart point, keyed by ``propagation_fingerprint``.
-
-The reference's orbax ``save_sharded`` / ``load_sharded`` go with
-distribution (ROADMAP queue 1 item 8).
+  restart point, keyed by ``propagation_fingerprint``;
+* ``save_sharded`` / ``load_sharded``: sharded state (the reference's
+  orbax pair, sgc_tpu/utils/checkpoint.py:210-253; there is no orbax
+  here). Every rank writes its own tiles, rank 0 a manifest of global
+  shapes, specs and the mesh shape; a load assembles each leaf and cuts
+  the tiles of the mesh it restores onto, which may differ from the one
+  that saved.
 """
 
 from __future__ import annotations
@@ -178,3 +181,105 @@ def propagate_with_checkpoints(x: torch.Tensor, graph, degree: int,
         if ckpt is not None:
             ckpt.save_hop(k, x)
     return x
+
+
+# ---------------------------------------------------------------------------
+# Sharded state
+# ---------------------------------------------------------------------------
+
+
+def _write_atomic(path: Path, write) -> None:
+    tmp = path.with_name(path.name + ".tmp")
+    with open(tmp, "wb") as f:
+        write(f)
+    os.replace(tmp, path)
+
+
+def save_sharded(path: str | Path, tree: dict, mesh=None,
+                 specs: dict | None = None) -> None:
+    """Write a sharded state: ``tree`` maps a leaf's name to this rank's
+    tile (a tensor or an array), ``specs`` its sharding (one mesh axis
+    name or None per leading dim, as ``parallel.distributed.put_global``;
+    missing = replicated).
+
+    Every rank of ``mesh`` calls it (None: one process, a (1, 1) mesh).
+    Each writes ``tiles_<rank>.npz``; after a barrier over the mesh, rank
+    0 writes ``manifest.json`` (global shapes, dtypes, specs, the mesh
+    shape); a second barrier returns on every rank once the manifest
+    exists. Files by tmp + rename, so a reader never sees half a file.
+    """
+    from sgc_tpu_torch.parallel.mesh import FEAT_AXIS, NODES_AXIS
+
+    path = Path(path)
+    path.mkdir(parents=True, exist_ok=True)
+    specs = specs or {}
+    shape = ({NODES_AXIS: 1, FEAT_AXIS: 1} if mesh is None
+             else dict(mesh.shape))
+    rank = 0 if mesh is None else mesh.rank
+    arrays = {k: host(v) for k, v in tree.items()}
+    _write_atomic(path / f"tiles_{rank}.npz",
+                  lambda f: np.savez(f, **arrays))
+    if mesh is not None:
+        mesh.barrier()
+    if rank == 0:
+        leaves = {}
+        for k, a in arrays.items():
+            spec = list(specs.get(k, ()))
+            glob = [d * (shape[spec[i]] if i < len(spec) and spec[i] else 1)
+                    for i, d in enumerate(a.shape)]
+            leaves[k] = {"shape": glob, "dtype": a.dtype.str, "spec": spec}
+        manifest = {"mesh": [shape[NODES_AXIS], shape[FEAT_AXIS]],
+                    "leaves": leaves}
+        _write_atomic(path / "manifest.json",
+                      lambda f: f.write(json.dumps(manifest).encode()))
+    if mesh is not None:
+        mesh.barrier()
+
+
+def _assemble(path: Path, manifest: dict) -> dict:
+    """Every leaf's full host value from the saved tiles."""
+    from sgc_tpu_torch.parallel.mesh import FEAT_AXIS, NODES_AXIS
+
+    n_nodes, n_feat = manifest["mesh"]
+    sizes = {NODES_AXIS: n_nodes, FEAT_AXIS: n_feat}
+    out = {k: np.zeros(m["shape"], np.dtype(m["dtype"]))
+           for k, m in manifest["leaves"].items()}
+    for rank in range(n_nodes * n_feat):
+        coords = {NODES_AXIS: rank // n_feat, FEAT_AXIS: rank % n_feat}
+        with np.load(path / f"tiles_{rank}.npz") as f:
+            for k, m in manifest["leaves"].items():
+                tile = f[k]
+                idx = []
+                for d, n in enumerate(tile.shape):
+                    axis = m["spec"][d] if d < len(m["spec"]) else None
+                    c = coords[axis] if axis else 0
+                    idx.append(slice(c * n, (c + 1) * n))
+                out[k][tuple(idx)] = tile
+    return out
+
+
+def load_sharded(path: str | Path, like: dict | None = None, mesh=None):
+    """The state :func:`save_sharded` wrote. ``like=None``: every leaf as
+    a full host array. Else ``like`` names the leaves wanted (a dict of
+    this rank's tiles on the mesh it restores onto, for their names,
+    dtypes and devices) and ``mesh`` that mesh (None: one process): each
+    rank gets its tile of every leaf under the saved spec, whatever mesh
+    saved it."""
+    from sgc_tpu_torch.parallel.distributed import _tile_slices
+
+    path = Path(path)
+    manifest = json.loads((path / "manifest.json").read_text())
+    full = _assemble(path, manifest)
+    if like is None:
+        return full
+    missing = set(like) - set(full)
+    if missing:
+        raise KeyError(f"{path}: no saved leaf {sorted(missing)}")
+    out = {}
+    for k, ref in like.items():
+        spec = tuple(manifest["leaves"][k]["spec"])
+        tile = full[k] if mesh is None else full[k][_tile_slices(
+            mesh, spec, full[k].shape)]
+        out[k] = torch.from_numpy(np.ascontiguousarray(tile)).to(
+            device=ref.device, dtype=ref.dtype)
+    return out

@@ -448,12 +448,15 @@ def test_citation_run_matches_reference(planetoid_root, monkeypatch,
 
 
 def test_citation_run_raises_for_unported_paths(planetoid_root):
-    with pytest.raises(NotImplementedError, match="item 8"):
-        port_citation.run(CitationConfig(), str(planetoid_root),
-                          sharded=True, device=CPU)
-    with pytest.raises(NotImplementedError, match="item 8"):
-        port_citation.run(CitationConfig(model="GCN"), str(planetoid_root),
-                          sharded=True, device=CPU)
+    """``sharded=True`` (ported since) runs in a world of one gloo rank
+    and returns the reference's keys (GCN's sharded run is held in
+    tests/test_torch_port_dist_cli.py)."""
+    got = port_citation.run(CitationConfig(epochs=20), str(planetoid_root),
+                            sharded=True, device=CPU)
+    assert set(got) == {"val_accuracy", "test_accuracy", "precompute_time",
+                        "train_time", "total_time", "formulation",
+                        "halo_fraction"}
+    assert got["precompute_time"] == 0.0 and got["train_time"] > 0
 
 
 def test_citation_run_sharded_argument_error_matches_reference(

@@ -1281,3 +1281,41 @@ def test_cuda_sharded_blockdense_hop_on_two_ranks(cuda, tmp_path):
                      "state": state, "degree": 2, "lr": 0.2,
                      "weight_decay": 0.0}), timeout_s=300)[0]
     assert one["same_bits"] == {"hop": True, "train": True}
+
+
+@pytest.mark.cuda
+def test_cuda_sharded_gcn_backward_on_two_ranks(cuda, tmp_path):
+    """Two ranks on the card over gloo: one GCN step (hidden 16) through
+    the block-dense plan at "f32", every kernel A and kernel B launch of
+    its forward and of its backward (the transposed cell plan, the
+    transposed remainders, the send scatter) held against its plain
+    version at 1e-5; the step again gives the same gradient bits."""
+    import scipy.sparse as sp
+
+    from sgc_tpu_torch.parallel.bodies import (
+        held_gcn_step_check,
+        write_inputs,
+        write_plans,
+    )
+    from sgc_tpu_torch.parallel.distributed import launch
+
+    rows, cols, vals = community_coo(37, 3000, 512, 4, 60000, 40000)
+    a = sp.coo_matrix((np.abs(vals), (rows, cols)), shape=(3000, 3000))
+    g = PortGraph.from_scipy(a.tocsr())
+    x = np.random.default_rng(7).standard_normal((3000, 96)).astype(
+        np.float32)
+    write_inputs(tmp_path / "plans", g, x, np.arange(3000) % 5,
+                 np.arange(0, 3000, 2))
+    bd = write_plans(tmp_path / "plans", g, {2: True}, n_features=96,
+                     min_edges=2000.0)["plans"][2][2]
+    assert bd.part_cells_int.min() > 0 and bd.sparse_edges > 0
+    out = launch(held_gcn_step_check, 2, "gloo", tmp_path / "init",
+                 args=(str(tmp_path / "plans"), 2, "f32"), timeout_s=300)
+    for r in out:
+        assert r["same_bits"] and r["device"] == "cuda:0"
+        assert r["launches"]["blockdense_cells_backward"] > 0
+        assert r["launches"]["csr_spmm_backward"] > 0
+        for direction in ("forward", "backward"):
+            assert sorted(r[direction]) == ["blockdense_cells", "csr_spmm"]
+            for name, (_, rel) in r[direction].items():
+                assert rel <= TOL, f"{direction} {name}: {rel:.3e}"

@@ -205,8 +205,11 @@ def test_reddit_locality_features_match_plain_path(clustered_root):
 
 
 def test_reddit_run_raises_for_unported_paths(clustered_root):
-    """The reference's argument errors come first, with its messages;
-    only a valid ``sharded=True`` call raises "not ported"."""
+    """The reference's argument errors come first, with its messages; a
+    valid ``sharded=True`` call (ported since) runs, here in a world of
+    one gloo rank, and gives the unsharded run's features to the bf16
+    rounding of the block-dense cells (``formulation="auto"``) and bit
+    for bit through ``"segment"`` on one rank's kernel-B hops."""
     root, _ = clustered_root
     for bad in (dict(formulation="segment"),
                 dict(locality=True, sharded=True)):
@@ -215,8 +218,11 @@ def test_reddit_run_raises_for_unported_paths(clustered_root):
         with pytest.raises(ValueError) as got:
             port_reddit.run(data_path=str(root), device=CPU, **bad)
         assert str(got.value) == str(want.value), bad
-    with pytest.raises(NotImplementedError, match="item 8"):
-        port_reddit.run(data_path=str(root), sharded=True, device=CPU)
-    with pytest.raises(NotImplementedError, match="item 8"):
-        port_reddit.run(data_path=str(root), sharded=True,
-                        formulation="segment", device=CPU)
+    plain = port_reddit.run(data_path=str(root), device=CPU)
+    for form, tol in (("auto", 1e-2), ("segment", 1e-5)):
+        got = port_reddit.run(data_path=str(root), sharded=True,
+                              formulation=form, device=CPU)
+        assert set(got) == set(plain)
+        assert rel_err(got["eval_features"].numpy(),
+                       plain["eval_features"].numpy()) <= tol
+        assert abs(got["f1_micro"] - plain["f1_micro"]) < 5e-3

@@ -242,6 +242,7 @@ def test_unported_and_provider_stores_raise(trained):  # noqa: F811
 
     class Provider:
         shape = feats.shape
+        dtype = feats.dtype
 
         def __call__(self, lo, hi):
             return feats[lo:hi]
@@ -255,10 +256,11 @@ def test_unported_and_provider_stores_raise(trained):  # noqa: F811
         InferenceEngine(head, features=Provider(), device=CPU,
                         config=EngineConfig(shard_store=True,
                                             quantize_int8=True))
+    # a sharded store (ported since) serves both stores
     for store in (feats, Provider()):
-        with pytest.raises(NotImplementedError, match="distribution"):
-            InferenceEngine(head, features=store, device=CPU,
-                            config=EngineConfig(shard_store=True))
+        eng = InferenceEngine(head, features=store, device=CPU,
+                              config=EngineConfig(shard_store=True))
+        assert eng.predict_logits([0, 5]).shape == (2, head.w.shape[1])
     _, pg = _graph_pair(feats.shape[0], 200, 2)
     with pytest.raises(ValueError, match="transductive"):
         InferenceEngine(head, graph=pg, raw_features=feats, device=CPU,
@@ -270,6 +272,40 @@ def test_unported_and_provider_stores_raise(trained):  # noqa: F811
         InferenceEngine(head, device=CPU)
     with pytest.raises(ValueError, match="raw_features"):
         InferenceEngine(head, graph=pg, device=CPU)
+
+
+@pytest.mark.parametrize("n_shards", [1, 3])
+@pytest.mark.parametrize("store", ["f32", "int8", "provider"])
+def test_shard_store_equals_unsharded_bits(trained, monkeypatch, n_shards,
+                                           store):  # noqa: F811
+    """A store row-sharded over ``n_shards`` devices (the CPU standing in
+    for each card) gives the unsharded engine's logits bit for bit,
+    request rows reassembled in order, ids from every shard mixed."""
+    params, feats, _ = trained
+    head = _head(params)
+    monkeypatch.setattr(port_engine, "store_devices",
+                        lambda device: [device] * n_shards)
+    cfg = dict(min_batch=4, max_batch=32, quantize_int8=store == "int8")
+
+    class Provider:
+        shape, dtype = feats.shape, feats.dtype
+
+        def __call__(self, lo, hi):
+            return feats[lo:hi]
+
+    plain = InferenceEngine(head, features=feats, device=CPU,
+                            config=EngineConfig(**cfg))
+    sharded = InferenceEngine(
+        head, features=Provider() if store == "provider" else feats,
+        device=CPU, config=EngineConfig(shard_store=True, **cfg))
+    assert len(sharded._shards) == n_shards
+    ids = np.random.default_rng(n_shards).integers(0, feats.shape[0], 29)
+    ids[:3] = [feats.shape[0] - 1, 0, feats.shape[0] - 1]
+    for batch in (ids, ids[:1], ids[:8]):
+        np.testing.assert_array_equal(sharded.predict_logits(batch),
+                                      plain.predict_logits(batch))
+    streamed = list(sharded.predict_logits_stream([ids[:5], ids], depth=2))
+    np.testing.assert_array_equal(streamed[1], plain.predict_logits(ids))
 
 
 def _post(port, path, payload):
@@ -383,9 +419,12 @@ def test_run_bench_on_a_small_cpu_store(capsys):
     for r in out["results"]:
         assert r.get("pipelined_bitwise_equal", True) is True
         assert ("pipelined_bitwise_equal" in r) == (r["variant"] != "inductive")
-    with pytest.raises(NotImplementedError, match="distribution"):
-        serve_cli.run_bench(Namespace(**{**vars(a), "variants": "shard"}),
-                            device="cpu")
+    shard = serve_cli.run_bench(Namespace(**{**vars(a), "variants": "shard"}),
+                                device="cpu")
+    capsys.readouterr()
+    assert {(r["variant"], r["batch"]) for r in shard["results"]} == {
+        ("shard", b) for b in (1, 8, 64)}
+    assert all(r["pipelined_bitwise_equal"] for r in shard["results"])
     with pytest.raises(SystemExit):
         serve_cli.run_bench(Namespace(**{**vars(a), "variants": "f16"}),
                             device="cpu")
