@@ -54,7 +54,10 @@ after:
                   (1, 1); measure_spmm_scaling (P ranks on one card, gloo
                   over host: not a scaling figure); an NCCL world of one
                   rank whose block-dense hop and train step equal a gloo
-                  mesh's bit for bit
+                  mesh's bit for bit; then, the world ended, rank 0's
+                  operands alone on the card: each kernel call of a
+                  block-dense hop (F = 602) and of its backward (F = 41)
+                  beside its library call
     sharded_training_path:
                   on sharded_path's plans and inputs, one 4-rank gloo
                   world on cuda:0: fit_sharded on (2, 2) (the auto
@@ -193,6 +196,16 @@ counters zeroed just before each run and read just after:
     text_prep:      write_scopus_csv -> prepare_covid_dataset (7,362 /
                     1,825 abstracts, 34 labels) -> clean_corpus (host)
 
+Last, the benchmark entry point as a process, its counters zeroed just
+before each leg and read just after (in its sidecar):
+
+    bench_path:     python -m sgc_tpu_torch.bench at --scale, both
+                    topologies: exit 0, a compact line of at most 1200
+                    chars, every parity gate passed, dense_frac equal to
+                    calibrated_path's (headline), main_path's and
+                    onehot_path's (forms), each leg's kernels launched,
+                    the roofline terms, the 8-part plan and the sweep
+
 Phases print one JSON line each on stdout; the line before the last is
 ``{"kernels": [...]}`` (each row also carries its launches on the new
 paths, ``launches_by_path``) and the last is ``{"ok": true, "device":
@@ -258,11 +271,9 @@ def rel_err(got, want) -> tuple[float, float]:
 def phase_device() -> str:
     import torch
 
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"],
-        check=True, capture_output=True, text=True, timeout=60)
-    card = smi.stdout.strip().splitlines()[0]
+    from sgc_tpu_torch.bench import card_line
+
+    card = card_line(torch.device("cuda", 0))
     print(card, flush=True)
     # FP32 matmuls in the plain versions stay full FP32 (no TF32)
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -305,14 +316,14 @@ def phase_calibrate(device) -> dict:
 
 def drive_plan(plan, device, counters) -> dict:
     """One user-level run of a plan: ``khop_traceable(degree=2)`` and the
-    8-step Newton head, warm, then timed; the launch counters in
-    ``counters`` ({name: module}) are zeroed just before and read just
+    8-step Newton head, warm, then timed (the bench's pair of regions,
+    ``sgc_tpu_torch/bench.py::time_hops_and_head``); the launch counters
+    in ``counters`` ({name: module}) are zeroed just before and read just
     after the timed run and the timed hops."""
     import torch
 
+    from sgc_tpu_torch.bench import time_hops_and_head
     from sgc_tpu_torch.models.sgc import init_sgc
-    from sgc_tpu_torch.train.loops import _newton_linear_fit
-    from sgc_tpu_torch.utils.profiling import sync
 
     x = torch.as_tensor(plan.features, device=device)
     n_classes = int(plan.labels.max()) + 1
@@ -321,43 +332,24 @@ def drive_plan(plan, device, counters) -> dict:
     y = torch.as_tensor(plan.labels[plan.idx_train], device=device).long()
     cw = torch.ones(n_classes, device=device)
     khop, dev_args = plan.khop_traceable(degree=2, precision="f32")
-
-    def step():
-        tr = khop(x, dev_args)
-        fit, _ = _newton_linear_fit(params0, tr, y, 0.0, cw, 8, False, False)
-        return fit
-
-    t0 = time.perf_counter()
-    step()
-    sync(device)
-    warm_s = time.perf_counter() - t0
-    t0 = time.perf_counter()
-    step()
-    sync(device)
-    total_s = time.perf_counter() - t0
-    t0 = time.perf_counter()
-    tr = khop(x, dev_args)
-    sync(device)
-    hops_s = time.perf_counter() - t0
+    t = time_hops_and_head(khop, dev_args, x, params0, y, 0.0, cw, device)
+    tr = t["tr"]
     launches = {name: mod.LAUNCHES for name, mod in counters.items()}
     if tuple(tr.shape) != (len(plan.idx_train), x.shape[1]):
         raise AssertionError(f"propagated shape {tuple(tr.shape)}")
     edges = plan.graph.nnz + plan.graph_final.nnz
     return {"x": x, "y": y, "cw": cw, "params0": params0, "tr": tr,
             "dev_args": dev_args, "launches": launches,
-            "timings": {"warm_s": warm_s, "total_s": total_s,
-                        "hops_s": hops_s, "edges": edges,
-                        "edges_per_s": edges / hops_s}}
+            "timings": {"warm_s": t["warm_s"], "total_s": t["total_s"],
+                        "hops_s": t["hops_s"], "edges": edges,
+                        "edges_per_s": edges / t["hops_s"]}}
 
 
 def phase_main_path(args, device) -> dict:
+    from sgc_tpu_torch.bench import train_parity
     from sgc_tpu_torch.data.synthetic import synthetic_reddit_clustered
     from sgc_tpu_torch.graph.locality import LocalityPlan
     from sgc_tpu_torch.ops import spmm, spmm_blockdense
-    from sgc_tpu_torch.train.loops import (
-        _lbfgs_linear_fit,
-        _newton_linear_fit,
-    )
 
     counters = {"blockdense_cells": spmm_blockdense, "csr_spmm": spmm}
     for mod in counters.values():
@@ -392,8 +384,7 @@ def phase_main_path(args, device) -> dict:
         raise AssertionError(f"propagation vs plain: rel err {err:.3e}")
     del plain_tr
 
-    parity = train_parity(tr, run["y"], run["params0"], run["cw"],
-                          _newton_linear_fit, _lbfgs_linear_fit)
+    parity = train_parity(tr, run["y"], run["params0"], 0.0, run["cw"])
     emit({"phase": "main_path", "formulation": plan.formulation,
           "precision": "f32",
           "calibrate": False, "min_edges": s.min_edges,
@@ -419,13 +410,10 @@ def phase_onehot_path(data, device) -> dict:
     ``LocalityPlan.build(formulation="onehot")`` (hybrid splits), two
     hops through kernel C (dense cells) and kernel B (remainder), the
     Newton head; rows held against kernel B alone over the whole
-    operators, and the head against the LBFGS oracle."""
+    operators, and the head against the LBFGS oracle (the bench's gate)."""
+    from sgc_tpu_torch.bench import train_parity
     from sgc_tpu_torch.graph.locality import LocalityPlan
     from sgc_tpu_torch.ops import spmm, spmm_tiled
-    from sgc_tpu_torch.train.loops import (
-        _lbfgs_linear_fit,
-        _newton_linear_fit,
-    )
 
     counters = {"tiled_spmm": spmm_tiled, "csr_spmm": spmm}
     for mod in counters.values():
@@ -444,8 +432,7 @@ def phase_onehot_path(data, device) -> dict:
     del oracle
     if not err <= TOLERANCE:
         raise AssertionError(f"onehot rows vs all-segment: {err:.3e}")
-    parity = train_parity(tr, run["y"], run["params0"], run["cw"],
-                          _newton_linear_fit, _lbfgs_linear_fit)
+    parity = train_parity(tr, run["y"], run["params0"], 0.0, run["cw"])
     s, sf = plan.split_main, plan.split_final
     emit({"phase": "onehot_path", "formulation": plan.formulation,
           "min_fill": s.min_fill, "dense_frac": plan.dense_fraction,
@@ -464,7 +451,7 @@ def phase_onehot_path(data, device) -> dict:
     return {"plan": plan, "x": x, "launches": launches, "graph": g_main}
 
 
-def phase_calibrated_path(data, tr_main, device) -> None:
+def phase_calibrated_path(data, tr_main, device) -> float:
     """The same hops under admission by the rates measured on this card
     (``calibrate=True``): the split the card's own cost model picks, its
     dense fraction and hop time, and its rows against the main path's."""
@@ -499,35 +486,7 @@ def phase_calibrated_path(data, tr_main, device) -> None:
           "cells_final": plan.split_final.n_cells, "prep_s": prep_s,
           "hops_s": hops_s, "edges_per_s": edges / hops_s,
           "rows_vs_main_path_rel_err": err})
-
-
-def train_parity(tr, y, params0, cw, newton_fit, lbfgs_fit) -> dict:
-    """Newton vs the LBFGS oracle on the same propagated rows, as the
-    reference bench gates it: both >= 5x chance, Newton's accuracy within
-    2 points of LBFGS's or better and its loss within 5%; a converged
-    retry (32 Newton steps / 16 LBFGS epochs) decides a disagreement."""
-    def acc_of(model):
-        return float((model(tr).argmax(dim=1) == y).float().mean())
-
-    wd = 1e-5
-    chance = 1.0 / float(int(y.max()) + 1)
-    converged_retry = False
-    for steps_n, ep_l in ((8, 2), (32, 16)):
-        p_n, loss_n = newton_fit(params0, tr, y, wd, cw, steps_n, False,
-                                 False)
-        p_l, loss_l = lbfgs_fit(params0, tr, y, wd, cw, ep_l, False, False,
-                                1.0)
-        acc_n, acc_l = acc_of(p_n), acc_of(p_l)
-        parity_ok = bool(acc_n >= 5 * chance and acc_l >= 5 * chance
-                         and acc_n >= acc_l - 0.02
-                         and float(loss_n) <= 1.05 * float(loss_l) + 1e-6)
-        if parity_ok:
-            break
-        converged_retry = True
-    return {"trainer": "newton", "newton_loss": float(loss_n),
-            "lbfgs_loss": float(loss_l), "newton_train_acc": acc_n,
-            "lbfgs_train_acc": acc_l, "chance_acc": chance,
-            "parity_ok": parity_ok, "converged_retry": converged_retry}
+    return plan.dense_fraction
 
 
 def cells_csr(split, dargs, n_slots):
@@ -1109,24 +1068,16 @@ def phase_dispatcher(onehot, reps) -> None:
 
 def counted(fn):
     """``(fn(), launches)``: every kernel's counter, by its row name in the
-    kernels line, zeroed just before the call and read just after it (the
-    card synchronized)."""
+    kernels line (``sgc_tpu_torch/bench.py::LAUNCH_COUNTERS``), zeroed
+    just before the call and read just after it (the card synchronized)."""
     import torch
 
-    from sgc_tpu_torch.ops import autograd, spmm, spmm_blockdense, spmm_tiled
+    from sgc_tpu_torch.bench import read_launches, zero_launches
 
-    counters = {"blockdense_cells": (spmm_blockdense, "LAUNCHES"),
-                "csr_spmm": (spmm, "LAUNCHES"),
-                "tiled_spmm": (spmm_tiled, "LAUNCHES"),
-                "sddmm": (spmm, "SDDMM_LAUNCHES"),
-                # of csr_spmm's: those over a transpose (backward)
-                "csr_spmm_transposed": (autograd, "TRANSPOSED_LAUNCHES")}
-    for mod, attr in counters.values():
-        setattr(mod, attr, 0)
+    zero_launches()
     out = fn()
     torch.cuda.synchronize()
-    return out, {name: getattr(mod, attr)
-                 for name, (mod, attr) in counters.items()}
+    return out, read_launches()
 
 
 def scratch_dir():
@@ -2783,7 +2734,7 @@ SHARDED_FORMS = (
 )
 
 
-def sharded_host_work(root, graph, features, device, f) -> dict:
+def sharded_host_work(root, graph, features, device, f) -> tuple:
     """The parent's part of ``sharded_path``: the plans at P = 4 (with the
     block-dense plan at the committed admission), 2 and 1 written for the
     ranks, and the two single-device references (two kernel-B hops over
@@ -2825,7 +2776,7 @@ def sharded_host_work(root, graph, features, device, f) -> dict:
     np.save(os.path.join(root, "ref_blockdense.npy"),
             spmm_segment(g, spmm_segment(g, x)).cpu().numpy())
     plan["host_s"] = time.perf_counter() - t0
-    return plan
+    return plan, (pg, ho, bd)
 
 
 def phase_sharded_path(data, device, card, seed, reps) -> dict:
@@ -2898,7 +2849,8 @@ def phase_sharded_path(data, device, card, seed, reps) -> dict:
                 launch, smoke_world_of_one, 1, "nccl",
                 os.path.join(root, "init1"), (root, cfg), 300)
             try:
-                host = sharded_host_work(root, graph, features, device, f)
+                host, plans4 = sharded_host_work(root, graph, features,
+                                                 device, f)
                 one = pending_one.result()[0]
             except BaseException:
                 # the waiting ranks see this and stop at once
@@ -2908,6 +2860,9 @@ def phase_sharded_path(data, device, card, seed, reps) -> dict:
             open(os.path.join(root, "ready"), "w").close()
             ranks = pending.result()
             world_s = time.perf_counter() - t_world
+        # the world has ended: rank 0's operands alone on the card
+        library = sharded_library_times(plans4, device, reps)
+        del plans4
         done = True
     finally:
         # the plans and inputs stay for sharded_training_path
@@ -2973,10 +2928,105 @@ def phase_sharded_path(data, device, card, seed, reps) -> dict:
           "sections_s_per_rank": [r["sections_s"] for r in ranks],
           "rank_start_s": max(r["started_unix"] for r in ranks)
           - t_world_unix,
-          "world_s": world_s, "world_of_one_s": one_s, "phase_s": phase_s})
+          "world_s": world_s, "world_of_one_s": one_s,
+          "library_rank0": library, "phase_s": phase_s})
     log(f"sharded_path: {phase_s:.1f}s ({ranks[0]['scaling_line']}; P "
         "ranks on one card, gloo over host)")
-    return {"launches": launches, "max_abs_err": worst, "root": root}
+    return {"launches": launches, "max_abs_err": worst, "root": root,
+            "library": library}
+
+
+def sharded_library_times(plans, device, reps) -> dict:
+    """Rank 0's operands of the P = 4 block-dense plan (``plans``: the
+    partition, halo and block-dense plans sharded_path writes), placed in
+    this process once the world has ended, so each call has the card to
+    itself: each kernel call of one forward hop at F = 602 (``"f32"``)
+    and of its backward at F = 41 (the transposed cells, remainders and
+    send scatter), timed beside its plain version and the same function
+    as one library call: the cells' nonzeros as a CSR matrix under
+    ``torch.addmm``, a remainder as one under ``torch.addmm`` with the
+    dense term it adds, or ``torch.sparse.mm`` where it adds none. Each
+    library result is held against the kernel's (BF16_TOLERANCE: kernel
+    A at "f32" sums two bf16 terms of x)."""
+    import torch
+
+    from sgc_tpu_torch.ops import spmm_blockdense as bd_ops
+    from sgc_tpu_torch.ops.spmm import spmm_segment, spmm_segment_plain
+    from sgc_tpu_torch.parallel.autograd import (
+        live_send_slots,
+        transposed_view,
+    )
+    from sgc_tpu_torch.parallel.blockdense import local_blockdense
+    from sgc_tpu_torch.parallel.mesh import FEAT_AXIS, NODES_AXIS, Mesh
+
+    pg, _, bd = plans
+    mesh = Mesh(shape={NODES_AXIS: pg.n_parts, FEAT_AXIS: 1}, rank=0,
+                coords={NODES_AXIS: 0, FEAT_AXIS: 0}, groups={},
+                device=device, transport=None)
+    local = local_blockdense(mesh, bd)
+    gen = torch.Generator(device=device).manual_seed(11)
+    R, PH = bd.rows_per_part, bd.n_parts * bd.halo_width
+
+    def randn(n, f):
+        return torch.randn((n, f), device=device, generator=gen)
+
+    def a_term(split, args, x):
+        csr = cells_csr(split, args, split.n_cells)
+        zero = x.new_zeros((split.n_rows, x.shape[1]))
+        got = bd_ops.apply_cells(split, args, x, "f32")
+        _, err = rel_err(torch.addmm(zero, csr, x, beta=0.0), got)
+        if not err <= BF16_TOLERANCE:
+            raise AssertionError(f"cells as CSR vs kernel A: {err:.3e}")
+        return got, {
+            "F": int(x.shape[1]), "cells": split.n_cells,
+            "ms": time_ms(lambda: bd_ops.apply_cells(split, args, x, "f32"),
+                          reps),
+            "plain_ms": time_ms(
+                lambda: bd_ops.apply_cells_plain(split, args, x, "f32"), 2),
+            "library_ms": time_ms(
+                lambda: torch.addmm(zero, csr, x, beta=0.0), reps),
+            "library": f"torch.addmm, {int(csr._nnz())} cell nonzeros as "
+                       "CSR", "library_rel_err": err}
+
+    def b_term(graph, x, dense):
+        csr = csr_of(graph)
+        lib = ((lambda: torch.sparse.mm(csr, x)) if dense is None
+               else (lambda: torch.addmm(dense, csr, x)))
+        _, err = rel_err(lib(), spmm_segment(graph, x, dense))
+        if not err <= TOLERANCE:
+            raise AssertionError(f"remainder as CSR vs kernel B: {err:.3e}")
+        return {"F": int(x.shape[1]), "nnz": graph.nnz,
+                "ms": time_ms(lambda: spmm_segment(graph, x, dense), reps),
+                "plain_ms": time_ms(
+                    lambda: spmm_segment_plain(graph, x, dense), 2),
+                "library_ms": time_ms(lib, reps),
+                "library": ("torch.sparse.mm" if dense is None else
+                            "torch.addmm with the dense term") + ", CSR",
+                "library_rel_err": err}
+
+    out = {"rank": 0, "a": {}, "b": {}}
+    x, halo = randn(R, 602), randn(PH, 602)
+    for side, split, args, xs, rest in (
+            ("interior", local.split_int, local.args_int, x, local.rest_int),
+            ("boundary", local.split_bnd, local.args_bnd, halo,
+             local.rest_bnd)):
+        dense = None
+        if split is not None:
+            dense, out["a"][side] = a_term(split, args, xs)
+        out["b"][side] = b_term(rest.graph, xs, dense)
+    t = transposed_view("blockdense", local, device,
+                        live_send_slots(pg, bd.halo_width, 0))
+    g, g_halo = randn(R, 41), randn(PH, 41)
+    for side, cells in (("interior", t.cells_int), ("boundary", t.cells_bnd)):
+        if cells is not None:
+            out["a"][f"backward_{side}"] = a_term(*cells, g)[1]
+    for name, csr, xs in (("backward_interior", t.interior, g),
+                          ("backward_boundary", t.boundary, g),
+                          ("backward_send_scatter", t.scatter, g_halo)):
+        out["b"][name] = b_term(csr.graph, xs, None)
+    del local, t
+    torch.cuda.empty_cache()
+    return out
 
 
 TRAINING_EPOCHS = 20              # Adam epochs of the sharded SGC fit
@@ -3782,6 +3832,93 @@ def phase_devices_cli() -> None:
     emit({"phase": "devices_cli", "output": text.splitlines()})
 
 
+BENCH_TIMEOUT_S = 300
+# the kernels each leg of the bench must have launched
+BENCH_LEG_KERNELS = {
+    "clustered": ("csr_spmm",), "uniform_segment": ("csr_spmm",),
+    "uniform_auto": ("csr_spmm",),
+    "forms.blockdense_kernel": ("blockdense_cells", "csr_spmm"),
+    "forms.onehot": ("tiled_spmm", "csr_spmm")}
+
+
+def phase_bench_path(args, dense_fracs) -> dict:
+    """``python -m sgc_tpu_torch.bench`` as a process at ``--scale``, both
+    topologies: exit 0, a compact line of at most COMPACT_MAX_CHARS with
+    the metric, every parity gate passed, the calibrated headline's
+    dense_frac equal to calibrated_path's and the forms' to main_path's
+    and onehot_path's (``dense_fracs``, at the default seed 42, the
+    bench's), each leg's launches (from its sidecar) naming its kernels,
+    and the sidecar's roofline terms, 8-part plan and comm sweep."""
+    import torch
+
+    from sgc_tpu_torch.bench import COMPACT_MAX_CHARS, DETAILS_PATH, FORMS
+
+    torch.cuda.empty_cache()    # the card's memory for the bench process
+    t0 = time.perf_counter()
+    DETAILS_PATH.unlink(missing_ok=True)
+    env = {**os.environ, "SGC_BENCH_SCALE": str(args.scale),
+           "SGC_BENCH_TOPOLOGY": "both"}
+    for var in ("SGC_BENCH_FORMULATION", "SGC_BENCH_TRAINER",
+                "SGC_BENCH_PROFILE_PLAN"):
+        env.pop(var, None)
+    r = subprocess.run([sys.executable, "-m", "sgc_tpu_torch.bench"],
+                       cwd=os.path.dirname(os.path.abspath(__file__)),
+                       env=env, capture_output=True, text=True,
+                       timeout=BENCH_TIMEOUT_S)
+    bench_s = time.perf_counter() - t0
+    if r.returncode != 0:
+        log(r.stderr[-6000:])
+        raise AssertionError(f"sgc_tpu_torch.bench exited {r.returncode}")
+    line = r.stdout.strip().splitlines()[-1]
+    print(line, flush=True)
+    c = json.loads(line)
+    side = json.loads(DETAILS_PATH.read_text())
+    if len(line) > COMPACT_MAX_CHARS:
+        raise AssertionError(f"bench line {len(line)} chars")
+    if c["metric"] != "reddit_sgc_precompute_train_s":
+        raise AssertionError(f"bench metric {c['metric']!r}")
+    gates = {"clustered": c["train_parity"]["parity_ok"],
+             **{f"forms.{f}": side["forms"][f]["parity_ok"] for f in FORMS}}
+    if not all(gates.values()):
+        raise AssertionError(f"bench parity gates: {gates}")
+    got = {"calibrated": side["legs"]["clustered"]["dense_frac"],
+           **{f: side["forms"][f]["dense_frac"] for f in FORMS}}
+    if args.seed == 42 and got != dense_fracs:
+        raise AssertionError(f"bench dense_frac {got} != the smoke's "
+                             f"{dense_fracs}")
+    launches = {**{k: v["launches"] for k, v in side["legs"].items()},
+                **{f"forms.{f}": side["forms"][f]["launches"]
+                   for f in FORMS}}
+    for leg, need in BENCH_LEG_KERNELS.items():
+        if min(launches[leg][k] for k in need) <= 0:
+            raise AssertionError(f"bench leg {leg} never launched one of "
+                                 f"{need}: {launches[leg]}")
+    for roofline in (side["roofline"],
+                     side["forms"]["blockdense_kernel"]["roofline"]):
+        if not {"dense", "remainder"} <= set(roofline):
+            raise AssertionError(f"bench roofline terms: {set(roofline)}")
+    ps = side["projected_scaling"]
+    if ps["sharded_blockdense_plan"]["n_parts"] != 8:
+        raise AssertionError("bench sharded plan is not 8 parts")
+    if not ps["comm_sweep"]["rows"]:
+        raise AssertionError("bench comm sweep has no rows")
+    legs = {k: {m: v[m] for m in ("total_s", "precompute_s", "dense_frac",
+                                  "formulation") if m in v}
+            for k, v in side["legs"].items()}
+    forms = {f: {m: side["forms"][f][m] for m in (
+        "hops_s", "total_s", "dense_frac", "prep_s", "parity_ok")}
+        for f in FORMS}
+    log(f"bench_path: {bench_s:.1f}s")
+    emit({"phase": "bench_path", "line": c, "bench_s": bench_s,
+          "card": side["card"], "legs": legs, "forms": forms,
+          "launches": launches, "roofline": side["roofline"],
+          "forms_blockdense_roofline":
+              side["forms"]["blockdense_kernel"]["roofline"],
+          "sharded_blockdense_plan": ps["sharded_blockdense_plan"],
+          "comm_sweep_rows": len(ps["comm_sweep"]["rows"])})
+    return launches
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--scale", type=float, default=1.0,
@@ -3812,11 +3949,14 @@ def main() -> int:
     main = phase_main_path(args, device)
     data = main.pop("data")
     plan = main["plan"]
+    dense_fracs = {"blockdense_kernel": plan.dense_fraction}
     sharded_data = (plan.graph, plan.features, plan.labels, plan.idx_train)
     del plan
     phase_prep_attribution(data, main, device)
-    phase_calibrated_path(data, main.pop("tr"), device)
+    dense_fracs["calibrated"] = phase_calibrated_path(data, main.pop("tr"),
+                                                      device)
     onehot = phase_onehot_path(data, device)
+    dense_fracs["onehot"] = onehot["plan"].dense_fraction
     shuffled = data[:2]
     rows = [phase_kernel_a(main["plan"], main["x"], main["launches"],
                            args.reps)]
@@ -3856,6 +3996,7 @@ def main() -> int:
     by_path["serve_path"] = phase_serve_path(args, device, card, args.reps)
     baselines = phase_text_baselines(args, device, args.reps)
     by_path.update(baselines["launches"])
+    by_path["bench_path"] = phase_bench_path(args, dense_fracs)
     by_path["gat_train"]["reddit_2_steps"] = gat_reddit["launches"]
     for row in rows:
         row["launches_by_path"] = {
@@ -3904,6 +4045,9 @@ def main() -> int:
     rows[3]["gat_reddit_backward"] = {F: w["d"] for F, w in
                                       gat_reddit["widths"].items()
                                       if "d" in w}
+    # rank 0's sharded operands alone on the card, beside library calls
+    rows[0]["sharded_library"] = sharded["library"]["a"]
+    rows[1]["sharded_library"] = sharded["library"]["b"]
     log(f"chip_smoke: {time.perf_counter() - t_start:.1f}s (ordering_path, "
         f"graph_store, kernel_bench_cli, devices_cli: {new_paths_s:.1f}s)")
     emit({"kernels": rows})

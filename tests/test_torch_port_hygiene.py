@@ -41,6 +41,48 @@ print(len(walked))
     assert int(out[1]) >= int(out[2]) >= 40
 
 
+PORT_ENTRY_MODULES = ("sgc_tpu_torch/bench.py",
+                      "sgc_tpu_torch/examples/quickstart.py")
+
+
+@pytest.mark.parametrize("path", PORT_ENTRY_MODULES)
+def test_entry_module_imports_neither_jax_nor_reference(path):
+    """The bench and the quickstart name no JAX or reference import in
+    their source, and importing either loads none."""
+    imports = re.compile(r"^\s*(import|from)\s+(jax|sgc_tpu)\b(?!_torch)",
+                         re.M)
+    assert imports.findall((REPO / path).read_text()) == []
+    mod = path[:-3].replace("/", ".")
+    code = f"""
+import sys
+import {mod}
+print(",".join(sorted(n for n in sys.modules
+                      if n.split(".")[0] in ("jax", "sgc_tpu"))))
+"""
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                         capture_output=True, text=True, timeout=120,
+                         check=True).stdout.strip()
+    assert out == "", f"{mod} imported {out}"
+
+
+def test_bench_swallows_no_failure():
+    """``sgc_tpu_torch/bench.py`` has no bare ``except``, no ``except
+    Exception`` / ``BaseException`` and no handler that only logs or
+    passes: a failure ends the run."""
+    import ast
+
+    tree = ast.parse((REPO / "sgc_tpu_torch/bench.py").read_text())
+    handlers = [n for n in ast.walk(tree) if isinstance(n, ast.ExceptHandler)]
+    broad = [h.lineno for h in handlers
+             if h.type is None or (isinstance(h.type, ast.Name)
+                                   and h.type.id in ("Exception",
+                                                     "BaseException"))]
+    assert broad == [], f"broad except at lines {broad}"
+    swallowing = [h.lineno for h in handlers
+                  if not any(isinstance(n, ast.Raise) for n in ast.walk(h))]
+    assert swallowing == [], f"handlers that do not re-raise: {swallowing}"
+
+
 def test_port_imports_no_sklearn():
     """The card's machine has no scikit-learn: no module of the port
     imports it, and importing all of them loads none of it."""
@@ -85,6 +127,8 @@ def _entry_points():
     from sgc_tpu_torch.textgraph.word2vec import Word2Vec
     from sgc_tpu_torch.train.finetune import finetune_pretrained
     from sgc_tpu_torch.train.sequence import train_sequence_classifier
+    from sgc_tpu_torch import bench
+    from sgc_tpu_torch.examples import quickstart
 
     g = SparseGraph.from_coo(np.array([0, 1]), np.array([1, 0]),
                              np.ones(2, np.float32), 2, 2)
@@ -153,6 +197,8 @@ def _entry_points():
             backend="torch")).embed_words(["a"]),
         "finetune_pretrained": lambda: finetune_pretrained(
             ["a"], np.zeros(1), 2),
+        "bench.main": lambda: bench.main([]),
+        "examples.quickstart.main": lambda: quickstart.main([]),
     }
 
 
@@ -168,7 +214,7 @@ def _entry_points():
     "init_transformer", "train_sequence_classifier", "cli.sequence.run",
     "Word2Vec.train", "cli.word2vec.run", "WordEmbedder torch",
     "finetune_pretrained", "LocalityPlan.build rcm",
-    "cli.pallas_bench.run"])
+    "cli.pallas_bench.run", "bench.main", "examples.quickstart.main"])
 def test_default_device_raises_without_cuda(monkeypatch, name):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA"):
