@@ -35,7 +35,25 @@ its block-dense hops under ``device_trace`` (``prep_attribution``: the
 host's top 10 leaves, the top 5 device ops); ``roofline_report`` on
 the main split holds its bytes to kernel A's and kernel B's counts in
 the kernels line (``roofline``; every bound and count comes from
-``sgc_tpu_torch/ops/roofline.py``). Then the sharded path
+``sgc_tpu_torch/ops/roofline.py``). Then the ported TPU experiment
+probes, every kernel's counter (A-D's and E-H's) zeroed just before
+and read just after:
+
+    probe_path:   each ``sgc_tpu_torch/scripts`` module's ``run`` at its
+                  script's defaults: exp_pallas_probe and exp_pallas_probe2
+                  (kernel E, y = 2 x and the per-CTA block index),
+                  exp_take_probe (kernel F's load and async entries,
+                  65,536 rows of a 2,048 x 768 table) and
+                  exp_dma_gather_probe (async, 64 rows), exp_gather_probe
+                  in all five modes (kernel G, 65,536 edges into 2,048 x
+                  768), exp_dense_term on the main path's split (kernel A
+                  at "bf16", then kernel H on the quantized cells at both
+                  feature tiles, in super-row order); then every kernel
+                  and entry held against its plain version (E and F
+                  exactly, G and H at 1e-5; the same bits twice), timed
+                  beside its bound, plain version and library call
+
+Then the sharded path
 (``sgc_tpu_torch.parallel``) on the main path's plan-order graph, each
 rank zeroing its counters just before a run and reading them just
 after:
@@ -3832,6 +3850,332 @@ def phase_devices_cli() -> None:
     emit({"phase": "devices_cli", "output": text.splitlines()})
 
 
+# the probes' default shapes (scripts/exp_take_probe.py and
+# scripts/exp_gather_probe.py); the other probes have fixed shapes
+PROBE_TAKE = {"wcols": 2048, "f": 768, "chunk": 1024, "chunks": 64}
+PROBE_GATHER = {"rows": 2048, "wcols": 2048, "f": 768, "chunk": 1024,
+                "chunks": 64}
+PROBE_REPEATS = 5
+
+
+def held(fn, plain, tol: float) -> dict:
+    """A kernel's wrapper ``fn`` twice and its plain version once on the
+    same inputs: the same bits twice and within ``tol`` of max|plain|."""
+    import torch
+
+    got, again, want = fn(), fn(), plain()
+    if not torch.equal(got, again):
+        raise AssertionError("two launches differ")
+    abs_err, err = rel_err(got, want)
+    if not err <= tol:
+        raise AssertionError(f"kernel vs plain: rel err {err:.3e} > {tol}")
+    return {"max_abs_err": abs_err, "rel_err": err}
+
+
+def probe_rows(plan, x, probe, reps) -> list:
+    """Kernels E-H held against their plain versions (E and F exactly,
+    G and H within TOLERANCE; the same bits over two launches each) on
+    the probe path's inputs, and timed beside their bounds, plain
+    versions and library calls. These launches are not the path's."""
+    import torch
+
+    from sgc_tpu_torch.ops import blockdense_int8 as h
+    from sgc_tpu_torch.ops import capability
+    from sgc_tpu_torch.ops import edge_accumulate as ea
+    from sgc_tpu_torch.ops import probe_copy as pe
+    from sgc_tpu_torch.ops import roofline as rf
+    from sgc_tpu_torch.ops import row_gather as rg
+    from sgc_tpu_torch.ops import spmm_blockdense as bd
+    from sgc_tpu_torch.scripts import exp_pallas_probe2 as p2
+
+    def timed(fn, plain=None, library=None, n=reps) -> dict:
+        return {"ms": time_ms(fn, n),
+                "plain_ms": time_ms(plain, 1) if plain else None,
+                "library_ms": time_ms(library, n) if library else None}
+
+    # E: both entries at the probes' shapes
+    ex = probe["scale2_x"]
+    sx, sel = probe["select_inputs"]
+    e = {"scale2": {**held(lambda: pe.scale2(ex),
+                           lambda: pe.scale2_plain(ex), 0.0),
+                    **timed(lambda: pe.scale2(ex), lambda: pe.scale2_plain(ex),
+                            lambda: torch.mul(ex, 2.0))},
+         "select_blocks": {
+             **held(lambda: pe.select_blocks(sx, sel, p2.B),
+                    lambda: pe.select_blocks_plain(sx, sel, p2.B), 0.0),
+             **timed(lambda: pe.select_blocks(sx, sel, p2.B),
+                     lambda: pe.select_blocks_plain(sx, sel, p2.B))}}
+    e["scale2"]["bound"] = rf.bound_ms(*rf.copy_count(ex.numel(), ex.numel(),
+                                                      0, 1))
+    n_sel = int(torch.unique(sel).numel()) * p2.B * sx.shape[1]
+    e["select_blocks"]["bound"] = rf.bound_ms(*rf.copy_count(
+        n_sel, sel.numel() * p2.B * sx.shape[1], sel.numel(), 1))
+
+    # F: both entries at the take probe's shape, async at every depth, and
+    # async at the DMA probe's shape
+    tx, tidx = probe["take_inputs"]
+    tidx64 = tidx.long()
+    f = {"load": {**held(lambda: rg.row_gather(tx, tidx, "load"),
+                         lambda: rg.row_gather_plain(tx, tidx), 0.0),
+                  **timed(lambda: rg.row_gather(tx, tidx, "load"),
+                          lambda: rg.row_gather_plain(tx, tidx),
+                          lambda: torch.index_select(tx, 0, tidx64))}}
+    for n in rg.IN_FLIGHT:
+        f[f"async_{n}"] = {
+            **held(lambda: rg.row_gather(tx, tidx, "async", n),
+                   lambda: rg.row_gather_plain(tx, tidx), 0.0),
+            "ms": time_ms(lambda: rg.row_gather(tx, tidx, "async", n), reps)}
+    dx, dcols = probe["dma_inputs"]
+    f["dma_shape_async_8"] = {
+        **held(lambda: rg.row_gather(dx, dcols, "async"),
+               lambda: rg.row_gather_plain(dx, dcols), 0.0),
+        **timed(lambda: rg.row_gather(dx, dcols, "async"),
+                lambda: rg.row_gather_plain(dx, dcols),
+                lambda: torch.index_select(dx, 0, dcols.long())),
+        "bound": rf.bound_ms(*rf.copy_count(
+            int(torch.unique(dcols).numel()) * dx.shape[1],
+            dcols.numel() * dx.shape[1], dcols.numel()))}
+    n_f = tidx.numel() * tx.shape[1]
+    f_bound = rf.bound_ms(*rf.copy_count(
+        int(torch.unique(tidx).numel()) * tx.shape[1], n_f, tidx.numel()))
+
+    # G: every mode on the gather probe's edges
+    rows_, cols_, vals_, gx = probe["gather_inputs"]
+    R, F = PROBE_GATHER["rows"], gx.shape[1]
+    g = {}
+    for mode in ea.MODES:
+        run = lambda m=mode: ea.edge_accumulate(rows_, cols_, vals_, gx, R, m)
+        plain = lambda m=mode: ea.edge_accumulate_plain(rows_, cols_, vals_,
+                                                        gx, R, m)
+        _, c_eff = ea.effective_edges(rows_, cols_, mode)
+        ops, nbytes = rf.edges_count(rows_.numel(), R,
+                                     int(torch.unique(c_eff).numel()), F)
+        g[mode] = {**held(run, plain, TOLERANCE), "ms": time_ms(run, reps),
+                   "bound": rf.bound_ms(ops, nbytes), "ops": ops,
+                   "bytes": nbytes}
+    with warnings.catch_warnings():
+        warnings.filterwarnings("ignore", message=".*[Ss]parse")
+        a_csr = torch.sparse_coo_tensor(
+            torch.stack([rows_.long(), cols_.long()]), vals_,
+            (R, gx.shape[0])).coalesce().to_sparse_csr()
+    g["rmw"]["plain_ms"] = time_ms(lambda: ea.edge_accumulate_plain(
+        rows_, cols_, vals_, gx, R, "rmw"), 1)
+    g["rmw"]["library_ms"] = time_ms(lambda: torch.sparse.mm(a_csr, gx), reps)
+    src = vals_.unsqueeze(1) * gx[cols_.long()]
+    zero = gx.new_zeros((R, F))
+    g["rmw"]["index_add_ms"] = time_ms(
+        lambda: zero.clone().index_add_(0, rows_.long(), src), reps)
+    del a_csr, src, zero
+
+    # H: the main split's cells, both feature tiles, beside kernel A
+    split, dargs = plan.split_main, plan._device_args()[0]
+    cells = probe["dense"]["quantized"]
+    if not (split.rb_ids[: split.n_cells][1:]
+            < split.rb_ids[: split.n_cells][:-1]).any():
+        raise AssertionError("the main split is not in super-row order")
+    hh = {}
+    for ft, leg in probe["dense"]["int8"].items():
+        xp = leg["xp"]
+        hh[ft] = held(lambda: h.apply_cells_int8(cells, xp),
+                      lambda: h.apply_cells_int8_plain(cells, xp), TOLERANCE)
+        hh[ft]["ms"] = time_ms(lambda: h.apply_cells_int8(cells, xp), reps)
+    xp = probe["dense"]["int8"][768]["xp"]
+    hh[768]["plain_ms"] = time_ms(lambda: h.apply_cells_int8_plain(cells, xp),
+                                  1)
+    k_i, r_i, w_i = cells.cells.nonzero(as_tuple=True)
+    nnz = int(k_i.numel())
+    rb_of = torch.as_tensor(split.rb_ids, device=x.device).long()
+    st_of = cells.st_ids.long()
+    with warnings.catch_warnings():
+        warnings.filterwarnings("ignore", message=".*[Ss]parse")
+        h_csr = torch.sparse_coo_tensor(
+            torch.stack([rb_of[k_i] * split.row_block + r_i,
+                         st_of[k_i] * split.stripe + w_i]),
+            h.dequantize(cells.cells[k_i, r_i, w_i], cells.scales[k_i]),
+            (cells.n_rb * split.row_block, xp.shape[0])
+        ).coalesce().to_sparse_csr()
+    del k_i, r_i, w_i
+    xpf = xp.float()
+    zero = xpf.new_zeros((h_csr.shape[0], xp.shape[1]))
+    hh[768]["library_ms"] = time_ms(
+        lambda: torch.addmm(zero, h_csr, xpf, beta=0.0), reps)
+    del h_csr, xpf, zero
+    h_bound = rf.kernel_h_bound(cells, nnz, int(xp.shape[1]))
+    F_x = int(x.shape[1])
+    a_bf16 = {"ms": time_ms(lambda: bd.apply_cells(split, dargs, x, "bf16"),
+                            reps),
+              **rf.kernel_a_bound(split, dargs, split.n_cells, F_x, 1)}
+
+    # the reference's other probe, scalar_prefetch_compiles, is the
+    # capability check: its time once the libraries are built and loaded
+    capability._PASSED.clear()
+    t0 = time.perf_counter()
+    capability.require_cuda_kernels(x.device)
+    capability_warm_s = time.perf_counter() - t0
+
+    launches, by_entry = probe["launches"], probe["by_entry"]
+    return [
+        {"name": "probe_copy", "route": "cuda",
+         "source": "sgc_tpu_torch/csrc/probe_copy.cu",
+         "replaces": "scripts/exp_pallas_probe.py:14, "
+                     "scripts/exp_pallas_probe2.py:25",
+         "launches": launches["probe_copy"],
+         "launches_by_entry": by_entry["probe_copy"],
+         "max_abs_err": max(v["max_abs_err"] for v in e.values()),
+         "ms": e["scale2"]["ms"], "plain_ms": e["scale2"]["plain_ms"],
+         "bound_ms": e["scale2"]["bound"][0],
+         "bound_by": e["scale2"]["bound"][1],
+         "library_ms": e["scale2"]["library_ms"],
+         "library": "torch.mul(x, 2.0) (scale2); select_blocks has none",
+         "entries": e, "capability_warm_s": capability_warm_s},
+        {"name": "row_gather", "route": "cuda",
+         "source": "sgc_tpu_torch/csrc/row_gather.cu",
+         "replaces": "scripts/exp_take_probe.py:52, "
+                     "scripts/exp_dma_gather_probe.py:38",
+         "launches": launches["row_gather"],
+         "launches_by_entry": by_entry["row_gather"],
+         "max_abs_err": max(v["max_abs_err"] for v in f.values()),
+         "ms": f["load"]["ms"], "plain_ms": f["load"]["plain_ms"],
+         "bound_ms": f_bound[0], "bound_by": f_bound[1],
+         "library_ms": f["load"]["library_ms"],
+         "library": "torch.index_select(x, 0, idx)", "entries": f},
+        {"name": "edge_accumulate", "route": "cuda",
+         "source": "sgc_tpu_torch/csrc/edge_accumulate.cu",
+         "replaces": "scripts/exp_gather_probe.py:64",
+         "launches": launches["edge_accumulate"],
+         "launches_by_mode": by_entry["edge_accumulate"],
+         "max_abs_err": max(v["max_abs_err"] for v in g.values()),
+         "ms": g["rmw"]["ms"], "plain_ms": g["rmw"]["plain_ms"],
+         "bound_ms": g["rmw"]["bound"][0], "bound_by": g["rmw"]["bound"][1],
+         "library_ms": g["rmw"]["library_ms"],
+         "library": "torch.sparse.mm of the edges as a CSR matrix (rmw's "
+                    "sum; index_add_ms: index_add_ of v x[c], atomic)",
+         "modes": g},
+        {"name": "blockdense_int8_cells", "route": "cuda",
+         "source": "sgc_tpu_torch/csrc/blockdense_int8.cu",
+         "replaces": "scripts/exp_dense_term.py:129",
+         "launches": launches["blockdense_int8_cells"],
+         "max_abs_err": max(v["max_abs_err"] for v in hh.values()),
+         "ms": hh[768]["ms"], "plain_ms": hh[768]["plain_ms"],
+         "bound_ms": h_bound["bound_ms"], "bound_by": h_bound["bound_by"],
+         "library_ms": hh[768]["library_ms"],
+         "library": "torch.addmm, the dequantized cells' nonzeros as one "
+                    "CSR matrix against bf16(x) widened",
+         "feature_tiles": hh, "cells": split.n_cells,
+         "slots": int(cells.cells.shape[0]), **h_bound,
+         "kernel_a_bf16": a_bf16}]
+
+
+def phase_probe_path(plan, x, reps) -> dict:
+    """The ported probes (``sgc_tpu_torch/scripts``), each script's
+    ``run`` at its defaults with every kernel's counter (A-D's and
+    E-H's) zeroed just before and read just after: exp_pallas_probe and
+    exp_pallas_probe2 (kernel E), exp_take_probe and exp_dma_gather_probe
+    (F), exp_gather_probe in every mode (G), exp_dense_term on the main
+    path's split (kernel A at "bf16" and H at both feature tiles, in
+    super-row order). Every kernel E-H and entry, and kernel A, must have
+    launched and every script's check passed; then ``probe_rows`` holds
+    and times each. Returns A-D's launches under ``"launches"`` for the
+    rows' ``launches_by_path``."""
+    import io
+
+    import torch
+
+    from sgc_tpu_torch.bench import read_launches, zero_launches
+    from sgc_tpu_torch.ops import blockdense_int8 as h
+    from sgc_tpu_torch.ops import edge_accumulate as ea
+    from sgc_tpu_torch.ops import probe_copy as pe
+    from sgc_tpu_torch.ops import row_gather as rg
+    from sgc_tpu_torch.scripts import (
+        exp_dense_term,
+        exp_dma_gather_probe,
+        exp_gather_probe,
+        exp_pallas_probe,
+        exp_pallas_probe2,
+        exp_take_probe,
+    )
+
+    t0 = time.perf_counter()
+    dev = x.device
+    counters = {"probe_copy": pe, "row_gather": rg, "edge_accumulate": ea,
+                "blockdense_int8_cells": h}
+    entries = {"probe_copy": pe.BY_ENTRY, "row_gather": rg.BY_ENTRY,
+               "edge_accumulate": ea.BY_MODE}
+
+    def placed(arrays):
+        return [torch.from_numpy(a).to(dev) for a in arrays]
+
+    take_in = placed(exp_take_probe.make_inputs(**PROBE_TAKE))
+    dma_in = placed(exp_dma_gather_probe.make_inputs())
+    gather_in = placed(exp_gather_probe.make_inputs(**PROBE_GATHER))
+    select_in = exp_pallas_probe2.make_inputs(dev)
+    dargs = plan._device_args()[0]
+    torch.cuda.synchronize()
+    zero_launches()
+    for mod in counters.values():
+        mod.LAUNCHES = 0
+    for d in entries.values():
+        d.update({k: 0 for k in d})
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        e1 = exp_pallas_probe.run(dev)
+        e2 = exp_pallas_probe2.run(*select_in)
+        take = exp_take_probe.run(*take_in, PROBE_REPEATS)
+        dma = exp_dma_gather_probe.run(*dma_in)
+        gather = {m: exp_gather_probe.run(*gather_in, PROBE_GATHER["rows"],
+                                          m, PROBE_REPEATS)
+                  for m in ea.MODES}
+        dense = exp_dense_term.run(plan.split_main, x, dargs, reps=3)
+    torch.cuda.synchronize()
+    launches = {name: mod.LAUNCHES for name, mod in counters.items()}
+    by_entry = {name: dict(d) for name, d in entries.items()}
+    launches_a_d = read_launches()
+    path_s = time.perf_counter() - t0
+    log(out.getvalue().rstrip())
+    if min([*launches.values(), launches_a_d["blockdense_cells"]]
+           + [n for d in by_entry.values() for n in d.values()]) <= 0:
+        raise AssertionError(f"probe_path: a kernel or entry never "
+                             f"launched: {launches} {by_entry} "
+                             f"{launches_a_d}")
+    if not (e2["correct"] and dma["correct"]) or any(
+            r["err"] != 0.0 for r in take.values()):
+        raise AssertionError("probe_path: a copy probe is not exact")
+    if not gather["rmw"]["rel_err_vs_oracle"] <= TOLERANCE:
+        raise AssertionError("probe_path: rmw against the scatter-add "
+                             f"oracle {gather['rmw']['rel_err_vs_oracle']}")
+    probe = {"launches": launches, "by_entry": by_entry, "dense": dense,
+             "scale2_x": e1["x"], "select_inputs": select_in,
+             "take_inputs": take_in, "dma_inputs": dma_in,
+             "gather_inputs": gather_in}
+    t1 = time.perf_counter()
+    rows = probe_rows(plan, x, probe, reps)
+    wall_s = time.perf_counter() - t0
+    emit({"phase": "probe_path", "path_s": path_s,
+          "held_s": time.perf_counter() - t1, "wall_s": wall_s,
+          "launches": launches, "launches_a_d": launches_a_d,
+          "by_entry": by_entry,
+          "scripts": {
+              "exp_pallas_probe": {k: e1[k] for k in ("build_s",
+                                                      "launch_s")},
+              "exp_pallas_probe2": {k: e2[k] for k in ("seconds",
+                                                       "correct")},
+              "exp_take_probe": take, "exp_dma_gather_probe":
+                  {"correct": dma["correct"]},
+              "exp_gather_probe": {m: {k: v for k, v in r.items()
+                                       if k != "out"}
+                                   for m, r in gather.items()},
+              "exp_dense_term": {
+                  k: dense[k] for k in ("dispatch_floor_ms",
+                                        "kernel_a_bf16_ms", "cells",
+                                        "slots")} | {
+                  "int8": {ft: {k: v for k, v in leg.items()
+                                if k not in ("xp", "out")}
+                           for ft, leg in dense["int8"].items()}}},
+          "tolerance_rel": TOLERANCE, "rows": rows})
+    return {"rows": rows, "wall_s": wall_s,
+            "launches": {"scripts": launches_a_d}}
+
+
 BENCH_TIMEOUT_S = 300
 # the kernels each leg of the bench must have launched
 BENCH_LEG_KERNELS = {
@@ -3964,6 +4308,7 @@ def main() -> int:
     rows.append(phase_kernel_b(main["plan"], main["x"], main["launches"],
                                args.reps, shuffled))
     phase_roofline(main["plan"], rows)
+    probe = phase_probe_path(main["plan"], main["x"], args.reps)
     lpa_rows = main.pop("lpa_rows")
     del main
     rows.append(phase_kernel_c(onehot, args.reps))
@@ -3980,7 +4325,8 @@ def main() -> int:
     gat_reddit = phase_gat_reddit(data, device, args.reps)
     t_new = time.perf_counter()
     orderings = phase_ordering_path(data, lpa_rows, device, args.reps)
-    by_path = {"ordering_path": orderings["launches"]}
+    by_path = {"ordering_path": orderings["launches"],
+               "probe_path": probe["launches"]}
     del data, lpa_rows
     by_path["sharded_path"] = sharded["launches"]
     by_path["sharded_training_path"] = training["launches"]
@@ -4048,8 +4394,10 @@ def main() -> int:
     # rank 0's sharded operands alone on the card, beside library calls
     rows[0]["sharded_library"] = sharded["library"]["a"]
     rows[1]["sharded_library"] = sharded["library"]["b"]
-    log(f"chip_smoke: {time.perf_counter() - t_start:.1f}s (ordering_path, "
-        f"graph_store, kernel_bench_cli, devices_cli: {new_paths_s:.1f}s)")
+    rows.extend(probe["rows"])
+    log(f"chip_smoke: {time.perf_counter() - t_start:.1f}s (probe_path: "
+        f"{probe['wall_s']:.1f}s; ordering_path, graph_store, "
+        f"kernel_bench_cli, devices_cli: {new_paths_s:.1f}s)")
     emit({"kernels": rows})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

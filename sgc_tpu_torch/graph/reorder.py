@@ -15,11 +15,13 @@ ordering decides how many edges land in dense cells:
 * ``"none"``: the identity.
 
 Every ordering but LPA runs the reference's scipy calls on the host, so
-the permutations are the reference's bit for bit. For LPA only the native
-asynchronous solver is ported, and it is required: the reference's
-synchronous numpy solver reaches a different fixpoint (a different order,
-split and dense fraction), so the port raises instead of falling back to
-it.
+the permutations are the reference's bit for bit. LPA has the reference's
+two label solvers, each bit for bit: ``impl="native"``, the asynchronous
+sweeps of the native library (the main path's), and ``impl="sync"``, the
+synchronous numpy sweeps with a seeded random tie-break. They reach
+different fixpoints (a different order, split and dense fraction), so
+``impl="auto"`` means native and raises when the library cannot be
+built, where the reference falls back to sync with a warning.
 """
 
 from __future__ import annotations
@@ -32,6 +34,7 @@ from sgc_tpu_torch.graph.sparse import SparseGraph, host
 
 LPA_MAX_ITER = 20
 LPA_MIN_MOVED = 1e-3
+LPA_IMPLS = ("auto", "native", "sync")
 
 
 def rcm_order(adj: sp.spmatrix) -> np.ndarray:
@@ -127,19 +130,60 @@ def _require_native() -> None:
 def lpa_order(
     adj: sp.spmatrix,
     max_iter: int = LPA_MAX_ITER,
+    seed: int = 0,
     min_moved: float = LPA_MIN_MOVED,
+    impl: str = "auto",
 ) -> np.ndarray:
     """Community ordering of a square adjacency. Stops when at most
     ``min_moved`` of the nodes change label in a sweep, or after
-    ``max_iter`` sweeps."""
+    ``max_iter`` sweeps. ``impl``: ``"native"`` (or ``"auto"``) the native
+    asynchronous solver, which must build; ``"sync"`` the numpy
+    synchronous solver, whose ties break at random under ``seed`` (the
+    native solver takes no seed)."""
     csr = adj.tocsr()
     n = csr.shape[0]
     if n == 0:
         return np.arange(0)
-    _require_native()
-    labels, _ = native.lpa_labels(csr.indptr, csr.indices,
-                                  max_iter=max_iter, min_moved_frac=min_moved)
+    if impl not in LPA_IMPLS:
+        raise ValueError(f"unknown lpa impl {impl!r}")
+    if impl == "sync":
+        labels = _lpa_labels_sync(csr, max_iter, seed, min_moved)
+    else:
+        _require_native()
+        labels, _ = native.lpa_labels(csr.indptr, csr.indices,
+                                      max_iter=max_iter,
+                                      min_moved_frac=min_moved)
     return _canonical_order_from_labels(labels, n)
+
+
+def _lpa_labels_sync(csr, max_iter: int, seed: int,
+                     min_moved: float) -> np.ndarray:
+    """Synchronous LPA sweeps in numpy: each sweep counts every (row,
+    neighbour label) pair by sort + unique and gives each row its most
+    frequent label, ties broken uniformly at random (a fresh draw each
+    sweep from ``default_rng(seed)``)."""
+    n = csr.shape[0]
+    indices = csr.indices.astype(np.int64)
+    rows = np.repeat(np.arange(n, dtype=np.int64), np.diff(csr.indptr))
+    labels = np.arange(n, dtype=np.int64)
+    rng = np.random.default_rng(seed)
+    for _ in range(max_iter):
+        key = rows * n + labels[indices]
+        uniq, counts = np.unique(key, return_counts=True)
+        urow = uniq // n
+        ulab = uniq % n
+        # the last entry of each row's group, sorted by (row, count,
+        # random), is a most frequent label
+        perm = np.lexsort((rng.random(len(uniq)), counts, urow))
+        urow_s = urow[perm]
+        last = np.nonzero(np.diff(urow_s, append=n + 1))[0]
+        new = labels.copy()
+        new[urow_s[last]] = ulab[perm][last]
+        moved = int((new != labels).sum())
+        labels = new
+        if moved <= min_moved * n:
+            break
+    return labels
 
 
 def _canonical_order_from_labels(labels: np.ndarray, n: int) -> np.ndarray:

@@ -26,21 +26,36 @@ from sgc_tpu_torch.utils.buildlib import (
 )
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
+# the package's paths launch these: load_all builds and loads them
 KERNEL_SOURCES = ("blockdense", "spmm_csr", "sddmm")
+# only the sgc_tpu_torch.scripts probes launch these: each is built at
+# its first use, so no package path waits on (or fails with) their build
+PROBE_SOURCES = ("probe_copy", "row_gather", "edge_accumulate",
+                 "blockdense_int8")
 
 _V = ctypes.c_void_p
 _I = ctypes.c_int
 _L = ctypes.c_int64
-# C signature of each library's entry point: (symbol, argtypes)
+# C signature of each library's entry points: {symbol: argtypes}; the
+# first symbol is the library's default entry
 _ENTRY = {
-    "blockdense": ("blockdense_cells",
+    "blockdense": {"blockdense_cells":
                    [_V, _V, _V, _V, _V, _V, _V, _I, _I, _I, _I, _I, _I, _I,
-                    _I, _I, _V]),
-    "spmm_csr": ("csr_spmm", [_V] * 6 + [_I] * 9 + [_V]),
-    "sddmm": ("sddmm", [_V, _V, _V, _V, _V, _L, _L, _I, _I, _I, _V]),
+                    _I, _I, _V]},
+    "spmm_csr": {"csr_spmm": [_V] * 6 + [_I] * 9 + [_V]},
+    "sddmm": {"sddmm": [_V, _V, _V, _V, _V, _L, _L, _I, _I, _I, _V]},
+    "probe_copy": {"probe_scale2": [_V, _V, _L, _V],
+                   "probe_select_blocks": [_V, _V, _V, _I, _I, _L, _V]},
+    "row_gather": {"row_gather_load": [_V, _V, _V, _L, _I, _I, _V],
+                   "row_gather_async": [_V, _V, _V, _L, _I, _I, _I, _V]},
+    "edge_accumulate": {"edge_accumulate":
+                        [_V, _V, _V, _V, _V, _L, _I, _I, _I, _I, _I, _V]},
+    "blockdense_int8": {"blockdense_int8_cells":
+                        [_V, _V, _V, _V, _V, _V, _V, _I, _I, _I, _I, _I,
+                         _V]},
 }
 
-_loaded: dict[str, ctypes._CFuncPtr] = {}
+_loaded: dict[tuple[str, str], ctypes._CFuncPtr] = {}
 
 
 def kernel_spec(name: str) -> LibSpec:
@@ -54,36 +69,39 @@ def kernel_spec(name: str) -> LibSpec:
     )
 
 
-def build_all() -> dict[str, float]:
-    """Build every stale kernel library and the host library together
-    (one compiler process each). Returns build seconds per library."""
-    return ensure_built([kernel_spec(n) for n in KERNEL_SOURCES]
+def build_all(names=KERNEL_SOURCES + PROBE_SOURCES) -> dict[str, float]:
+    """Build the stale kernel libraries of ``names`` (default: all) and
+    the host library together (one compiler process each). Returns build
+    seconds per library."""
+    return ensure_built([kernel_spec(n) for n in names]
                         + [native.LIB_SPEC])
 
 
 def load_all(device) -> None:
-    """On a CUDA ``device``, build every stale library at once and load
-    every kernel's entry, so that no build or load falls inside a timed
-    span; on any other device nothing launches a kernel, so nothing to
-    do."""
+    """On a CUDA ``device``, build every stale library of the package's
+    paths at once and load each entry, so that no build or load falls
+    inside a timed span; on any other device nothing launches a kernel,
+    so nothing to do."""
     if torch.device(device).type != "cuda":
         return
-    build_all()
+    build_all(KERNEL_SOURCES)
     for name in KERNEL_SOURCES:
-        entry(name)
+        for symbol in _ENTRY[name]:
+            entry(name, symbol)
 
 
-def entry(name: str):
-    """The C entry point of kernel library ``name``, built if needed."""
-    fn = _loaded.get(name)
+def entry(name: str, symbol: str | None = None):
+    """The C entry point ``symbol`` (default: the library's first) of
+    kernel library ``name``, built if needed."""
+    symbol = symbol or next(iter(_ENTRY[name]))
+    fn = _loaded.get((name, symbol))
     if fn is None:
         spec = kernel_spec(name)
         ensure_built([spec])
-        symbol, argtypes = _ENTRY[name]
         fn = getattr(ctypes.CDLL(str(spec.output)), symbol)
-        fn.argtypes = argtypes
+        fn.argtypes = _ENTRY[name][symbol]
         fn.restype = ctypes.c_int
-        _loaded[name] = fn
+        _loaded[(name, symbol)] = fn
     return fn
 
 

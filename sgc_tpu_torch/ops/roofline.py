@@ -32,6 +32,13 @@ Kernels (``chip_smoke.py`` reports each count beside the kernel's time):
 * D, ``csrc/sddmm.cu`` (:func:`sddmm_count`): 2 F flops an edge; bytes:
   a and b once each at the operands' width, the edges' rows and cols,
   and the padded output.
+* E and F, ``csrc/probe_copy.cu`` and ``csrc/row_gather.cu``
+  (:func:`copy_count`): bytes, the values the output needs read once,
+  the output and the index.
+* G, ``csrc/edge_accumulate.cu``: kernel B's count on the same edges
+  (:func:`edges_count`).
+* H, ``csrc/blockdense_int8.cu`` (:func:`kernel_h_bound`): kernel A's
+  rule with int8 cells (1 byte an entry) and a bf16 x table.
 
 :func:`dense_term_cost` and :func:`roofline_report` keep the reference's
 signatures and keys, filled from the kernel A and kernel B counts;
@@ -119,16 +126,26 @@ def used_columns(graph) -> int:
     return int(np.unique(cols).size)
 
 
-def kernel_b_count(graph, F: int, dense: bool = False) -> tuple[float, int]:
-    """``(ops, bytes)`` of kernel B on ``graph`` at width F, with a dense
-    term added in its epilogue when ``dense``."""
-    nnz, n_rows = graph.nnz, graph.n_rows
+def edges_count(nnz: int, n_rows: int, used_cols: int, F: int,
+                dense: bool = False) -> tuple[float, int]:
+    """``(ops, bytes)`` of a sum over ``nnz`` edges at width F into
+    ``n_rows`` rows, as kernel B counts it: 2 F flops an edge (plus
+    ``n_rows F`` adds of a dense term); each edge's (col, val), the row
+    pointer, each x row the edges use, the dense term and the output
+    once each."""
     ops = 2.0 * nnz * F
     if dense:
         ops += n_rows * F
     nbytes = (nnz * 8 + (n_rows + 1) * 4
-              + (used_columns(graph) + n_rows * (2 if dense else 1)) * F * 4)
+              + (used_cols + n_rows * (2 if dense else 1)) * F * 4)
     return ops, nbytes
+
+
+def kernel_b_count(graph, F: int, dense: bool = False) -> tuple[float, int]:
+    """``(ops, bytes)`` of kernel B on ``graph`` at width F, with a dense
+    term added in its epilogue when ``dense``."""
+    return edges_count(graph.nnz, graph.n_rows, used_columns(graph), F,
+                       dense)
 
 
 def b_bound(graph, F: int, dense: bool = False) -> tuple[float, str]:
@@ -161,6 +178,37 @@ def sddmm_bound(graph, F: int, itemsize: int
     """``(ms, bound_by, ops, bytes)`` of kernel D."""
     ops, nbytes = sddmm_count(graph, F, itemsize)
     return (*bound_ms(ops, nbytes), ops, nbytes)
+
+
+# ------------------------------------------------ kernels E-H (the probes)
+
+def copy_count(n_read: int, n_out: int, n_index: int = 0,
+               ops_per_out: int = 0) -> tuple[float, int]:
+    """``(ops, bytes)`` of kernels E and F, which move f32 values: the
+    ``n_read`` values the output needs read once, the ``n_out`` written
+    once, ``n_index`` int32 indices; ``ops_per_out`` FP32 operations a
+    value written (E doubles, F copies)."""
+    return float(ops_per_out * n_out), 4 * (n_read + n_out + n_index)
+
+
+def kernel_h_bound(cells, nnz: int, f_pad: int) -> dict:
+    """Kernel H's bound on quantized cells (``ops/blockdense_int8.py::
+    Int8Cells``) at x width ``f_pad``: kernel A's rule with 1-byte cells,
+    the scales, the bf16 x table and the f32 ``[n_rb R, f_pad]`` output;
+    2 f_pad flops per nonzero int8 entry at the bf16 tensor-core peak,
+    and beside it the dense form's (2 R W f_pad an slot, what the kernel
+    executes)."""
+    k, R, W = (int(n) for n in cells.cells.shape)
+    nbytes = (k * R * W + k * 4 + (cells.n_rb + 1 + 2 * k) * 4
+              + cells.n_st * W * f_pad * 2 + cells.n_rb * R * f_pad * 4)
+    ops = 2.0 * nnz * f_pad
+    dense_ops = 2.0 * R * W * f_pad * k
+    b_ms, b_by = bound_ms(ops, nbytes, PEAK_BF16_TC_FLOPS)
+    dense_ms, dense_by = bound_ms(dense_ops, nbytes, PEAK_BF16_TC_FLOPS)
+    return {"bound_ms": b_ms, "bound_by": b_by, "ops": ops, "bytes": nbytes,
+            "cell_nonzeros": nnz, "dense_form_ops": dense_ops,
+            "dense_form_bound_ms": dense_ms,
+            "dense_form_bound_by": dense_by}
 
 
 # ----------------------------------------------------- the reference's API

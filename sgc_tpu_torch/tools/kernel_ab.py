@@ -576,7 +576,7 @@ def main() -> int:
     print(smi.stdout.strip().splitlines()[0], flush=True)
     torch.backends.cuda.matmul.allow_tf32 = False
     device = torch.device("cuda", 0)
-    kernels.build_all()
+    kernels.build_all(kernels.KERNEL_SOURCES)
     data = synthetic_reddit_clustered(args.scale, seed=args.seed,
                                       shuffle=True)
     chosen = set(args.kernels.split(","))

@@ -269,7 +269,10 @@ def test_uniform_auto_leg_is_not_audited(legs):
 # ------------------------------------------------------- the processes
 
 def _run(args, env_extra, timeout=240):
-    env = {**os.environ, **env_extra}
+    # one intra-op thread, as the in-process port tests pin: beside the
+    # suite's busy workers a process with a thread per core ran ~20x
+    # slower (10 s alone, 170-240 s in the suite at scale 0.01)
+    env = {**os.environ, "OMP_NUM_THREADS": "1", **env_extra}
     for var in ("SGC_BENCH_FORMULATION", "SGC_BENCH_TRAINER",
                 "SGC_BENCH_TOPOLOGY"):
         env.pop(var, None)

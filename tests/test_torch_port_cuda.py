@@ -1319,3 +1319,81 @@ def test_cuda_sharded_gcn_backward_on_two_ranks(cuda, tmp_path):
             assert sorted(r[direction]) == ["blockdense_cells", "csr_spmm"]
             for name, (_, rel) in r[direction].items():
                 assert rel <= TOL, f"{direction} {name}: {rel:.3e}"
+
+
+# ------------------------------------------------ kernels E-H (the probes)
+
+@pytest.mark.cuda
+def test_cuda_probe_copy_entries_match_plain(cuda):
+    from sgc_tpu_torch.ops import probe_copy as e
+
+    x = torch.randn(1000, 37, generator=torch.Generator().manual_seed(3))
+    before = e.LAUNCHES
+    assert torch.equal(e.scale2(x.to(cuda)).cpu(), e.scale2_plain(x))
+    sel = torch.tensor([4, 0, 3, 3, 1], dtype=torch.int32)
+    xb = x[:800]
+    got = e.select_blocks(xb.to(cuda), sel.to(cuda), 160)
+    assert torch.equal(got.cpu(), e.select_blocks_plain(xb, sel, 160))
+    assert e.LAUNCHES == before + 2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("F", [768, 256, 41])
+def test_cuda_row_gather_entries_match_plain(cuda, F):
+    from sgc_tpu_torch.ops import row_gather as rg
+
+    g = torch.Generator().manual_seed(F)
+    x = torch.randn(2048, F, generator=g)
+    idx = torch.randint(0, 2048, (5000,), generator=g, dtype=torch.int32)
+    want = rg.row_gather_plain(x, idx)
+    xd, idd = x.to(cuda), idx.to(cuda)
+    before = dict(rg.BY_ENTRY)
+    assert torch.equal(rg.row_gather(xd, idd, "load").cpu(), want)
+    for n in rg.IN_FLIGHT:
+        assert torch.equal(rg.row_gather(xd, idd, "async", n).cpu(), want)
+    assert rg.BY_ENTRY["load"] == before["load"] + 1
+    assert rg.BY_ENTRY["async"] == before["async"] + len(rg.IN_FLIGHT)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["rmw", "store", "fixed_out", "fixed_in",
+                                  "noop"])
+@pytest.mark.parametrize("R,W,F,E", [(2048, 2048, 768, 65536),
+                                     (300, 77, 45, 5001)])
+def test_cuda_edge_accumulate_matches_plain(cuda, mode, R, W, F, E):
+    from sgc_tpu_torch.ops import edge_accumulate as ea
+
+    rng = np.random.RandomState(R + E)
+    rows = torch.from_numpy(rng.randint(0, R, E).astype(np.int32))
+    cols = torch.from_numpy(rng.randint(0, W, E).astype(np.int32))
+    vals = torch.from_numpy(rng.rand(E).astype(np.float32))
+    x = torch.from_numpy(rng.rand(W, F).astype(np.float32))
+    dev = [t.to(cuda) for t in (rows, cols, vals, x)]
+    got = ea.edge_accumulate(*dev, R, mode)
+    again = ea.edge_accumulate(*dev, R, mode)
+    # same updates in the same order, each rounded: the same bits
+    want = ea.edge_accumulate_plain(*dev, R, mode)
+    assert torch.equal(got, again)
+    assert torch.equal(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("super_rows", [None, 8])
+def test_cuda_int8_dense_term_matches_plain(cuda, super_rows):
+    from sgc_tpu_torch.ops import blockdense_int8 as h
+
+    split, x = _main_path_like_split(super_rows)
+    args = port_bd.blockdense_device_args(split, cuda)
+    q, scales = h.quantize_cells(args.cells)
+    q_cpu, s_cpu = h.quantize_cells(args.cells.cpu())
+    assert torch.equal(q.cpu(), q_cpu) and torch.equal(scales.cpu(), s_cpu)
+    c = h.int8_cells(q, scales, split.rb_ids, split.st_ids,
+                     split.n_row_blocks, split.n_stripes)
+    for ft in (256, 768):
+        xp = h.pad_x_bf16(x.to(cuda), split.n_stripes * split.stripe, ft)
+        before = h.LAUNCHES
+        got = h.apply_cells_int8(c, xp)
+        again = h.apply_cells_int8(c, xp)
+        assert h.LAUNCHES == before + 2
+        assert torch.equal(got, again)
+        assert_close_rel(got.cpu(), h.apply_cells_int8_plain(c, xp).cpu())

@@ -226,3 +226,41 @@ def test_lpa_fast_path_matches_scipy_path():
     np.testing.assert_allclose(gf.vals, gs.vals, rtol=1e-6)
     for a, b in zip(fast[1:], slow[1:]):
         np.testing.assert_array_equal(a, b)
+
+
+@pytest.mark.parametrize("seed", [0, 1, 5, 42])
+@pytest.mark.parametrize("graph", list(GRAPHS))
+def test_lpa_sync_matches_reference(graph, seed):
+    """``impl="sync"``, the reference's synchronous numpy solver, is its
+    order bit for bit at every seed (the seed draws its tie-breaks)."""
+    adj = GRAPHS[graph]()
+    want = ref_ro.lpa_order(adj, seed=seed, impl="sync")
+    got = port_ro.lpa_order(adj, seed=seed, impl="sync")
+    assert got.dtype == want.dtype
+    np.testing.assert_array_equal(got, want)
+
+
+def test_lpa_takes_the_reference_arguments_in_order():
+    """``(adj, max_iter, seed, min_moved, impl)`` as the reference's."""
+    adj = GRAPHS["sbm"]()
+    np.testing.assert_array_equal(
+        port_ro.lpa_order(adj, 3, 7, 0.0, "sync"),
+        ref_ro.lpa_order(adj, 3, 7, 0.0, "sync"))
+    with pytest.raises(ValueError, match="unknown lpa impl"):
+        port_ro.lpa_order(adj, impl="scipy")
+
+
+def test_lpa_auto_is_native_and_raises_without_the_library(monkeypatch):
+    """``"auto"`` means the native solver: without the library it raises,
+    where the reference falls back to ``"sync"`` with a warning; ``"sync"``
+    needs no library."""
+    adj = GRAPHS["sbm"]()
+    np.testing.assert_array_equal(port_ro.lpa_order(adj),
+                                  port_ro.lpa_order(adj, impl="native"))
+    monkeypatch.setattr(port_ro.native, "available", lambda: False)
+    for impl in ("auto", "native"):
+        with pytest.raises(RuntimeError, match="native graph-prep library"):
+            port_ro.lpa_order(adj, impl=impl)
+    np.testing.assert_array_equal(
+        port_ro.lpa_order(adj, seed=5, impl="sync"),
+        ref_ro.lpa_order(adj, seed=5, impl="sync"))
