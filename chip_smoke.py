@@ -51,7 +51,12 @@ and read just after:
                   feature tiles, in super-row order); then every kernel
                   and entry held against its plain version (E and F
                   exactly, G and H at 1e-5; the same bits twice), timed
-                  beside its bound, plain version and library call
+                  beside its bound, plain version and library call; G's
+                  bucket and accumulate passes timed apart beside its
+                  chain bound (the longest row's dependent adds at the
+                  FADD latency measured on the card and its clock), H's
+                  shares of its byte bound and of its dense form's
+                  compute floor beside its error and tile reads
 
 Then the sharded path
 (``sgc_tpu_torch.parallel``) on the main path's plan-order graph, each
@@ -3872,11 +3877,41 @@ def held(fn, plain, tol: float) -> dict:
     return {"max_abs_err": abs_err, "rel_err": err}
 
 
+def sm_clock_ghz() -> float:
+    """The card's maximum SM clock (nvidia-smi clocks.max.sm), in GHz."""
+    out = subprocess.run(["nvidia-smi", "--query-gpu=clocks.max.sm",
+                          "--format=csv,noheader,nounits"], check=True,
+                         capture_output=True, text=True, timeout=60)
+    return float(out.stdout.split()[0]) / 1e3
+
+
+def fadd_cycles_per_link() -> float:
+    """Cycles of one dependent f32 add on the card: kernel G's library
+    times a chain of 2^20 adds on one thread (the chain bound's link)."""
+    import torch
+
+    from sgc_tpu_torch.ops import kernels
+
+    n = 1 << 20
+    cycles = torch.zeros(1, dtype=torch.int64, device="cuda")
+    sink = torch.zeros(1, device="cuda")
+    kernels.check_launch(kernels.entry("edge_accumulate", "edge_chain_cycles")(
+        cycles.data_ptr(), sink.data_ptr(), n, kernels.stream_of(sink)),
+        "edge_chain_cycles")
+    torch.cuda.synchronize()
+    return int(cycles) / n
+
+
 def probe_rows(plan, x, probe, reps) -> list:
     """Kernels E-H held against their plain versions (E and F exactly,
     G and H within TOLERANCE; the same bits over two launches each) on
     the probe path's inputs, and timed beside their bounds, plain
-    versions and library calls. These launches are not the path's."""
+    versions and library calls. G's bucket and accumulate passes are
+    timed apart, and its chain bound (the longest row's dependent adds
+    at the measured FADD latency and the card's clock) stands beside its
+    byte bound; H's time beside its byte bound and its dense form's
+    compute floor, with the bytes its tiles read. These launches are not
+    the path's."""
     import torch
 
     from sgc_tpu_torch.ops import blockdense_int8 as h
@@ -3939,20 +3974,34 @@ def probe_rows(plan, x, probe, reps) -> list:
     f_bound = rf.bound_ms(*rf.copy_count(
         int(torch.unique(tidx).numel()) * tx.shape[1], n_f, tidx.numel()))
 
-    # G: every mode on the gather probe's edges
+    # G: every mode on the gather probe's edges; the bucket pass and the
+    # accumulate pass apart; the chain bound of the longest row
     rows_, cols_, vals_, gx = probe["gather_inputs"]
     R, F = PROBE_GATHER["rows"], gx.shape[1]
+    fadd_cycles, clock_ghz = fadd_cycles_per_link(), sm_clock_ghz()
     g = {}
     for mode in ea.MODES:
         run = lambda m=mode: ea.edge_accumulate(rows_, cols_, vals_, gx, R, m)
         plain = lambda m=mode: ea.edge_accumulate_plain(rows_, cols_, vals_,
                                                         gx, R, m)
-        _, c_eff = ea.effective_edges(rows_, cols_, mode)
+        r_eff, c_eff = ea.effective_edges(rows_, cols_, mode)
         ops, nbytes = rf.edges_count(rows_.numel(), R,
                                      int(torch.unique(c_eff).numel()), F)
+        buckets = ea.bucket_edges(rows_, cols_, vals_, gx, R, mode)
+        longest = int(torch.bincount(r_eff.long(), minlength=R).max())
+        if mode == "store":   # one product a row: no chain of adds
+            longest = 1
         g[mode] = {**held(run, plain, TOLERANCE), "ms": time_ms(run, reps),
+                   "bucket_ms": time_ms(lambda m=mode: ea.bucket_edges(
+                       rows_, cols_, vals_, gx, R, m), reps),
+                   "accumulate_ms": time_ms(lambda m=mode, b=buckets:
+                                            ea.accumulate_buckets(
+                                                b, gx, R, m), reps),
                    "bound": rf.bound_ms(ops, nbytes), "ops": ops,
-                   "bytes": nbytes}
+                   "bytes": nbytes, "longest_row": longest,
+                   "chain_bound_ms": rf.chain_bound_ms(longest, fadd_cycles,
+                                                       clock_ghz)}
+        del buckets
     with warnings.catch_warnings():
         warnings.filterwarnings("ignore", message=".*[Ss]parse")
         a_csr = torch.sparse_coo_tensor(
@@ -3979,6 +4028,7 @@ def probe_rows(plan, x, probe, reps) -> list:
         hh[ft] = held(lambda: h.apply_cells_int8(cells, xp),
                       lambda: h.apply_cells_int8_plain(cells, xp), TOLERANCE)
         hh[ft]["ms"] = time_ms(lambda: h.apply_cells_int8(cells, xp), reps)
+        hh[ft]["traffic"] = rf.kernel_h_traffic(cells, int(xp.shape[1]))
     xp = probe["dense"]["int8"][768]["xp"]
     hh[768]["plain_ms"] = time_ms(lambda: h.apply_cells_int8_plain(cells, xp),
                                   1)
@@ -4001,6 +4051,9 @@ def probe_rows(plan, x, probe, reps) -> list:
         lambda: torch.addmm(zero, h_csr, xpf, beta=0.0), reps)
     del h_csr, xpf, zero
     h_bound = rf.kernel_h_bound(cells, nnz, int(xp.shape[1]))
+    h_bound["byte_bound_share"] = h_bound["bound_ms"] / hh[768]["ms"]
+    h_bound["dense_form_floor_share"] = (h_bound["dense_form_bound_ms"]
+                                         / hh[768]["ms"])
     F_x = int(x.shape[1])
     a_bf16 = {"ms": time_ms(lambda: bd.apply_cells(split, dargs, x, "bf16"),
                             reps),
@@ -4050,6 +4103,11 @@ def probe_rows(plan, x, probe, reps) -> list:
          "library_ms": g["rmw"]["library_ms"],
          "library": "torch.sparse.mm of the edges as a CSR matrix (rmw's "
                     "sum; index_add_ms: index_add_ of v x[c], atomic)",
+         "bucket_ms": g["rmw"]["bucket_ms"],
+         "accumulate_ms": g["rmw"]["accumulate_ms"],
+         "chain_bound_ms": {m: g[m]["chain_bound_ms"]
+                            for m in ("fixed_out", "noop")},
+         "fadd_cycles_per_link": fadd_cycles, "sm_clock_ghz": clock_ghz,
          "modes": g},
         {"name": "blockdense_int8_cells", "route": "cuda",
          "source": "sgc_tpu_torch/csrc/blockdense_int8.cu",
@@ -4061,6 +4119,7 @@ def probe_rows(plan, x, probe, reps) -> list:
          "library_ms": hh[768]["library_ms"],
          "library": "torch.addmm, the dequantized cells' nonzeros as one "
                     "CSR matrix against bf16(x) widened",
+         "rel_err": hh[768]["rel_err"],
          "feature_tiles": hh, "cells": split.n_cells,
          "slots": int(cells.cells.shape[0]), **h_bound,
          "kernel_a_bf16": a_bf16}]

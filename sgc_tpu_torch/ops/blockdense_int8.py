@@ -39,7 +39,8 @@ from sgc_tpu_torch.ops import kernels
 # cells a quantization step takes at once (an f32 temporary of this many
 # cells; the reference's chunk)
 QUANT_CHUNK = 256
-# the kernel's output tile width: F_pad must be a multiple of it
+# F_pad must be a multiple of it: the kernel's tiles are 256 features
+# wide, the last one 128 wide where F_pad is not a multiple of 256
 FEATURE_TILE = 128
 
 LAUNCHES = 0
@@ -163,7 +164,7 @@ def apply_cells_int8_plain(c: Int8Cells, xp: torch.Tensor) -> torch.Tensor:
 
 def apply_cells_int8(c: Int8Cells, xp: torch.Tensor) -> torch.Tensor:
     """The int8 dense-cell term, f32 ``[n_rb * R, F_pad]``: kernel H on a
-    CUDA tensor (F_pad a multiple of 128, R of 128, W of 32), the plain
+    CUDA tensor (F_pad a multiple of 128, R of 128, W of 128), the plain
     version on a CPU tensor."""
     _check(c, xp)
     if xp.device.type == "cpu":
@@ -180,8 +181,8 @@ def apply_cells_int8(c: Int8Cells, xp: torch.Tensor) -> torch.Tensor:
     rc = kernels.entry("blockdense_int8")(
         c.cells.data_ptr(), c.scales.data_ptr(), xp.data_ptr(),
         out.data_ptr(), c.rb_ptr.data_ptr(), c.cell_of.data_ptr(),
-        c.st_ids.data_ptr(), c.n_rb, c.n_st, f_pad, R, W,
-        kernels.stream_of(xp))
+        c.st_ids.data_ptr(), int(c.cells.shape[0]), c.n_rb, c.n_st, f_pad,
+        R, W, kernels.stream_of(xp))
     kernels.check_launch(rc, "blockdense_int8_cells")
     LAUNCHES += 1
     return out

@@ -49,10 +49,14 @@ _ENTRY = {
     "row_gather": {"row_gather_load": [_V, _V, _V, _L, _I, _I, _V],
                    "row_gather_async": [_V, _V, _V, _L, _I, _I, _I, _V]},
     "edge_accumulate": {"edge_accumulate":
-                        [_V, _V, _V, _V, _V, _L, _I, _I, _I, _I, _I, _V]},
+                        [_V] * 5 + [_L] + [_I] * 5 + [_V] * 9,
+                        "edge_buckets": [_V] * 3 + [_L] + [_I] * 4
+                        + [_V] * 9,
+                        "edge_accumulate_bucketed": [_V] * 7 + [_L]
+                        + [_I] * 4 + [_V],
+                        "edge_chain_cycles": [_V, _V, _I, _V]},
     "blockdense_int8": {"blockdense_int8_cells":
-                        [_V, _V, _V, _V, _V, _V, _V, _I, _I, _I, _I, _I,
-                         _V]},
+                        [_V] * 7 + [_I] * 6 + [_V]},
 }
 
 _loaded: dict[tuple[str, str], ctypes._CFuncPtr] = {}

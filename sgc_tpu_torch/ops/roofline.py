@@ -36,9 +36,14 @@ Kernels (``chip_smoke.py`` reports each count beside the kernel's time):
   (:func:`copy_count`): bytes, the values the output needs read once,
   the output and the index.
 * G, ``csrc/edge_accumulate.cu``: kernel B's count on the same edges
-  (:func:`edges_count`).
+  (:func:`edges_count`); beside it the chain bound of edge order
+  (:func:`chain_bound_ms`): a row's updates stay in edge order, so each
+  of a row's features is one dependent chain of f32 adds, and a hub row
+  of E edges takes at least E FADD latencies.
 * H, ``csrc/blockdense_int8.cu`` (:func:`kernel_h_bound`): kernel A's
-  rule with int8 cells (1 byte an entry) and a bf16 x table.
+  rule with int8 cells (1 byte an entry) and a bf16 x table; beside it
+  the bytes its tiles read from L2 (:func:`kernel_h_traffic`: each cell
+  byte once a feature tile, each cell's x stripe once a row tile).
 
 :func:`dense_term_cost` and :func:`roofline_report` keep the reference's
 signatures and keys, filled from the kernel A and kernel B counts;
@@ -59,6 +64,12 @@ import torch
 H100_HBM_GBPS = 3350.0
 H100_BF16_TC_TFLOPS = 989.0
 H100_FP32_TFLOPS = 67.0
+
+# a dependent f32 add waits this many cycles for the last (the FADD
+# latency; chip_smoke.py measures it, csrc/edge_accumulate.cu::
+# edge_chain_cycles), at the SM's boost clock (nvidia-smi clocks.max.sm)
+H100_FADD_CYCLES = 4.0
+H100_SM_GHZ = 1.98
 
 PEAK_HBM_BYTES = H100_HBM_GBPS * 1e9
 PEAK_BF16_TC_FLOPS = H100_BF16_TC_TFLOPS * 1e12
@@ -189,6 +200,31 @@ def copy_count(n_read: int, n_out: int, n_index: int = 0,
     once, ``n_index`` int32 indices; ``ops_per_out`` FP32 operations a
     value written (E doubles, F copies)."""
     return float(ops_per_out * n_out), 4 * (n_read + n_out + n_index)
+
+
+def chain_bound_ms(n_links: int, cycles_per_link: float = H100_FADD_CYCLES,
+                   ghz: float = H100_SM_GHZ) -> float:
+    """The least time of one chain of ``n_links`` dependent f32 adds, each
+    waiting ``cycles_per_link`` cycles of a ``ghz`` clock for the last:
+    the bound of edge order on a row of ``n_links`` edges."""
+    return n_links * cycles_per_link / ghz * 1e-6
+
+
+def kernel_h_traffic(cells, f_pad: int, tile_rows: int = 128,
+                     tile_features: int = 256) -> dict:
+    """What kernel H's tiles (``tile_rows x tile_features`` of out) read:
+    each slot's int8 bytes once a feature tile (and dequantized as often),
+    each slot's x stripe (``W x f_pad`` bf16) once a row tile."""
+    k, R, W = (int(n) for n in cells.cells.shape)
+    feature_tiles = -(-f_pad // tile_features)
+    row_tiles = R // tile_rows
+    cell_bytes = k * R * W
+    x_bytes = k * row_tiles * W * f_pad * 2
+    return {"cell_reads": feature_tiles, "feature_tiles": feature_tiles,
+            "row_tiles": row_tiles,
+            "cell_bytes_read": cell_bytes * feature_tiles,
+            "x_bytes_read": x_bytes,
+            "l2_bytes_read": cell_bytes * feature_tiles + x_bytes}
 
 
 def kernel_h_bound(cells, nnz: int, f_pad: int) -> dict:

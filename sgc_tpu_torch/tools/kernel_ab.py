@@ -1,11 +1,14 @@
 #!/usr/bin/env python3
-"""CUDA-event A/B runs of the port's kernels A, B, C and D on one card,
-at the chip smoke's full-scale clustered-Reddit splits.
+"""CUDA-event A/B runs of the port's kernels A, B, C, D, G and H on one
+card, at the chip smoke's full-scale clustered-Reddit splits (G at the
+gather probe's defaults).
 
     python3 -m sgc_tpu_torch.tools.kernel_ab [--scale 1.0] [--reps 5]
-        [--kernels a,b,c,d] [--baseline-b path/to/spmm_csr.cu]
+        [--kernels a,b,c,d,g,h] [--baseline-b path/to/spmm_csr.cu]
         [--baseline-c path/to/tiled_spmm.cu]
         [--baseline-d path/to/sddmm.cu]
+        [--baseline-g path/to/edge_accumulate.cu]
+        [--baseline-h path/to/blockdense_int8.cu]
 
 Kernel B (``csrc/spmm_csr.cu``) at every width its callers use, each on
 its own operand (``b_cases``): F = 1, 8, 16, 41 and 64 on the shuffled
@@ -59,6 +62,39 @@ error against the plain version. With ``--baseline-d`` (the warp-per-edge
 kernel D of an earlier commit, whose C entry ``sddmm`` takes ``rows,
 cols, a, b, out, nnz, e_pad, F, stream``) it also times that kernel on
 both orders in the same call.
+
+Kernel G (``csrc/edge_accumulate.cu``) on the gather probe's edges
+(65,536 into 2,048 x 768) in every mode: the whole call, the bucket pass
+and the accumulate pass alone, each launch's device time under
+``torch.profiler``, the FADD chain's cycles a link, ``torch.sparse.mm``
+on the same edges, and variants made by rewriting the source
+(``G_VARIANTS``: the light rows' slice width, edges read at once and CTA
+size, their x slice read from global memory, the heavy ring's depth and
+4-byte copies, ``__match_any_sync`` for the bucket pass's ranks); every
+variant must give the plain version's bits. With ``--baseline-g`` (the
+one-pass kernel of an earlier commit, whose C entry ``edge_accumulate``
+takes ``rows, cols, vals, x, out, n_edges, R, W, F, rows_per_cta, mode,
+stream``) it also times that kernel in every mode.
+
+Kernel H (``csrc/blockdense_int8.cu``) on the block-dense main split's
+cells quantized per cell, x padded to 768: its time, its error against
+the plain version, ``torch.addmm`` over the dequantized nonzeros and
+kernel A at ``"bf16"`` on the same cells, and variants (``H_VARIANTS``;
+those in ``H_TIMING_ONLY`` change the sum and are timed only: ``copy``
+takes the cell bytes as bf16 bits with no dequantizing arithmetic,
+``flush_in_registers`` skips the running sum, ``no_products`` drops the
+wgmmas, leaving the loads, the dequantization and the running sum;
+``stages3`` a shorter ring, ``stages3_run96`` with more of the running
+sum in shared memory, ``row_block_sum`` the row block's cells summed on
+the tensor cores with no running sum). Then ``base`` and
+``row_block_sum`` again on random dense int8 cells (seeded) in the main
+split's index, where a long f32 sum shows its rounding. With
+``--baseline-h`` (the ``mma.sync`` kernel of
+an earlier commit, whose C entry ``blockdense_int8_cells`` takes
+``cells, scales, xs, out, rb_ptr, cell_of, st_ids, n_rb, n_st, F_pad,
+R, W, stream``) it also times that kernel as written and with its
+dequantization replaced by the same plain copy (``copy``), which
+measures what the dequantizing pass costs that design.
 
 Prints one JSON line per measurement and the card's name and power
 limit; exits non-zero without a CUDA device.
@@ -188,11 +224,67 @@ D_VARIANTS = {
 }
 
 
+# variants of kernel G: the light rows' slice width (lanes a row) and CTA
+# size, their x slice read from global memory, the heavy ring's depth,
+# the heavy rows' copies at 4 bytes
+G_VARIANTS = {
+    "base": [],
+    "slice16": [(r"SF = 8;", "SF = 16;")],
+    "row_loads4": [(r"ROW_LOADS = 8;", "ROW_LOADS = 4;")],
+    "light_1024": [(r"LIGHT_THREADS = 256;", "LIGHT_THREADS = 1024;")],
+    "x_unstaged": [(r"X_SMEM_MAX = 160 \* 1024;", "X_SMEM_MAX = 0;")],
+    "depth6": [(r"DEPTH = 10;", "DEPTH = 6;")],
+    "heavy_copy4b": [(r"const bool vec = F % 4 == 0", "const bool vec = "
+                      "false && F % 4 == 0")],
+    "match_any": [(r"    unsigned peers = 0;   // the lanes of this group "
+                   r"with row r\n#pragma unroll\n    for \(int j = 0; j < 32; "
+                   r"\+\+j\)\n      peers \|= static_cast<unsigned>"
+                   r"\(__shfl_sync\(FULL, r, j\) == r\) << j;",
+                   "    const unsigned peers = __match_any_sync(FULL, r);")],
+}
+G_ARGS = [V] * 5 + [L] + [I] * 5 + [V] * 9
+BASELINE_G_ARGS = [V] * 5 + [L] + [I] * 5 + [V]
+
+# variants of kernel H (timing only where marked in the module note)
+H_VARIANTS = {
+    "base": [],
+    "copy": [(r"  const uint32_t u = w \^ 0x80808080u;",
+              "  return w;\n  const uint32_t u = w ^ 0x80808080u;")],
+    "flush_in_registers": [(r"const bool last = ci == n_cells - 1;",
+                            "const bool last = true;")],
+    "stages3": [(r"STAGES = 4;", "STAGES = 3;")],
+    "no_products": [(r"\s*wgmma_256\(acc, a\[j\], x_desc\(b_tile \+ j "
+                     r"\* 2048\),\n\s*first && j == 0 \? 0 : 1\);", "")],
+    "stages3_run96": [(r"STAGES = 4;", "STAGES = 3;"),
+                      (r"RUN_REGS = 64;", "RUN_REGS = 32;")],
+    # the row block's cells summed on the tensor cores, no running sum
+    "row_block_sum": [
+        (r"first && j == 0 \? 0 : 1", "ci == 0 && first && j == 0 ? 0 : 1"),
+        (r"const bool last = ci == n_cells - 1;", "const bool last = true;"),
+        (r"__fadd_rn\(ci == 0 \? 0\.f : run_r\[i\], acc\[i\]\)",
+         "__fadd_rn(0.f, acc[i])"),
+        (r"float4 r = ci == 0 \? make_float4\(0\.f, 0\.f, 0\.f, 0\.f\)\n"
+         r"\s*: my_run\[q \* THREADS\];",
+         "float4 r = make_float4(0.f, 0.f, 0.f, 0.f);")],
+}
+H_TIMING_ONLY = {"copy", "flush_in_registers", "no_products"}
+H_ARGS = [V] * 7 + [I] * 6 + [V]
+BASELINE_H_ARGS = [V] * 7 + [I] * 5 + [V]
+BASELINE_H_VARIANTS = {
+    "base": [],
+    "copy": [(r"(uint32_t dequant2\(int q0, int q1, float scale\) \{)",
+              r"\1\n  return (static_cast<uint32_t>(q0) & 0xffffu) | "
+              r"(static_cast<uint32_t>(q1) << 16);")],
+}
+
+
 def build_variants(source: Path, variants: dict, argtypes: list,
                    out_dir: Path, symbol: str) -> dict:
     """Compile each variant (a list of source rewrites) of a kernel source
     in parallel; returns {variant: (ctypes function ``symbol`` taking
-    ``argtypes``, ptxas register counts)}."""
+    ``argtypes``, ptxas register counts)}. A library is named by source
+    stem, symbol and variant, and a path loads once a process: an
+    earlier commit's source goes to a ``out_dir`` of its own."""
     from sgc_tpu_torch.utils.buildlib import nvcc_path
 
     out_dir.mkdir(parents=True, exist_ok=True)
@@ -266,7 +358,7 @@ def kernel_c(data, device, reps: int, baseline: Path | None) -> None:
     out_dir = ROOT / "build" / "sgc_tpu_torch" / "ab"
     out = torch.empty((tiled.n_rows, F), device=device)
     fns = build_variants(baseline, BASELINE_VARIANTS, BASELINE_C_ARGS,
-                         out_dir, "tiled_spmm")
+                         out_dir / "baseline", "tiled_spmm")
     ptr, chunk_st = ti.flat_index(tiled)
     ptr = torch.from_numpy(ptr).to(device)
     chunk_st = torch.from_numpy(chunk_st).to(device)
@@ -359,7 +451,7 @@ def kernel_b(data, device, reps: int, seed: int,
     base_fn = None
     if baseline is not None:
         base_fn = build_variants(baseline, {"baseline": []},
-                                 BASELINE_B_ARGS, out_dir,
+                                 BASELINE_B_ARGS, out_dir / "baseline",
                                  "csr_spmm")["baseline"][0]
     mismatched = []
     for name, row_ptr, cols, vals, x, dense, x_bf16, plain in b_cases(
@@ -515,7 +607,7 @@ def kernel_d(data, device, reps: int, baseline: Path | None) -> None:
     base_fn = None
     if baseline is not None:
         base_fn = build_variants(baseline, {"base": []}, BASELINE_D_ARGS,
-                                 out_dir, "sddmm")["base"][0]
+                                 out_dir / "baseline", "sddmm")["base"][0]
     for order, (graph, feats) in orders.items():
         g = graph.to(device)
         x = torch.as_tensor(feats, device=device)
@@ -550,16 +642,229 @@ def kernel_d(data, device, reps: int, baseline: Path | None) -> None:
         torch.cuda.empty_cache()
 
 
+def profiled_kernels_ms(fn, calls: int) -> dict:
+    """Each CUDA kernel's device time a call of ``fn`` (ms), from
+    ``torch.profiler`` over ``calls`` calls after a warm one."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    out = {}
+    for ev in prof.key_averages():
+        t = getattr(ev, "device_time_total", None)
+        if t is None:
+            t = getattr(ev, "cuda_time_total", 0)
+        if t and "CUDA" in str(getattr(ev, "device_type", "")):
+            out[ev.key[:60]] = t / 1e3 / calls
+    return out
+
+
+def kernel_g(device, reps: int, baseline: Path | None) -> None:
+    import torch
+
+    from sgc_tpu_torch.ops import edge_accumulate as ea
+    from sgc_tpu_torch.ops import kernels
+    from sgc_tpu_torch.ops import roofline as rf
+    from sgc_tpu_torch.scripts import exp_gather_probe as gp
+
+    rows, cols, vals, x = (torch.from_numpy(a).to(device)
+                           for a in gp.make_inputs(2048, 2048, 768, 1024, 64))
+    R, F, E = 2048, int(x.shape[1]), int(rows.shape[0])
+    cyc = torch.zeros(1, dtype=torch.int64, device=device)
+    sink = torch.zeros(1, device=device)
+    kernels.check_launch(kernels.entry("edge_accumulate", "edge_chain_cycles")(
+        cyc.data_ptr(), sink.data_ptr(), 1 << 20, kernels.stream_of(x)),
+        "edge_chain_cycles")
+    torch.cuda.synchronize()
+    per_add = int(cyc) / (1 << 20)
+    emit({"kernel": "G", "fadd_cycles_per_link": per_add,
+          "chain_bound_ms_at_1980mhz": rf.chain_bound_ms(E, per_add, 1.98)})
+    with warnings.catch_warnings():
+        warnings.filterwarnings("ignore", message=".*[Ss]parse")
+        csr = torch.sparse_coo_tensor(torch.stack([rows.long(), cols.long()]),
+                                      vals, (R, x.shape[0])
+                                      ).coalesce().to_sparse_csr()
+    emit({"kernel": "G", "variant": "library_sparse_mm",
+          "ms": time_ms(lambda: torch.sparse.mm(csr, x), reps)})
+    del csr
+    want = {m: ea.edge_accumulate_plain(rows, cols, vals, x, R, m)
+            for m in ea.MODES}
+    for m in ea.MODES:
+        b = ea.bucket_edges(rows, cols, vals, x, R, m)
+        emit({"kernel": "G", "mode": m, "variant": "current",
+              "ms": time_ms(lambda: ea.edge_accumulate(rows, cols, vals, x,
+                                                       R, m), reps),
+              "bucket_ms": time_ms(lambda: ea.bucket_edges(
+                  rows, cols, vals, x, R, m), reps),
+              "accumulate_ms": time_ms(lambda: ea.accumulate_buckets(
+                  b, x, R, m), reps),
+              "launches_ms": profiled_kernels_ms(
+                  lambda: ea.edge_accumulate(rows, cols, vals, x, R, m), 10),
+              "exact": bool(torch.equal(
+                  ea.edge_accumulate(rows, cols, vals, x, R, m), want[m]))})
+    out_dir = ROOT / "build" / "sgc_tpu_torch" / "ab"
+    fns = build_variants(ROOT / "sgc_tpu_torch" / "csrc" /
+                         "edge_accumulate.cu", G_VARIANTS, G_ARGS, out_dir,
+                         "edge_accumulate")
+    out = torch.empty((R, F), device=device)
+    bits = dict(ea._MODE_BITS)
+    for name, (fn, regs) in fns.items():
+        for m in ea.MODES:
+            buf, ptrs = ea._scratch(E, R, device)
+
+            def run(fn=fn, m=m, ptrs=ptrs):
+                rc = fn(rows.data_ptr(), cols.data_ptr(), vals.data_ptr(),
+                        x.data_ptr(), out.data_ptr(), E, R, x.shape[0], F,
+                        bits[m], ea.BUCKET_CHUNK, *ptrs,
+                        kernels.stream_of(x))
+                kernels.check_launch(rc, f"kernel G {name}")
+            run()
+            torch.cuda.synchronize()
+            exact = bool(torch.equal(out, want[m]))
+            emit({"kernel": "G", "mode": m, "variant": name,
+                  "registers": regs, "ms": time_ms(run, reps),
+                  "exact": exact})
+            del buf
+            if not exact:
+                raise AssertionError(f"kernel G {name} {m}: bits differ")
+    if baseline is None:
+        return
+    base_fn = build_variants(baseline, {"baseline": []}, BASELINE_G_ARGS,
+                             out_dir / "baseline",
+                             "edge_accumulate")["baseline"][0]
+    for m in ea.MODES:
+        def run_old(m=m):
+            rc = base_fn(rows.data_ptr(), cols.data_ptr(), vals.data_ptr(),
+                         x.data_ptr(), out.data_ptr(), E, R, x.shape[0], F,
+                         256, bits[m], kernels.stream_of(x))
+            kernels.check_launch(rc, "baseline edge_accumulate")
+        run_old()
+        torch.cuda.synchronize()
+        emit({"kernel": "G", "mode": m, "variant": "baseline",
+              "ms": time_ms(run_old, reps),
+              "exact": bool(torch.equal(out, want[m]))})
+
+
+def kernel_h(data, device, reps: int, baseline: Path | None) -> None:
+    import torch
+
+    from sgc_tpu_torch.graph.locality import LocalityPlan
+    from sgc_tpu_torch.ops import blockdense_int8 as h
+    from sgc_tpu_torch.ops import kernels
+    from sgc_tpu_torch.ops import spmm_blockdense as bd
+
+    plan = LocalityPlan.build(*data, formulation="auto", device=device)
+    split, dargs = plan.split_main, plan._device_args()[0]
+    x = torch.as_tensor(plan.features, device=device)
+    q, scales = h.quantize_cells(dargs.cells)
+    cells = h.int8_cells(q, scales, split.rb_ids, split.st_ids,
+                         split.n_row_blocks, split.n_stripes)
+    del q
+    xp = h.pad_x_bf16(x, split.n_stripes * split.stripe, 768)
+    f_pad = int(xp.shape[1])
+    want = h.apply_cells_int8_plain(cells, xp)
+    got = h.apply_cells_int8(cells, xp)
+    again = h.apply_cells_int8(cells, xp)
+    emit({"kernel": "H", "variant": "current", "cells": split.n_cells,
+          "slots": int(cells.cells.shape[0]), "f_pad": f_pad,
+          "ms": time_ms(lambda: h.apply_cells_int8(cells, xp), reps),
+          "rel_err": rel_err(got, want),
+          "identical_launches": bool(torch.equal(got, again))})
+    del got, again
+    emit({"kernel": "H", "variant": "kernel_a_bf16", "ms": time_ms(
+        lambda: bd.apply_cells(split, dargs, x, "bf16"), reps)})
+    k_i, r_i, w_i = cells.cells.nonzero(as_tuple=True)
+    rb_of = torch.as_tensor(split.rb_ids, device=device).long()
+    with warnings.catch_warnings():
+        warnings.filterwarnings("ignore", message=".*[Ss]parse")
+        csr = torch.sparse_coo_tensor(
+            torch.stack([rb_of[k_i] * split.row_block + r_i,
+                         cells.st_ids.long()[k_i] * split.stripe + w_i]),
+            h.dequantize(cells.cells[k_i, r_i, w_i], cells.scales[k_i]),
+            (cells.n_rb * split.row_block, xp.shape[0])
+        ).coalesce().to_sparse_csr()
+    del k_i, r_i, w_i
+    xpf = xp.float()
+    zero = xpf.new_zeros((csr.shape[0], f_pad))
+    emit({"kernel": "H", "variant": "library_addmm", "ms": time_ms(
+        lambda: torch.addmm(zero, csr, xpf, beta=0.0), reps)})
+    del csr, xpf, zero
+    out = torch.empty_like(want)
+    R, W = cells.row_block, cells.stripe
+    out_dir = ROOT / "build" / "sgc_tpu_torch" / "ab"
+    fns = build_variants(ROOT / "sgc_tpu_torch" / "csrc" /
+                         "blockdense_int8.cu", H_VARIANTS, H_ARGS, out_dir,
+                         "blockdense_int8_cells")
+    common = (cells.cells.data_ptr(), cells.scales.data_ptr(),
+              xp.data_ptr(), out.data_ptr(), cells.rb_ptr.data_ptr(),
+              cells.cell_of.data_ptr(), cells.st_ids.data_ptr())
+    for name, (fn, regs) in fns.items():
+        def run(fn=fn):
+            rc = fn(*common, int(cells.cells.shape[0]), cells.n_rb,
+                    cells.n_st, f_pad, R, W, kernels.stream_of(xp))
+            kernels.check_launch(rc, f"kernel H {name}")
+        run()
+        torch.cuda.synchronize()
+        err = rel_err(out, want)
+        emit({"kernel": "H", "variant": name, "registers": regs,
+              "ms": time_ms(run, reps), "rel_err": err,
+              "timing_only": name in H_TIMING_ONLY})
+        if name not in H_TIMING_ONLY | {"row_block_sum"} and not err <= 1e-5:
+            raise AssertionError(f"kernel H {name}: rel err {err:.3e}")
+    if baseline is not None:
+        old = build_variants(baseline, BASELINE_H_VARIANTS, BASELINE_H_ARGS,
+                             out_dir / "baseline", "blockdense_int8_cells")
+        for name, (fn, regs) in old.items():
+            def run_old(fn=fn):
+                rc = fn(*common, cells.n_rb, cells.n_st, f_pad, R, W,
+                        kernels.stream_of(xp))
+                kernels.check_launch(rc, f"baseline H {name}")
+            run_old()
+            torch.cuda.synchronize()
+            emit({"kernel": "H", "variant": f"baseline_{name}",
+                  "registers": regs, "ms": time_ms(run_old, reps),
+                  "rel_err": rel_err(out, want),
+                  "timing_only": name == "copy"})
+    # the same index over random dense cells: each output a long sum
+    g = torch.Generator(device=device).manual_seed(0)
+    rand = h.int8_cells(
+        torch.randint(-127, 128, tuple(cells.cells.shape), dtype=torch.int8,
+                      device=device, generator=g),
+        torch.rand(cells.cells.shape[0], device=device, generator=g) / 64,
+        split.rb_ids, split.st_ids, cells.n_rb, cells.n_st)
+    want_rand = h.apply_cells_int8_plain(rand, xp)
+    for name in ("base", "row_block_sum"):
+        fn = fns[name][0]
+        rc = fn(rand.cells.data_ptr(), rand.scales.data_ptr(), xp.data_ptr(),
+                out.data_ptr(), rand.rb_ptr.data_ptr(),
+                rand.cell_of.data_ptr(), rand.st_ids.data_ptr(),
+                int(rand.cells.shape[0]), rand.n_rb, rand.n_st, f_pad, R, W,
+                kernels.stream_of(xp))
+        kernels.check_launch(rc, f"kernel H {name}")
+        torch.cuda.synchronize()
+        emit({"kernel": "H", "variant": name, "cells": "random_dense",
+              "rel_err": rel_err(out, want_rand)})
+    del rand, want_rand
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--scale", type=float, default=1.0)
     ap.add_argument("--seed", type=int, default=42)
     ap.add_argument("--reps", type=int, default=5)
-    ap.add_argument("--kernels", default="a,b,c,d",
+    ap.add_argument("--kernels", default="a,b,c,d,g,h",
                     help="comma-separated kernels to run")
     ap.add_argument("--baseline-b", type=Path, default=None)
     ap.add_argument("--baseline-c", type=Path, default=None)
     ap.add_argument("--baseline-d", type=Path, default=None)
+    ap.add_argument("--baseline-g", type=Path, default=None)
+    ap.add_argument("--baseline-h", type=Path, default=None)
     args = ap.parse_args()
 
     import torch
@@ -576,10 +881,12 @@ def main() -> int:
     print(smi.stdout.strip().splitlines()[0], flush=True)
     torch.backends.cuda.matmul.allow_tf32 = False
     device = torch.device("cuda", 0)
-    kernels.build_all(kernels.KERNEL_SOURCES)
+    chosen = set(args.kernels.split(","))
+    kernels.build_all(kernels.KERNEL_SOURCES + tuple(
+        n for k, n in (("g", "edge_accumulate"), ("h", "blockdense_int8"))
+        if k in chosen))
     data = synthetic_reddit_clustered(args.scale, seed=args.seed,
                                       shuffle=True)
-    chosen = set(args.kernels.split(","))
     if "a" in chosen:
         kernel_a(data, device, args.reps)
     if "b" in chosen:
@@ -588,6 +895,10 @@ def main() -> int:
         kernel_c(data, device, args.reps, args.baseline_c)
     if "d" in chosen:
         kernel_d(data, device, args.reps, args.baseline_d)
+    if "g" in chosen:
+        kernel_g(device, args.reps, args.baseline_g)
+    if "h" in chosen:
+        kernel_h(data, device, args.reps, args.baseline_h)
     return 0
 
 

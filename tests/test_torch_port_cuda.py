@@ -1377,6 +1377,120 @@ def test_cuda_edge_accumulate_matches_plain(cuda, mode, R, W, F, E):
     assert torch.equal(got, want)
 
 
+def _hub_edges(E=70000, R=2048, W=2048, F=768, hub=7, share=0.9):
+    """E edges, ``share`` of them on row ``hub`` (over many bucket
+    chunks), the rest uniform."""
+    rng = np.random.RandomState(E)
+    rows = rng.randint(0, R, E).astype(np.int32)
+    rows[rng.rand(E) < share] = hub
+    cols = rng.randint(0, W, E).astype(np.int32)
+    vals = rng.rand(E).astype(np.float32)
+    x = rng.rand(W, F).astype(np.float32)
+    return [torch.from_numpy(a) for a in (rows, cols, vals, x)], R
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["rmw", "store", "fixed_out", "fixed_in",
+                                  "noop"])
+def test_cuda_edge_accumulate_hub_row_matches_plain(cuda, mode):
+    """90% of 70,000 edges on one row: the row's chains keep edge order
+    (the heavy launch), the same bits as plain, twice."""
+    from sgc_tpu_torch.ops import edge_accumulate as ea
+
+    host, R = _hub_edges()
+    dev = [t.to(cuda) for t in host]
+    before, by_mode = ea.LAUNCHES, ea.BY_MODE[mode]
+    got = ea.edge_accumulate(*dev, R, mode)
+    again = ea.edge_accumulate(*dev, R, mode)
+    assert ea.LAUNCHES == before + 2 and ea.BY_MODE[mode] == by_mode + 2
+    want = ea.edge_accumulate_plain(*dev, R, mode)
+    assert torch.equal(got, again)
+    assert torch.equal(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["rmw", "store", "fixed_out", "fixed_in",
+                                  "noop"])
+@pytest.mark.parametrize("shape", ["hub", "uniform", "ragged"])
+def test_cuda_edge_buckets_match_their_definition(cuda, mode, shape):
+    """The bucket pass against a stable argsort of the effective rows and
+    the prefix sum of their counts; the accumulate pass alone on it gives
+    the whole kernel's bits."""
+    from sgc_tpu_torch.ops import edge_accumulate as ea
+
+    if shape == "hub":
+        host, R = _hub_edges()
+    else:
+        E, R, W, F = (65536, 2048, 2048, 64) if shape == "uniform" else \
+            (5001, 300, 77, 45)
+        rng = np.random.RandomState(E)
+        host = [torch.from_numpy(a) for a in (
+            rng.randint(0, R, E).astype(np.int32),
+            rng.randint(0, W, E).astype(np.int32),
+            rng.rand(E).astype(np.float32), rng.rand(W, F).astype(np.float32))]
+    rows, cols, vals, x = host
+    want = ea.bucket_edges_plain(rows, cols, vals, R, mode)
+    dev = [t.to(cuda) for t in host]
+    before = dict(ea.PASSES)
+    b = ea.bucket_edges(*dev, R, mode)
+    assert torch.equal(b.row_ptr.cpu(), want.row_ptr)
+    assert torch.equal(b.perm.cpu(), want.perm)
+    assert torch.equal(b.cols.cpu(), want.cols)
+    assert torch.equal(b.vals.cpu(), want.vals)
+    n_heavy = int(b.n_heavy)
+    assert n_heavy == int(want.n_heavy)
+    assert torch.equal(b.heavy[:n_heavy].cpu(), want.heavy[:n_heavy])
+    out = ea.accumulate_buckets(b, dev[3], R, mode)
+    assert ea.PASSES == {"bucket": before["bucket"] + 1,
+                         "accumulate": before["accumulate"] + 1}
+    assert torch.equal(out, ea.edge_accumulate(*dev, R, mode))
+
+
+def _int8_cells_ragged(order, f_pad, cuda):
+    """Random int8 cells over 5 row blocks (row block 2 has none, row
+    block 4 has 24, a long sum over cells) and 6 stripes, one cell with a
+    zero scale; slots in (rb, st) order or a super-row order (rb // 2,
+    st, rb); x bf16 [6 * 512, f_pad]."""
+    from sgc_tpu_torch.ops import blockdense_int8 as h
+
+    rng = np.random.default_rng(f_pad)
+    pairs = [(rb, st) for rb in (0, 1, 3) for st in range(3)
+             if (rb + st) % 4 != 3] + [(4, i % 6) for i in range(24)]
+    if order == "super_rows":
+        pairs.sort(key=lambda p: (p[0] // 2, p[1], p[0]))
+    rb_ids = np.array([p[0] for p in pairs], np.int32)
+    st_ids = np.array([p[1] for p in pairs], np.int32)
+    k = len(pairs)
+    q = torch.from_numpy(rng.integers(-127, 128, (k, 512, 512),
+                                      dtype=np.int8))
+    scales = torch.from_numpy(rng.uniform(1e-3, 2e-2, k).astype(np.float32))
+    scales[k // 2] = 0.0
+    c = h.int8_cells(q.to(cuda), scales.to(cuda), rb_ids, st_ids, n_rb=5,
+                     n_st=6)
+    x = rng.standard_normal((6 * 512, f_pad)).astype(np.float32)
+    return c, torch.from_numpy(x).to(torch.bfloat16).to(cuda)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("order", ["rb_st", "super_rows"])
+@pytest.mark.parametrize("f_pad", [384, 768])
+def test_cuda_int8_dense_term_ragged_matches_plain(cuda, order, f_pad):
+    """Kernel H on ragged cases: a row block with no cell (zeros), both
+    cell orders, a 128-wide last feature tile (384), a cell with a zero
+    scale; within TOL of plain, the same bits twice, one count a call."""
+    from sgc_tpu_torch.ops import blockdense_int8 as h
+
+    c, xp = _int8_cells_ragged(order, f_pad, cuda)
+    before = h.LAUNCHES
+    got = h.apply_cells_int8(c, xp)
+    again = h.apply_cells_int8(c, xp)
+    assert h.LAUNCHES == before + 2
+    assert torch.equal(got, again)
+    want = h.apply_cells_int8_plain(c, xp)
+    assert_close_rel(got.cpu(), want.cpu())
+    assert not got[2 * 512:3 * 512].any()
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("super_rows", [None, 8])
 def test_cuda_int8_dense_term_matches_plain(cuda, super_rows):
