@@ -50,8 +50,12 @@ and read just after:
                   at "bf16", then kernel H on the quantized cells at both
                   feature tiles, in super-row order); then every kernel
                   and entry held against its plain version (E and F
-                  exactly, G and H at 1e-5; the same bits twice), timed
-                  beside its bound, plain version and library call; G's
+                  exactly, F on its bulk-copy path at every depth and on
+                  its 4-byte load and cp.async paths, G and H at 1e-5;
+                  the same bits twice), timed beside its bound, plain
+                  version, library call and device time; E and F at the
+                  DMA shape over 1,000 calls beside the launch floor, F
+                  beside the write ceiling; G's
                   bucket and accumulate passes timed apart beside its
                   chain bound (the longest row's dependent adds at the
                   FADD latency measured on the card and its clock), H's
@@ -3861,6 +3865,10 @@ PROBE_TAKE = {"wcols": 2048, "f": 768, "chunk": 1024, "chunks": 64}
 PROBE_GATHER = {"rows": 2048, "wcols": 2048, "f": 768, "chunk": 1024,
                 "chunks": 64}
 PROBE_REPEATS = 5
+# calls a launch-bound kernel (E, F at the DMA probe's shape) is timed
+# over, and kernel F at the take probe's shape
+LAUNCH_CALLS = 1000
+TAKE_REPS = 50
 
 
 def held(fn, plain, tol: float) -> dict:
@@ -3904,9 +3912,16 @@ def fadd_cycles_per_link() -> float:
 
 def probe_rows(plan, x, probe, reps) -> list:
     """Kernels E-H held against their plain versions (E and F exactly,
-    G and H within TOLERANCE; the same bits over two launches each) on
-    the probe path's inputs, and timed beside their bounds, plain
-    versions and library calls. G's bucket and accumulate passes are
+    by ``torch.equal``, F on both of its paths: the bulk-copy ring at
+    every depth and, on the table 4 bytes off its alignment, the 4-byte
+    load and ``cp.async`` paths; G and H within TOLERANCE; the same bits
+    over two launches each) on the probe path's inputs, and timed beside
+    their bounds, plain versions and library calls, each with its device
+    time under ``torch.profiler``. E and F at the DMA probe's shape are
+    launch-bound: timed over LAUNCH_CALLS calls beside the launch floor
+    (one empty launch through the port's path, ``kernel_ab.launch_floor``);
+    F beside the write ceiling (``zero_()`` on its output, the card's rate
+    for pure writes). G's bucket and accumulate passes are
     timed apart, and its chain bound (the longest row's dependent adds
     at the measured FADD latency and the card's clock) stands beside its
     byte bound; H's time beside its byte bound and its dense form's
@@ -3922,57 +3937,135 @@ def probe_rows(plan, x, probe, reps) -> list:
     from sgc_tpu_torch.ops import row_gather as rg
     from sgc_tpu_torch.ops import spmm_blockdense as bd
     from sgc_tpu_torch.scripts import exp_pallas_probe2 as p2
+    from sgc_tpu_torch.tools.kernel_ab import launch_floor, profiled_launch_ms
 
     def timed(fn, plain=None, library=None, n=reps) -> dict:
         return {"ms": time_ms(fn, n),
                 "plain_ms": time_ms(plain, 1) if plain else None,
                 "library_ms": time_ms(library, n) if library else None}
 
-    # E: both entries at the probes' shapes
+    def exact(fn, plain) -> dict:
+        """``held`` at no tolerance, and ``torch.equal`` to the plain
+        version on the same inputs."""
+        out = held(fn, plain, 0.0)
+        if not torch.equal(fn(), plain()):
+            raise AssertionError("kernel vs plain: bits differ")
+        return out
+
+    def device_ms(rows: dict, fns: dict) -> None:
+        """Each ``fns`` entry's mean device time a launch under one
+        ``torch.profiler`` session of 10 calls each, into
+        ``rows[entry]["device_ms"]`` (None if the profiler saw none) and
+        the launches it recorded into ``"device_launches"``; ``fns`` maps
+        an entry to (its kernel's name with its template arguments, and a
+        call that launches it once)."""
+        got = profiled_launch_ms(
+            lambda: [fn() for _, fn in fns.values()], 10)
+        for entry, (kernel, _) in fns.items():
+            seen = [v for key, v in got.items() if kernel + "(" in key]
+            rows[entry]["device_ms"] = seen[0]["ms"] if seen else None
+            rows[entry]["device_launches"] = sum(v["launches"]
+                                                 for v in seen)
+
+    def in_turns(fn, library, n: int) -> tuple[float, float]:
+        """``fn`` and ``library`` timed over ``n`` calls each in the
+        order fn, library, library, fn: the mean of each one's turns."""
+        a, b = time_ms(fn, n), time_ms(library, n)
+        b, a = (b + time_ms(library, n)) / 2, (a + time_ms(fn, n)) / 2
+        return a, b
+
+    # the launch floor: one empty launch a call through the port's path,
+    # and back to back inside one C call
+    floor = launch_floor(probe["scale2_x"])
+
+    # E: both entries at the probes' shapes, launch-bound: timed over
+    # LAUNCH_CALLS calls, scale2 in turns with torch.mul
     ex = probe["scale2_x"]
     sx, sel = probe["select_inputs"]
-    e = {"scale2": {**held(lambda: pe.scale2(ex),
-                           lambda: pe.scale2_plain(ex), 0.0),
-                    **timed(lambda: pe.scale2(ex), lambda: pe.scale2_plain(ex),
-                            lambda: torch.mul(ex, 2.0))},
+    e_fns = {"scale2": ("scale2_kernel", lambda: pe.scale2(ex)),
+             "select_blocks": ("select_blocks_kernel",
+                               lambda: pe.select_blocks(sx, sel, p2.B))}
+    e = {"scale2": {**exact(e_fns["scale2"][1],
+                            lambda: pe.scale2_plain(ex)),
+                    **timed(e_fns["scale2"][1], lambda: pe.scale2_plain(ex),
+                            n=LAUNCH_CALLS)},
          "select_blocks": {
-             **held(lambda: pe.select_blocks(sx, sel, p2.B),
-                    lambda: pe.select_blocks_plain(sx, sel, p2.B), 0.0),
-             **timed(lambda: pe.select_blocks(sx, sel, p2.B),
-                     lambda: pe.select_blocks_plain(sx, sel, p2.B))}}
-    e["scale2"]["bound"] = rf.bound_ms(*rf.copy_count(ex.numel(), ex.numel(),
-                                                      0, 1))
+             **exact(e_fns["select_blocks"][1],
+                     lambda: pe.select_blocks_plain(sx, sel, p2.B)),
+             **timed(e_fns["select_blocks"][1],
+                     lambda: pe.select_blocks_plain(sx, sel, p2.B),
+                     n=LAUNCH_CALLS)}}
+    device_ms(e, e_fns)
+    e["scale2"]["ms"], e["scale2"]["library_ms"] = in_turns(
+        e_fns["scale2"][1], lambda: torch.mul(ex, 2.0), LAUNCH_CALLS)
+    e["scale2"]["bound"] = rf.copy_bound(
+        ex.numel(), ex.numel(), 0, 1, floor["per_python_call_ms"])
     n_sel = int(torch.unique(sel).numel()) * p2.B * sx.shape[1]
-    e["select_blocks"]["bound"] = rf.bound_ms(*rf.copy_count(
-        n_sel, sel.numel() * p2.B * sx.shape[1], sel.numel(), 1))
+    e["select_blocks"]["bound"] = rf.copy_bound(
+        n_sel, sel.numel() * p2.B * sx.shape[1], sel.numel(), 1,
+        floor["per_python_call_ms"])
 
-    # F: both entries at the take probe's shape, async at every depth, and
-    # async at the DMA probe's shape
+    # F: both entries at the take probe's shape, async at every depth, the
+    # 4-byte paths (load and cp.async) on the same table 4 bytes off its
+    # alignment, over TAKE_REPS calls; async at the DMA probe's shape
+    # (launch-bound) over LAUNCH_CALLS. torch.index_select was timed
+    # before any launch of kernel F (phase_probe_path): F's evict-last
+    # reads leave the table favoured in L2, which a later library call
+    # would inherit; it is timed again here, after them
     tx, tidx = probe["take_inputs"]
     tidx64 = tidx.long()
-    f = {"load": {**held(lambda: rg.row_gather(tx, tidx, "load"),
-                         lambda: rg.row_gather_plain(tx, tidx), 0.0),
-                  **timed(lambda: rg.row_gather(tx, tidx, "load"),
-                          lambda: rg.row_gather_plain(tx, tidx),
-                          lambda: torch.index_select(tx, 0, tidx64))}}
-    for n in rg.IN_FLIGHT:
-        f[f"async_{n}"] = {
-            **held(lambda: rg.row_gather(tx, tidx, "async", n),
-                   lambda: rg.row_gather_plain(tx, tidx), 0.0),
-            "ms": time_ms(lambda: rg.row_gather(tx, tidx, "async", n), reps)}
+    buf = torch.empty(tx.numel() + 1, device=tx.device)
+    tx_off = buf[1:].view_as(tx)
+    tx_off.copy_(tx)
+    sms = rg.sms_of(tx)
+    f_fns = {"load": ("gather_load_kernel<float4>",
+                      lambda: rg.row_gather(tx, tidx, "load"))}
+    f_fns.update({f"async_{n}": (f"gather_bulk_kernel<{n}>",
+                                 lambda n=n: rg.row_gather(tx, tidx, "async",
+                                                           n))
+                  for n in rg.IN_FLIGHT})
+    f_fns["load_4byte"] = ("gather_load_kernel<float>",
+                           lambda: rg.row_gather(tx_off, tidx, "load"))
+    f_fns["cp_async_8"] = ("gather_cp_kernel<8>",
+                           lambda: rg.row_gather(tx_off, tidx, "async"))
+    f = {}
+    for name, (_, fn) in f_fns.items():
+        f[name] = {**exact(fn, lambda: rg.row_gather_plain(tx, tidx)),
+                   **timed(fn, n=TAKE_REPS)}
+    f["load"].update(
+        plain_ms=time_ms(lambda: rg.row_gather_plain(tx, tidx), 1),
+        library_ms=probe["take_library_ms"],
+        library_ms_after=time_ms(lambda: torch.index_select(tx, 0, tidx64),
+                                 TAKE_REPS))
+    for name, entry, aligned in (("load", "load", True),
+                                 ("load_4byte", "load", False),
+                                 ("cp_async_8", "async", False)):
+        f[name]["plan"] = rg.gather_plan(tidx.numel(), tx.shape[1], entry,
+                                         aligned=aligned, sms=sms).__dict__
+    device_ms(f, f_fns)
+    del buf, tx_off
+    zeroed = torch.empty((tidx.numel(), tx.shape[1]), device=tx.device)
+    write_ceiling_ms = time_ms(zeroed.zero_, TAKE_REPS)
+    del zeroed
     dx, dcols = probe["dma_inputs"]
-    f["dma_shape_async_8"] = {
-        **held(lambda: rg.row_gather(dx, dcols, "async"),
-               lambda: rg.row_gather_plain(dx, dcols), 0.0),
+    dma = {"dma_shape_async_8": {
+        **exact(lambda: rg.row_gather(dx, dcols, "async"),
+                lambda: rg.row_gather_plain(dx, dcols)),
         **timed(lambda: rg.row_gather(dx, dcols, "async"),
                 lambda: rg.row_gather_plain(dx, dcols),
-                lambda: torch.index_select(dx, 0, dcols.long())),
-        "bound": rf.bound_ms(*rf.copy_count(
+                lambda: torch.index_select(dx, 0, dcols.long()),
+                LAUNCH_CALLS),
+        "bound": rf.copy_bound(
             int(torch.unique(dcols).numel()) * dx.shape[1],
-            dcols.numel() * dx.shape[1], dcols.numel()))}
+            dcols.numel() * dx.shape[1], dcols.numel(),
+            launch_floor_ms=floor["per_python_call_ms"])}}
+    device_ms(dma, {"dma_shape_async_8": (
+        "gather_bulk_kernel<8>", lambda: rg.row_gather(dx, dcols, "async"))})
+    f.update(dma)
     n_f = tidx.numel() * tx.shape[1]
-    f_bound = rf.bound_ms(*rf.copy_count(
-        int(torch.unique(tidx).numel()) * tx.shape[1], n_f, tidx.numel()))
+    f_bound = rf.copy_bound(int(torch.unique(tidx).numel()) * tx.shape[1],
+                            n_f, tidx.numel(),
+                            launch_floor_ms=floor["per_python_call_ms"])
 
     # G: every mode on the gather probe's edges; the bucket pass and the
     # accumulate pass apart; the chain bound of the longest row
@@ -4076,10 +4169,13 @@ def probe_rows(plan, x, probe, reps) -> list:
          "launches_by_entry": by_entry["probe_copy"],
          "max_abs_err": max(v["max_abs_err"] for v in e.values()),
          "ms": e["scale2"]["ms"], "plain_ms": e["scale2"]["plain_ms"],
-         "bound_ms": e["scale2"]["bound"][0],
-         "bound_by": e["scale2"]["bound"][1],
+         "bound_ms": e["scale2"]["bound"]["bound_ms"],
+         "bound_by": e["scale2"]["bound"]["bound_by"],
          "library_ms": e["scale2"]["library_ms"],
          "library": "torch.mul(x, 2.0) (scale2); select_blocks has none",
+         "device_ms": e["scale2"]["device_ms"],
+         "launch_floor_ms": floor["per_python_call_ms"],
+         "launch_floor": floor, "calls_timed": LAUNCH_CALLS,
          "entries": e, "capability_warm_s": capability_warm_s},
         {"name": "row_gather", "route": "cuda",
          "source": "sgc_tpu_torch/csrc/row_gather.cu",
@@ -4089,9 +4185,13 @@ def probe_rows(plan, x, probe, reps) -> list:
          "launches_by_entry": by_entry["row_gather"],
          "max_abs_err": max(v["max_abs_err"] for v in f.values()),
          "ms": f["load"]["ms"], "plain_ms": f["load"]["plain_ms"],
-         "bound_ms": f_bound[0], "bound_by": f_bound[1],
+         "bound_ms": f_bound["bound_ms"], "bound_by": f_bound["bound_by"],
          "library_ms": f["load"]["library_ms"],
-         "library": "torch.index_select(x, 0, idx)", "entries": f},
+         "library": "torch.index_select(x, 0, idx), timed before kernel "
+                    "F's first launch (library_ms_after: after them)",
+         "device_ms": f["load"]["device_ms"],
+         "write_ceiling_ms": write_ceiling_ms,
+         "launch_floor_ms": floor["per_python_call_ms"], "entries": f},
         {"name": "edge_accumulate", "route": "cuda",
          "source": "sgc_tpu_torch/csrc/edge_accumulate.cu",
          "replaces": "scripts/exp_gather_probe.py:64",
@@ -4169,6 +4269,12 @@ def phase_probe_path(plan, x, reps) -> dict:
     gather_in = placed(exp_gather_probe.make_inputs(**PROBE_GATHER))
     select_in = exp_pallas_probe2.make_inputs(dev)
     dargs = plan._device_args()[0]
+    # the library call at the take probe's shape, before kernel F's
+    # evict-last reads favour the table in L2 (probe_rows times it again)
+    tx, tidx64 = take_in[0], take_in[1].long()
+    take_library_ms = time_ms(lambda: torch.index_select(tx, 0, tidx64),
+                              TAKE_REPS)
+    del tx, tidx64
     torch.cuda.synchronize()
     zero_launches()
     for mod in counters.values():
@@ -4205,6 +4311,7 @@ def phase_probe_path(plan, x, reps) -> dict:
     probe = {"launches": launches, "by_entry": by_entry, "dense": dense,
              "scale2_x": e1["x"], "select_inputs": select_in,
              "take_inputs": take_in, "dma_inputs": dma_in,
+             "take_library_ms": take_library_ms,
              "gather_inputs": gather_in}
     t1 = time.perf_counter()
     rows = probe_rows(plan, x, probe, reps)

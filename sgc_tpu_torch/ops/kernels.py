@@ -45,9 +45,10 @@ _ENTRY = {
     "spmm_csr": {"csr_spmm": [_V] * 6 + [_I] * 9 + [_V]},
     "sddmm": {"sddmm": [_V, _V, _V, _V, _V, _L, _L, _I, _I, _I, _V]},
     "probe_copy": {"probe_scale2": [_V, _V, _L, _V],
-                   "probe_select_blocks": [_V, _V, _V, _I, _I, _L, _V]},
-    "row_gather": {"row_gather_load": [_V, _V, _V, _L, _I, _I, _V],
-                   "row_gather_async": [_V, _V, _V, _L, _I, _I, _I, _V]},
+                   "probe_select_blocks": [_V, _V, _V, _I, _I, _L, _V],
+                   "probe_launch_floor": [_I, _V]},
+    "row_gather": {"row_gather_load": [_V, _V, _V, _L] + [_I] * 6 + [_V],
+                   "row_gather_async": [_V, _V, _V, _L] + [_I] * 7 + [_V]},
     "edge_accumulate": {"edge_accumulate":
                         [_V] * 5 + [_L] + [_I] * 5 + [_V] * 9,
                         "edge_buckets": [_V] * 3 + [_L] + [_I] * 4
@@ -109,9 +110,20 @@ def entry(name: str, symbol: str | None = None):
     return fn
 
 
+# PyTorch's getter of the current stream's raw handle, the one its own
+# generated code calls: an int, with no Stream object built (building one,
+# torch.cuda.current_stream, cost ~3.6 us a call on the H100's host). A
+# CPU-only build has none; stream_of then raises.
+_RAW_STREAM = getattr(torch._C, "_cuda_getCurrentRawStream", None)
+
+
 def stream_of(t: torch.Tensor) -> int:
-    """The raw cudaStream_t of PyTorch's current stream on t's device."""
-    return torch.cuda.current_stream(t.device).cuda_stream
+    """The raw cudaStream_t of PyTorch's current stream on t's device (so
+    a launch follows ``with torch.cuda.stream(s):``)."""
+    if _RAW_STREAM is None:
+        raise RuntimeError("this PyTorch has no torch._C."
+                           "_cuda_getCurrentRawStream: no CUDA build")
+    return _RAW_STREAM(t.get_device())
 
 
 def check_launch(rc: int, name: str) -> None:
@@ -122,8 +134,9 @@ def check_launch(rc: int, name: str) -> None:
 
 
 def require_cuda_f32(t: torch.Tensor, what: str, shape=None) -> None:
-    """Validate a kernel operand: contiguous float32 on a CUDA device."""
-    if t.device.type != "cuda" or t.dtype != torch.float32:
+    """Validate a kernel operand: contiguous float32 on a CUDA device. The
+    messages are built only when a check fails."""
+    if not (t.is_cuda and t.dtype is torch.float32):
         raise ValueError(f"{what} must be a float32 CUDA tensor, got "
                          f"{t.dtype} on {t.device}")
     if not t.is_contiguous():

@@ -12,6 +12,11 @@ source block comes from a scalar-prefetch index). Two entries:
 On a CUDA tensor each entry launches the kernel (counted once in
 ``LAUNCHES`` and in ``BY_ENTRY``) or raises; on a CPU tensor it runs its
 plain version. Doubling is exact in f32, so the two agree bit for bit.
+
+A call moves 4 KB at the probe's shape, so its time is the host's path
+to the launch: each wrapper resolves its C entry once, then pays for the
+output's allocation, the raw stream, one ctypes call with plain ints and
+the counters; its checks build a message only when they fail.
 """
 
 from __future__ import annotations
@@ -23,11 +28,9 @@ from sgc_tpu_torch.ops import kernels
 LAUNCHES = 0
 BY_ENTRY = {"scale2": 0, "select_blocks": 0}
 
-
-def _count(entry: str) -> None:
-    global LAUNCHES
-    LAUNCHES += 1
-    BY_ENTRY[entry] += 1
+# the C entries, resolved (and built) at their first launch
+_SCALE2 = None
+_SELECT = None
 
 
 def scale2_plain(x: torch.Tensor) -> torch.Tensor:
@@ -37,16 +40,23 @@ def scale2_plain(x: torch.Tensor) -> torch.Tensor:
 def scale2(x: torch.Tensor) -> torch.Tensor:
     """``2 x`` (f32): kernel E on a CUDA tensor, the plain version on a
     CPU tensor."""
-    if x.device.type == "cpu":
+    global LAUNCHES, _SCALE2
+    if not x.is_cuda and x.device.type == "cpu":
         return scale2_plain(x)
-    kernels.require_cuda_f32(x, "x")
+    if not x.is_cuda or x.dtype is not torch.float32 or (
+            not x.is_contiguous()):
+        kernels.require_cuda_f32(x, "x")    # raises, saying why
     y = torch.empty_like(x)
-    if x.numel() == 0:
+    n = x.numel()
+    if n == 0:
         return y
-    rc = kernels.entry("probe_copy", "probe_scale2")(
-        x.data_ptr(), y.data_ptr(), x.numel(), kernels.stream_of(x))
-    kernels.check_launch(rc, "probe_scale2")
-    _count("scale2")
+    if _SCALE2 is None:
+        _SCALE2 = kernels.entry("probe_copy", "probe_scale2")
+    rc = _SCALE2(x.data_ptr(), y.data_ptr(), n, kernels.stream_of(x))
+    if rc:
+        kernels.check_launch(rc, "probe_scale2")
+    LAUNCHES += 1
+    BY_ENTRY["scale2"] += 1
     return y
 
 
@@ -56,7 +66,7 @@ def _check_select(x: torch.Tensor, sel: torch.Tensor, block: int) -> None:
                          f"({block}), got {tuple(x.shape)}")
     if sel.dim() != 1 or sel.dtype != torch.int32:
         raise ValueError("sel must be a 1-D int32 tensor")
-    if sel.device != x.device:
+    if sel.get_device() != x.get_device():
         raise ValueError(f"sel on {sel.device}, x on {x.device}")
 
 
@@ -71,18 +81,22 @@ def select_blocks(x: torch.Tensor, sel: torch.Tensor,
                   block: int) -> torch.Tensor:
     """Block ``i`` of the output (``block`` rows) is 2 x block ``sel[i]``:
     kernel E on a CUDA tensor, the plain version on a CPU tensor."""
-    if x.device.type == "cpu":
+    global LAUNCHES, _SELECT
+    if not x.is_cuda and x.device.type == "cpu":
         return select_blocks_plain(x, sel, block)
     _check_select(x, sel, block)
     kernels.require_cuda_f32(x, "x")
     sel = sel.contiguous()
-    out = torch.empty((sel.shape[0] * block, x.shape[1]),
-                      dtype=torch.float32, device=x.device)
+    out = x.new_empty((sel.shape[0] * block, x.shape[1]))
     if out.numel() == 0:
         return out
-    rc = kernels.entry("probe_copy", "probe_select_blocks")(
+    if _SELECT is None:
+        _SELECT = kernels.entry("probe_copy", "probe_select_blocks")
+    rc = _SELECT(
         x.data_ptr(), sel.data_ptr(), out.data_ptr(), sel.shape[0],
         x.shape[0] // block, block * x.shape[1], kernels.stream_of(x))
-    kernels.check_launch(rc, "probe_select_blocks")
-    _count("select_blocks")
+    if rc:
+        kernels.check_launch(rc, "probe_select_blocks")
+    LAUNCHES += 1
+    BY_ENTRY["select_blocks"] += 1
     return out

@@ -34,7 +34,9 @@ Kernels (``chip_smoke.py`` reports each count beside the kernel's time):
   and the padded output.
 * E and F, ``csrc/probe_copy.cu`` and ``csrc/row_gather.cu``
   (:func:`copy_count`): bytes, the values the output needs read once,
-  the output and the index.
+  the output and the index; :func:`copy_bound` sets the launch floor
+  (one empty launch through the port's path, measured on the card)
+  beside that bound, since at the probes' shapes no launch comes near it.
 * G, ``csrc/edge_accumulate.cu``: kernel B's count on the same edges
   (:func:`edges_count`); beside it the chain bound of edge order
   (:func:`chain_bound_ms`): a row's updates stay in edge order, so each
@@ -200,6 +202,26 @@ def copy_count(n_read: int, n_out: int, n_index: int = 0,
     once, ``n_index`` int32 indices; ``ops_per_out`` FP32 operations a
     value written (E doubles, F copies)."""
     return float(ops_per_out * n_out), 4 * (n_read + n_out + n_index)
+
+
+def copy_bound(n_read: int, n_out: int, n_index: int = 0,
+               ops_per_out: int = 0,
+               launch_floor_ms: float | None = None) -> dict:
+    """Kernels E and F's bound (:func:`copy_count`) with the launch floor
+    beside it: ``bound_ms`` / ``bound_by`` the larger of the operation
+    and byte times, ``launch_floor_ms`` the time of one empty launch
+    through the port's path as measured on the card (``None``: not
+    measured), ``floor_ms`` the larger of the bound and the launch floor
+    and ``floor_by`` which it was (``"launch"`` where no launch could
+    come near the bytes)."""
+    ops, nbytes = copy_count(n_read, n_out, n_index, ops_per_out)
+    ms, by = bound_ms(ops, nbytes)
+    out = {"ops": ops, "bytes": nbytes, "bound_ms": ms, "bound_by": by,
+           "launch_floor_ms": launch_floor_ms}
+    if launch_floor_ms is not None:
+        out["floor_ms"] = max(ms, launch_floor_ms)
+        out["floor_by"] = "launch" if launch_floor_ms > ms else by
+    return out
 
 
 def chain_bound_ms(n_links: int, cycles_per_link: float = H100_FADD_CYCLES,

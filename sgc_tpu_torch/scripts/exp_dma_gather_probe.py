@@ -4,9 +4,9 @@
 The reference issues one DMA a row (``make_async_copy`` at ``x_hbm.at[
 pl.ds(col, 1)]``, ``col`` read in the kernel) and waits on each before
 the next. Kernel F's ``async`` entry (``csrc/row_gather.cu``) copies each
-row into shared memory with ``cp.async`` at its run-time offset, with
-``rg.DEFAULT_IN_FLIGHT`` rows in flight per CTA: the same function,
-``x[cols]``.
+row at its run-time offset into shared memory with one bulk copy (TMA)
+and out with another, with ``rg.DEFAULT_IN_FLIGHT`` rows in flight per
+CTA: the same function, ``x[cols]``.
 Inputs as the reference makes them: x (1024, 256) f32 normal, 64 cols,
 ``default_rng(0)``. Prints whether the result equals the host's.
 

@@ -8,9 +8,9 @@ computes through two Hopper entries, each reported on one line with the
 reference's fields (max error against the host's ``x[idx]``, ms,
 ns/row, M rows/s):
 
-  load   warps copy rows with 16-byte vector loads
-  async  rows through shared memory by cp.async, rg.DEFAULT_IN_FLIGHT
-         rows in flight a CTA
+  load   warps copy rows with 16-byte vector loads, U rows a round
+  async  rows through a ring in shared memory by bulk copies (TMA),
+         rg.DEFAULT_IN_FLIGHT rows in flight a CTA
 
 Inputs as the reference makes them (``RandomState(0)``: ``idx`` of
 ``chunks * chunk`` rows into a ``wcols x f`` table).

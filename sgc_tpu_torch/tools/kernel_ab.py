@@ -1,14 +1,47 @@
 #!/usr/bin/env python3
-"""CUDA-event A/B runs of the port's kernels A, B, C, D, G and H on one
-card, at the chip smoke's full-scale clustered-Reddit splits (G at the
-gather probe's defaults).
+"""CUDA-event A/B runs of the port's kernels A-H on one card, at the chip
+smoke's full-scale clustered-Reddit splits (E, F and G at the probes'
+defaults).
 
     python3 -m sgc_tpu_torch.tools.kernel_ab [--scale 1.0] [--reps 5]
-        [--kernels a,b,c,d,g,h] [--baseline-b path/to/spmm_csr.cu]
+        [--kernels a,b,c,d,e,f,g,h] [--baseline-b path/to/spmm_csr.cu]
         [--baseline-c path/to/tiled_spmm.cu]
         [--baseline-d path/to/sddmm.cu]
+        [--baseline-e path/to/probe_copy.cu]
+        [--baseline-f path/to/row_gather.cu]
         [--baseline-g path/to/edge_accumulate.cu]
         [--baseline-h path/to/blockdense_int8.cu]
+
+Kernel E (``csrc/probe_copy.cu``) at the probes' shapes ((8, 128) and 8
+blocks of (8, 128)), launch-bound: the launch floor (an empty kernel,
+``probe_launch_floor``: ``E_CALLS`` launches inside one C call, and one
+launch a call through the port's Python path), the host path split
+into its steps (each alone over ``SPLIT_CALLS`` calls on the host clock:
+the output's allocation, the raw stream against PyTorch's ``Stream``
+object, the ctypes call with and without a launch, the checks, the
+whole wrapper, ``torch.mul``), then each entry over ``E_CALLS`` calls
+in turns with ``torch.mul(x, 2.0)`` and, with ``--baseline-e`` (an
+earlier commit's source, C entries ``probe_scale2(x, y, n, stream)``
+and ``probe_select_blocks``), that kernel behind PR 16's host path
+(``pr16_scale2``, ``pr16_select_blocks``), each with its mean device
+time a launch under ``torch.profiler`` (``profiled_launch_ms``);
+every result must equal the plain version's bits.
+
+Kernel F (``csrc/row_gather.cu``) at the take probe's shape (65,536 rows
+of a 2,048 x 768 table) and the DMA probe's (64 rows of 1,024 x 256):
+the byte bound, the launch floor, the write ceiling (``zero_()`` on the
+output, the card's rate for pure writes) and ``torch.index_select``
+first, then every entry and depth through the wrapper, each path alone
+under its ``gather_plan`` (the 4-byte load and ``cp.async`` paths forced
+on the aligned table) and variants made by rewriting the source
+(``F_LOAD_VARIANTS``, ``F_ASYNC_VARIANTS``: no L2 policies, loads at
+evict_normal, no proxy fence, other vectors a lane and CTAs an SM),
+each with its mean device time a launch and exact bits. With
+``--baseline-f`` (C entries ``row_gather_load(x, idx, out, n_out, F,
+n_x_rows, stream)`` and ``row_gather_async(..., in_flight, stream)``) it
+times that kernel before any launch of the current one and again after
+them: the current kernel's evict-last reads leave the table favoured in
+L2, which a later kernel inherits.
 
 Kernel B (``csrc/spmm_csr.cu``) at every width its callers use, each on
 its own operand (``b_cases``): F = 1, 8, 16, 41 and 64 on the shuffled
@@ -642,9 +675,10 @@ def kernel_d(data, device, reps: int, baseline: Path | None) -> None:
         torch.cuda.empty_cache()
 
 
-def profiled_kernels_ms(fn, calls: int) -> dict:
-    """Each CUDA kernel's device time a call of ``fn`` (ms), from
-    ``torch.profiler`` over ``calls`` calls after a warm one."""
+def _profiled(fn, calls: int) -> list:
+    """``(kernel, device ms in all, launches recorded)`` of every CUDA
+    kernel ``torch.profiler`` saw over ``calls`` calls of ``fn`` after a
+    warm one."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -655,14 +689,29 @@ def profiled_kernels_ms(fn, calls: int) -> dict:
         for _ in range(calls):
             fn()
         torch.cuda.synchronize()
-    out = {}
+    out = []
     for ev in prof.key_averages():
         t = getattr(ev, "device_time_total", None)
         if t is None:
             t = getattr(ev, "cuda_time_total", 0)
         if t and "CUDA" in str(getattr(ev, "device_type", "")):
-            out[ev.key[:60]] = t / 1e3 / calls
+            out.append((ev.key[:60], t / 1e3, ev.count))
     return out
+
+
+def profiled_kernels_ms(fn, calls: int) -> dict:
+    """Each CUDA kernel's device time a call of ``fn`` (ms), from
+    ``torch.profiler`` over ``calls`` calls after a warm one."""
+    return {key: ms / calls for key, ms, _ in _profiled(fn, calls)}
+
+
+def profiled_launch_ms(fn, calls: int) -> dict:
+    """Each CUDA kernel's mean device time a launch (ms) and the launches
+    ``torch.profiler`` recorded over ``calls`` calls of ``fn``: the mean
+    stays right when the profiler records fewer launches than ran (in a
+    long process it has kept one launch in ten)."""
+    return {key: {"ms": ms / n, "launches": n}
+            for key, ms, n in _profiled(fn, calls) if n}
 
 
 def kernel_g(device, reps: int, baseline: Path | None) -> None:
@@ -749,6 +798,341 @@ def kernel_g(device, reps: int, baseline: Path | None) -> None:
         emit({"kernel": "G", "mode": m, "variant": "baseline",
               "ms": time_ms(run_old, reps),
               "exact": bool(torch.equal(out, want[m]))})
+
+
+# kernels E and F: the probes' shapes, the calls timed back to back
+E_CALLS = 2000
+SPLIT_CALLS = 10000
+TAKE_SHAPE = {"wcols": 2048, "f": 768, "chunk": 1024, "chunks": 64}
+F_CALLS = 200
+
+
+def host_us(fn, calls: int) -> float:
+    """Host microseconds a call of ``fn`` over ``calls`` calls in a row
+    (``time.perf_counter``, the card drained before and after)."""
+    import time
+
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    us = (time.perf_counter() - t0) / calls * 1e6
+    torch.cuda.synchronize()
+    return us
+
+
+def launch_floor(x) -> dict:
+    """The cost of one launch of an empty kernel (``probe_copy.cu``'s
+    ``probe_launch_floor``): (a) ``E_CALLS`` launches inside one C call,
+    device time a launch (CUDA events) and host time a launch; (b) one
+    launch a call through the port's Python path (the stream, the ctypes
+    call, the return code), CUDA-event time a call."""
+    import torch
+
+    from sgc_tpu_torch.ops import kernels
+
+    floor = kernels.entry("probe_copy", "probe_launch_floor")
+    stream = kernels.stream_of(x)
+
+    def in_c():
+        kernels.check_launch(floor(E_CALLS, stream), "probe_launch_floor")
+
+    def per_call():
+        rc = floor(1, kernels.stream_of(x))
+        if rc:
+            kernels.check_launch(rc, "probe_launch_floor")
+    in_c()
+    torch.cuda.synchronize()
+    return {"in_one_c_call_ms": time_ms(in_c, 3) / E_CALLS,
+            "in_one_c_call_host_us": host_us(in_c, 3) / E_CALLS,
+            "per_python_call_ms": time_ms(per_call, E_CALLS)}
+
+
+def host_split(x) -> dict:
+    """Kernel E's host path at ``x``, each step alone over ``SPLIT_CALLS``
+    calls (host microseconds a call): the output's allocation, the raw
+    stream, the ``Stream`` object PyTorch's ``current_stream`` builds, the
+    ctypes call with no launch and with one empty launch, the operand
+    checks, the whole wrapper and ``torch.mul``."""
+    import torch
+
+    from sgc_tpu_torch.ops import kernels
+    from sgc_tpu_torch.ops import probe_copy as pe
+
+    floor = kernels.entry("probe_copy", "probe_launch_floor")
+    stream = kernels.stream_of(x)
+    steps = {
+        "empty_like": lambda: torch.empty_like(x),
+        "stream_of": lambda: kernels.stream_of(x),
+        "current_stream_object": lambda: torch.cuda.current_stream(
+            x.device).cuda_stream,
+        "entry_lookup": lambda: kernels.entry("probe_copy", "probe_scale2"),
+        "ctypes_call": lambda: floor(0, stream),
+        "ctypes_empty_launch": lambda: floor(1, stream),
+        "checks": lambda: kernels.require_cuda_f32(x, "x"),
+        "scale2_wrapper": lambda: pe.scale2(x),
+        "torch_mul": lambda: torch.mul(x, 2.0),
+    }
+    return {k: host_us(fn, SPLIT_CALLS) for k, fn in steps.items()}
+
+
+def pr16_scale2(old_fn):
+    """Kernel E's wrapper as PR 16 wrote it (a ``Stream`` object for the
+    stream, the entry looked up, the checks and the counter in calls of
+    their own) around ``old_fn``, PR 16's C entry: its host path, for a
+    comparison in one call."""
+    import torch
+
+    from sgc_tpu_torch.ops import kernels
+
+    count = {"launches": 0}
+
+    def scale2(x):
+        if x.device.type == "cpu":
+            return x * 2.0
+        kernels.require_cuda_f32(x, "x")
+        y = torch.empty_like(x)
+        if x.numel() == 0:
+            return y
+        kernels.entry("probe_copy", "probe_scale2")
+        rc = old_fn(x.data_ptr(), y.data_ptr(), x.numel(),
+                    torch.cuda.current_stream(x.device).cuda_stream)
+        kernels.check_launch(rc, "probe_scale2")
+        count["launches"] += 1
+        return y
+    return scale2
+
+
+def pr16_select_blocks(old_fn):
+    """``select_blocks``'s wrapper as PR 16 wrote it, around PR 16's C
+    entry ``old_fn`` (see :func:`pr16_scale2`)."""
+    import torch
+
+    from sgc_tpu_torch.ops import kernels
+
+    def select_blocks(x, sel, block):
+        if x.dim() != 2 or block <= 0 or x.shape[0] % block:
+            raise ValueError("x must be 2-D with rows a multiple of block")
+        if sel.dim() != 1 or sel.dtype != torch.int32:
+            raise ValueError("sel must be a 1-D int32 tensor")
+        if sel.device != x.device:
+            raise ValueError("sel and x on different devices")
+        kernels.require_cuda_f32(x, "x")
+        sel = sel.contiguous()
+        out = torch.empty((sel.shape[0] * block, x.shape[1]),
+                          dtype=torch.float32, device=x.device)
+        kernels.entry("probe_copy", "probe_select_blocks")
+        rc = old_fn(x.data_ptr(), sel.data_ptr(), out.data_ptr(),
+                    sel.shape[0], x.shape[0] // block, block * x.shape[1],
+                    torch.cuda.current_stream(x.device).cuda_stream)
+        kernels.check_launch(rc, "probe_select_blocks")
+        return out
+    return select_blocks
+
+
+def kernel_e(device, baseline: Path | None) -> None:
+    import torch
+
+    from sgc_tpu_torch.ops import probe_copy as pe
+    from sgc_tpu_torch.ops import roofline as rf
+    from sgc_tpu_torch.scripts import exp_pallas_probe2 as p2
+
+    x = torch.arange(8 * 128, dtype=torch.float32,
+                     device=device).reshape(8, 128)
+    sx, sel = p2.make_inputs(device)
+    floor = launch_floor(x)
+    emit({"kernel": "E", "launch_floor": floor})
+    emit({"kernel": "E", "host_split_us": host_split(x)})
+    old = {}
+    if baseline is not None:
+        out_dir = ROOT / "build" / "sgc_tpu_torch" / "ab" / "baseline_e"
+        old_scale2 = build_variants(baseline, {"baseline": []},
+                                    [V, V, L, V], out_dir,
+                                    "probe_scale2")["baseline"][0]
+        old_select = build_variants(baseline, {"baseline": []},
+                                    [V, V, V, I, I, L, V], out_dir,
+                                    "probe_select_blocks")["baseline"][0]
+        old_s2, old_sb = pr16_scale2(old_scale2), pr16_select_blocks(
+            old_select)
+        old = {"scale2": lambda: old_s2(x),
+               "select_blocks": lambda: old_sb(sx, sel, p2.B)}
+    cases = {"scale2": (lambda: pe.scale2(x), lambda: pe.scale2_plain(x),
+                        lambda: torch.mul(x, 2.0),
+                        rf.copy_bound(x.numel(), x.numel(), 0, 1,
+                                      floor["per_python_call_ms"])),
+             "select_blocks": (
+                 lambda: pe.select_blocks(sx, sel, p2.B),
+                 lambda: pe.select_blocks_plain(sx, sel, p2.B), None,
+                 rf.copy_bound(int(torch.unique(sel).numel()) * p2.B
+                               * sx.shape[1], sel.numel() * p2.B
+                               * sx.shape[1], sel.numel(), 1,
+                               floor["per_python_call_ms"]))}
+    for name, (fn, plain, lib, bound) in cases.items():
+        want = plain()
+        runs = {"current": fn}
+        if lib is not None:
+            runs["library"] = lib
+        if name in old:
+            runs["baseline"] = old[name]
+        for k, run in runs.items():
+            if not torch.equal(run(), want):
+                raise AssertionError(f"kernel E {name} {k}: bits differ")
+        # in turns, over E_CALLS calls each: a, b, c, c, b, a
+        order = list(runs) + list(reversed(runs))
+        turns = {k: [] for k in runs}
+        for k in order:
+            turns[k].append(time_ms(runs[k], E_CALLS))
+        emit({"kernel": "E", "entry": name, "ms_turns": turns,
+              "device_ms": {k: profiled_launch_ms(runs[k], 200)
+                            for k in runs if k != "library"},
+              **bound, "exact": True})
+
+
+# variants of kernel F: no L2 policies (evict_normal loads, plain stores,
+# bulk copies without hints), evict_normal loads beside the streaming
+# stores, the bulk path without its proxy fence, and
+# the load path's vectors a lane and CTAs an SM ({variant: (rewrites,
+# gather_plan overrides)})
+F_LOAD_VARIANTS = {
+    "base": ([], {}),
+    "no_l2_hints": ([(r"L2::evict_last\.b64", "L2::evict_normal.b64"),
+                     (r"__stcs\(out \+ \(row0 \+ u\) \* w \+ \(p - u \* w\), "
+                      r"v\[k\]\);",
+                      "out[(row0 + u) * w + (p - u * w)] = v[k];")],
+                    {}),
+    "no_evict_last": ([(r"L2::evict_last\.b64", "L2::evict_normal.b64")],
+                      {}),
+    "k4_ctas8": ([(r"LOAD_MIN_CTAS = 4;", "LOAD_MIN_CTAS = 8;"),
+                  (r"LOAD_K = 8;", "LOAD_K = 4;")],
+                 {"load_k": 4, "load_ctas": 8}),
+    "k16_ctas2": ([(r"LOAD_MIN_CTAS = 4;", "LOAD_MIN_CTAS = 2;"),
+                   (r"LOAD_K = 8;", "LOAD_K = 16;")],
+                  {"load_k": 16, "load_ctas": 2}),
+}
+F_ASYNC_VARIANTS = {
+    "base": [],
+    "no_l2_hints": [(r"L2::evict_last\.b64", "L2::evict_normal.b64"),
+                    (r"L2::evict_first\.b64", "L2::evict_normal.b64")],
+    "no_proxy_fence": [(r"      proxy_fence\(\);\n", "")],
+}
+F_ARGS = {"row_gather_load": [V, V, V, L] + [I] * 6 + [V],
+          "row_gather_async": [V, V, V, L] + [I] * 7 + [V]}
+
+
+def kernel_f(device, baseline: Path | None) -> None:
+    import torch
+
+    from sgc_tpu_torch.ops import kernels
+    from sgc_tpu_torch.ops import roofline as rf
+    from sgc_tpu_torch.ops import row_gather as rg
+    from sgc_tpu_torch.scripts import exp_dma_gather_probe as dp
+    from sgc_tpu_torch.scripts import exp_take_probe as tp
+
+    shapes = {"take": [torch.from_numpy(a).to(device)
+                       for a in tp.make_inputs(**TAKE_SHAPE)],
+              "dma": [torch.from_numpy(a).to(device)
+                      for a in dp.make_inputs()]}
+    floor = launch_floor(shapes["dma"][0])
+    emit({"kernel": "F", "launch_floor": floor})
+    out_dir = ROOT / "build" / "sgc_tpu_torch" / "ab"
+    src = ROOT / "sgc_tpu_torch" / "csrc" / "row_gather.cu"
+    load_fns = build_variants(src, {k: v[0] for k, v in
+                                    F_LOAD_VARIANTS.items()},
+                              F_ARGS["row_gather_load"], out_dir,
+                              "row_gather_load")
+    async_fns = build_variants(src, F_ASYNC_VARIANTS,
+                               F_ARGS["row_gather_async"], out_dir,
+                               "row_gather_async")
+    if baseline is not None:
+        old_load = build_variants(baseline, {"baseline": []},
+                                  [V, V, V, L, I, I, V], out_dir / "baseline",
+                                  "row_gather_load")["baseline"][0]
+        old_async = build_variants(baseline, {"baseline": []},
+                                   [V, V, V, L, I, I, I, V],
+                                   out_dir / "baseline",
+                                   "row_gather_async")["baseline"][0]
+    sms = rg.sms_of(shapes["take"][0])
+    for shape, (x, idx) in shapes.items():
+        calls = F_CALLS if shape == "take" else E_CALLS
+        want = rg.row_gather_plain(x, idx)
+        n_out, F = int(idx.numel()), int(x.shape[1])
+        bound = rf.bound_ms(*rf.copy_count(
+            int(torch.unique(idx).numel()) * F, n_out * F, n_out))[0]
+        out = torch.empty_like(want)
+        idx64 = idx.long()
+        emit({"kernel": "F", "shape": shape, "bound_ms": bound,
+              "launch_floor_ms": floor["per_python_call_ms"],
+              "write_ceiling_ms": time_ms(out.zero_, calls),
+              "library_ms": time_ms(lambda: torch.index_select(x, 0, idx64),
+                                    calls)})
+
+        def record(name, variant, fn, exact, regs=None):
+            ms = time_ms(fn, calls)
+            emit({"kernel": "F", "shape": shape, "entry": name,
+                  "variant": variant, "registers": regs, "ms": ms,
+                  "bound_share": bound / ms,
+                  "device_ms": profiled_launch_ms(fn, 20), "exact": exact})
+            if not exact:
+                raise AssertionError(f"kernel F {name} {variant} {shape}: "
+                                     "bits differ")
+
+        def run_baseline(tag):
+            """PR 16's kernel F in every entry, before any launch of the
+            current kernel (whose evict-last loads leave the table
+            favoured in L2) and after them."""
+            old = {"load": lambda: old_load(
+                x.data_ptr(), idx.data_ptr(), out.data_ptr(), n_out, F,
+                x.shape[0], kernels.stream_of(x))}
+            old.update({f"async_{n}": (lambda n=n: old_async(
+                x.data_ptr(), idx.data_ptr(), out.data_ptr(), n_out, F,
+                x.shape[0], n, kernels.stream_of(x)))
+                for n in rg.IN_FLIGHT})
+            for name, fn in old.items():
+                def run_old(fn=fn, name=name):
+                    kernels.check_launch(fn(), f"baseline row_gather {name}")
+                out.zero_()
+                run_old()
+                torch.cuda.synchronize()
+                record(name, tag, run_old, bool(torch.equal(out, want)))
+        if baseline is not None:
+            run_baseline("baseline_before")
+        # the wrappers, as the probes call them
+        runs = {"load": lambda: rg.row_gather(x, idx, "load")}
+        runs.update({f"async_{n}": (lambda n=n: rg.row_gather(x, idx,
+                                                               "async", n))
+                     for n in rg.IN_FLIGHT})
+        for name, fn in runs.items():
+            record(name, "current", fn, bool(torch.equal(fn(), want)))
+        # each path alone under its plan: the 4-byte paths forced on the
+        # aligned operands, and every variant
+        plans = {"load_scalar": (None, rg.gather_plan(
+                     n_out, F, "load", aligned=False, sms=sms)),
+                 "cp_async_8": (None, rg.gather_plan(
+                     n_out, F, "async", 8, aligned=False, sms=sms))}
+        for v, (_, over) in F_LOAD_VARIANTS.items():
+            plans[f"load/{v}"] = (load_fns[v], rg.gather_plan(
+                n_out, F, "load", sms=sms, **over))
+        for v in F_ASYNC_VARIANTS:
+            for n in (8, 16):
+                plans[f"async_{n}/{v}"] = (async_fns[v], rg.gather_plan(
+                    n_out, F, "async", n, sms=sms))
+        for name, (lib, plan) in plans.items():
+            fn_regs = lib or (None, None)
+
+            def run(plan=plan, lib=fn_regs[0]):
+                rg.launch_gather(x, idx, out, plan, lib)
+            out.zero_()
+            run()
+            torch.cuda.synchronize()
+            emit({"kernel": "F", "shape": shape, "entry": name,
+                  "plan": plan.__dict__})
+            record(name, "plan", run, bool(torch.equal(out, want)),
+                   fn_regs[1])
+        if baseline is not None:
+            run_baseline("baseline_after")
 
 
 def kernel_h(data, device, reps: int, baseline: Path | None) -> None:
@@ -858,11 +1242,13 @@ def main() -> int:
     ap.add_argument("--scale", type=float, default=1.0)
     ap.add_argument("--seed", type=int, default=42)
     ap.add_argument("--reps", type=int, default=5)
-    ap.add_argument("--kernels", default="a,b,c,d,g,h",
+    ap.add_argument("--kernels", default="a,b,c,d,e,f,g,h",
                     help="comma-separated kernels to run")
     ap.add_argument("--baseline-b", type=Path, default=None)
     ap.add_argument("--baseline-c", type=Path, default=None)
     ap.add_argument("--baseline-d", type=Path, default=None)
+    ap.add_argument("--baseline-e", type=Path, default=None)
+    ap.add_argument("--baseline-f", type=Path, default=None)
     ap.add_argument("--baseline-g", type=Path, default=None)
     ap.add_argument("--baseline-h", type=Path, default=None)
     args = ap.parse_args()
@@ -883,8 +1269,15 @@ def main() -> int:
     device = torch.device("cuda", 0)
     chosen = set(args.kernels.split(","))
     kernels.build_all(kernels.KERNEL_SOURCES + tuple(
-        n for k, n in (("g", "edge_accumulate"), ("h", "blockdense_int8"))
+        n for k, n in (("e", "probe_copy"), ("f", "row_gather"),
+                       ("g", "edge_accumulate"), ("h", "blockdense_int8"))
         if k in chosen))
+    if "e" in chosen:
+        kernel_e(device, args.baseline_e)
+    if "f" in chosen:
+        kernel_f(device, args.baseline_f)
+    if not chosen & set("abcdh"):
+        return 0
     data = synthetic_reddit_clustered(args.scale, seed=args.seed,
                                       shuffle=True)
     if "a" in chosen:

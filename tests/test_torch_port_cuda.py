@@ -1356,6 +1356,100 @@ def test_cuda_row_gather_entries_match_plain(cuda, F):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("offset", [0, 1])
+@pytest.mark.parametrize("n", [1, 3, 1024, 4099])
+def test_cuda_scale2_ragged_and_offset(cuda, n, offset):
+    """E's float4 body with its scalar tail (n % 4 != 0), and the scalar
+    path on an operand 4 bytes off its 16-byte alignment."""
+    from sgc_tpu_torch.ops import probe_copy as e
+
+    g = torch.Generator().manual_seed(n)
+    buf = torch.randn(n + 1, generator=g)
+    x = buf.to(cuda)[offset:offset + n]
+    assert x.data_ptr() % 16 == 4 * offset
+    assert torch.equal(e.scale2(x).cpu(), e.scale2_plain(buf[offset:
+                                                             offset + n]))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("offset", [0, 1])
+def test_cuda_select_blocks_offset(cuda, offset):
+    from sgc_tpu_torch.ops import probe_copy as e
+
+    g = torch.Generator().manual_seed(11)
+    buf = torch.randn(40 * 128 + 1, generator=g)
+    x = buf[offset:offset + 40 * 128].reshape(40, 128)
+    xd = buf.to(cuda)[offset:offset + 40 * 128].reshape(40, 128)
+    sel = torch.tensor([4, 0, 3, 3, 1], dtype=torch.int32)
+    got = e.select_blocks(xd, sel.to(cuda), 8)
+    assert torch.equal(got.cpu(), e.select_blocks_plain(x, sel, 8))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("offset", [0, 1])
+@pytest.mark.parametrize("F", [768, 256, 41])
+def test_cuda_row_gather_every_path_and_depth(cuda, F, offset):
+    """Both entries at every depth, with x 4 bytes off its alignment
+    (every path then takes 4-byte elements), at one row and at 4,099 (a
+    prime: no multiple of the load plan's rows a round where that is
+    above 1); all exact."""
+    from sgc_tpu_torch.ops import row_gather as rg
+
+    g = torch.Generator().manual_seed(F + offset)
+    n_x = 1500
+    buf = torch.randn(n_x * F + 1, generator=g)
+    x_cpu = buf[offset:offset + n_x * F].reshape(n_x, F)
+    xd = buf.to(cuda)[offset:offset + n_x * F].reshape(n_x, F)
+    for n_out in (1, 4099):
+        idx = torch.randint(0, n_x, (n_out,), generator=g,
+                            dtype=torch.int32)
+        want = rg.row_gather_plain(x_cpu, idx)
+        assert torch.equal(rg.row_gather(xd, idx.to(cuda), "load").cpu(),
+                           want)
+        for n in rg.IN_FLIGHT:
+            plan = rg.gather_plan(n_out, F, "async", n, aligned=offset == 0)
+            assert plan.path == ("bulk" if F % 4 == 0 and not offset
+                                 else "cp_async")
+            got = rg.row_gather(xd, idx.to(cuda), "async", n)
+            assert torch.equal(got.cpu(), want), (n_out, n)
+
+
+@pytest.mark.cuda
+def test_cuda_probe_kernels_follow_the_current_stream(cuda):
+    """E and F launched inside ``with torch.cuda.stream(s)`` run on s: s
+    sleeps, then overwrites x, then runs the kernel; read after
+    ``s.synchronize()``, the output is the new x's. A launch on another
+    stream would have run before the overwrite."""
+    from sgc_tpu_torch.ops import probe_copy as e
+    from sgc_tpu_torch.ops import row_gather as rg
+
+    g = torch.Generator().manual_seed(5)
+    old, new = torch.randn(2048, 768, generator=g), torch.randn(
+        2048, 768, generator=g)
+    idx = torch.randint(0, 2048, (65536,), generator=g, dtype=torch.int32)
+    calls = {"scale2": (lambda x: e.scale2(x),
+                        lambda x: e.scale2_plain(x))}
+    calls["load"] = (lambda x: rg.row_gather(x, idx_d, "load"),
+                     lambda x: rg.row_gather_plain(x, idx))
+    calls.update({f"async_{n}": (
+        lambda x, n=n: rg.row_gather(x, idx_d, "async", n),
+        lambda x: rg.row_gather_plain(x, idx)) for n in (1, 16)})
+    idx_d = idx.to(cuda)
+    src = new.to(cuda)
+    torch.cuda.synchronize()
+    for name, (kernel, plain) in calls.items():
+        x = old.to(cuda)
+        torch.cuda.synchronize()
+        s = torch.cuda.Stream()
+        with torch.cuda.stream(s):
+            torch.cuda._sleep(50_000_000)     # ~25 ms of the card's clock
+            x.copy_(src)
+            got = kernel(x)
+        s.synchronize()
+        assert torch.equal(got.cpu(), plain(new)), name
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("mode", ["rmw", "store", "fixed_out", "fixed_in",
                                   "noop"])
 @pytest.mark.parametrize("R,W,F,E", [(2048, 2048, 768, 65536),
