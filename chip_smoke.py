@@ -62,6 +62,27 @@ and read just after:
                   shares of its byte bound and of its dense form's
                   compute floor beside its error and tile reads
 
+Then the ported experiments that answer the port's open questions,
+kernels A-D's counters zeroed just before each script's run and read just
+after:
+
+    script_path:  each ``sgc_tpu_torch/scripts`` module's ``run`` at its
+                  reference script's defaults: exp_topology_sweep (12
+                  topologies at scale 0.25: segment, calibrated and
+                  uncalibrated auto, onehot hops), exp_beyond_device and
+                  exp_beyond_stages (an NCCL world of one rank at
+                  SGC_BEYOND_SCALE 0.05), exp_newton_head (scale 0.25),
+                  exp_lbfgs_cost (152,410 x 602, m = 1, 5, 40),
+                  exp_pad_study (scale 1.0, host), exp_crossover (uniform,
+                  0.05-0.5), exp_flat_sweep (0.1), exp_hybrid_sweep (1.0,
+                  LPA order) and exp_super_rows (the main path's plan, 6
+                  cell orders); every kernel A, B and C launch of their
+                  hops held against its plain version on the same inputs
+                  (A at "f32" and "bf16", C at both precisions, all at
+                  1e-5), the ranks holding their own; each script's host
+                  results checked; the topology sweep's pass and the
+                  crossover's winner printed, not enforced
+
 Then the sharded path
 (``sgc_tpu_torch.parallel``) on the main path's plan-order graph, each
 rank zeroing its counters just before a run and reading them just
@@ -247,6 +268,7 @@ import argparse
 import contextlib
 import dataclasses
 import json
+import math
 import os
 import subprocess
 import sys
@@ -4342,6 +4364,357 @@ def phase_probe_path(plan, x, reps) -> dict:
             "launches": {"scripts": launches_a_d}}
 
 
+# the experiments' sizes in script_path: the reference's defaults, except
+# exp_beyond_device and exp_beyond_stages (SGC_BEYOND_SCALE; the
+# full-scale run is a call of its own, PERF.md), whose ranks hold every
+# kernel call of their hops
+SCRIPT_BEYOND_SCALE = 0.05
+SCRIPT_BEYOND_EPOCHS = 2
+SCRIPT_SIZES = {"topology": 0.25, "newton": 0.25, "pad": 1.0,
+                "crossover": (0.05, 0.1, 0.25, 0.5), "flat": 0.1,
+                "hybrid": 1.0, "lbfgs": (152_410, 602, 41)}
+SCRIPT_CUTS = {
+    "exp_beyond_device": f"SGC_BEYOND_SCALE {SCRIPT_BEYOND_SCALE} (the "
+                         "reference's 1.0: 2.4M x 2,048), "
+                         f"SGC_BEYOND_EPOCHS {SCRIPT_BEYOND_EPOCHS} (5)",
+    "exp_beyond_stages": f"SGC_BEYOND_SCALE {SCRIPT_BEYOND_SCALE} (0.25)",
+    "exp_super_rows": "the main path's plan (committed admission; the "
+                      "calibrated split admits no cell on the H100)",
+}
+
+
+@contextlib.contextmanager
+def uncounted():
+    """Kernel calls inside the block (a hold's second launch) leave every
+    counter of kernels A-D as it was."""
+    import importlib
+
+    from sgc_tpu_torch.bench import LAUNCH_COUNTERS
+
+    mods = {(mod, attr): importlib.import_module(f"sgc_tpu_torch.ops.{mod}")
+            for mod, attr in LAUNCH_COUNTERS.values()}
+    saved = {key: getattr(m, key[1]) for key, m in mods.items()}
+    try:
+        yield
+    finally:
+        for key, m in mods.items():
+            setattr(m, key[1], saved[key])
+
+
+class Holds:
+    """Kernel launches held against their plain versions on the same
+    inputs at ``TOLERANCE``, the largest error per kernel kept. Each
+    method launches the kernel once more, as the script did, and returns
+    its output; the caller runs it under :func:`uncounted`."""
+
+    def __init__(self):
+        self.errs = {}
+
+    def add(self, name: str, got, want) -> None:
+        abs_err, err = rel_err(got, want)
+        if not err <= TOLERANCE:
+            raise AssertionError(f"script_path: {name} vs plain: {err:.3e}")
+        e = self.errs.setdefault(name, {"calls": 0, "max_abs_err": 0.0,
+                                        "rel_err": 0.0})
+        e["calls"] += 1
+        e["max_abs_err"] = max(e["max_abs_err"], abs_err)
+        e["rel_err"] = max(e["rel_err"], err)
+
+    def b(self, graph, x, dense=None):
+        from sgc_tpu_torch.ops.spmm import spmm_segment, spmm_segment_plain
+
+        out = spmm_segment(graph, x, dense)
+        self.add("csr_spmm", out, spmm_segment_plain(graph, x, dense))
+        return out
+
+    def a(self, split, args, x, precision):
+        from sgc_tpu_torch.ops import spmm_blockdense as bd
+
+        out = bd.apply_cells(split, args, x, precision)
+        self.add("blockdense_cells", out,
+                 bd.apply_cells_plain(split, args, x, precision))
+        return out
+
+    def c(self, tiled, args, x, precision):
+        from sgc_tpu_torch.ops import spmm_tiled as tl
+
+        out = tl.spmm_tiled_flat(tiled, x, args, precision)
+        self.add("tiled_spmm", out, tl.spmm_tiled_plain(tiled, x, precision))
+        return out
+
+    def hop(self, split, args, x, onehot: bool, precision: str = "f32"):
+        """One hop of a block-dense (A + B) or hybrid (C + B) split."""
+        dense = None
+        if onehot and split.tiled is not None:
+            dense = self.c(split.tiled, args.tiled, x, precision)
+        elif not onehot and split.n_cells:
+            dense = self.a(split, args, x, precision)
+        if args.rest is not None:
+            return self.b(args.rest, x, dense)
+        return dense
+
+    def plan_hops(self, plan, want):
+        """A plan's ``khop_traceable(degree=2)`` hop by hop; the result
+        must be ``want`` (the script's rows) bit for bit."""
+        import torch
+
+        onehot = plan.formulation == "onehot"
+        a_main, a_final = plan._device_args()
+        x = torch.as_tensor(plan.features, device=plan.device)
+        out = self.hop(plan.split_final, a_final,
+                       self.hop(plan.split_main, a_main, x, onehot), onehot)
+        if not torch.equal(out, want):
+            raise AssertionError(f"script_path: held {plan.formulation} "
+                                 "hops differ from the script's rows")
+
+
+def rank_launches(per_rank: list) -> dict:
+    """The launches of kernels A-D summed over a world's ranks."""
+    from sgc_tpu_torch.bench import LAUNCH_COUNTERS
+
+    return {k: sum(r[k] for r in per_rank) for k in LAUNCH_COUNTERS}
+
+
+def ranks_held(per_rank: list, launches: list) -> dict:
+    """Every rank held each of its kernel-B calls (one held call per
+    launch) within ``TOLERANCE``; the largest error over the ranks."""
+    for held_r, n in zip(per_rank, launches):
+        got = held_r.get("csr_spmm", {}).get("calls", 0)
+        if got != n["csr_spmm"] or n["csr_spmm"] <= 0:
+            raise AssertionError(f"script_path: a rank held {got} of its "
+                                 f"{n['csr_spmm']} kernel-B launches")
+        if not held_r["csr_spmm"]["rel_err"] <= TOLERANCE:
+            raise AssertionError(f"script_path: rank kernel B vs plain: "
+                                 f"{held_r['csr_spmm']}")
+    return {"calls": sum(h["csr_spmm"]["calls"] for h in per_rank),
+            "max_abs_err": max(h["csr_spmm"]["max_abs_err"]
+                               for h in per_rank),
+            "rel_err": max(h["csr_spmm"]["rel_err"] for h in per_rank)}
+
+
+def need(launches: dict, kernels: tuple, script: str) -> None:
+    """Raise unless each of ``kernels`` launched during the script."""
+    if any(launches[k] <= 0 for k in kernels):
+        raise AssertionError(f"script_path: {script} never launched one of "
+                             f"{kernels}: {launches}")
+
+
+def phase_script_path(plan, x) -> dict:
+    """The ported experiments (``sgc_tpu_torch/scripts``), each through its
+    ``run(...)`` at its reference script's defaults (cuts in
+    ``SCRIPT_CUTS``), kernels A-D's counters zeroed just before each run
+    and read just after: exp_topology_sweep (scale 0.25, the full grid),
+    exp_beyond_device and exp_beyond_stages (an NCCL world of one rank,
+    the ranks' own counters), exp_newton_head (scale 0.25),
+    exp_lbfgs_cost (the Reddit train shape), exp_pad_study (scale 1.0,
+    host only), exp_crossover (uniform, scales 0.05-0.5), exp_flat_sweep
+    (0.1), exp_hybrid_sweep (1.0) and exp_super_rows (the main path's
+    plan). Every kernel launch of a script's hops is held against its
+    plain version on the same inputs at ``TOLERANCE`` (a second launch,
+    made uncounted inside the script's callbacks, that must give the
+    script's rows bit for bit where it recomputes them), and each
+    script's host results are checked. A failed check raises.
+
+    The speed verdicts are printed, not enforced: the topology sweep's
+    ``pass`` (auto <= segment x 1.15) and which form wins the crossover.
+    ``exp_topology_sweep.main`` keeps the reference's exit code, the
+    contract of its command line, not a check of the port."""
+    import io
+
+    import torch
+
+    from sgc_tpu_torch.models.sgc import init_sgc
+    from sgc_tpu_torch.scripts import (
+        exp_beyond_device,
+        exp_beyond_stages,
+        exp_crossover,
+        exp_flat_sweep,
+        exp_hybrid_sweep,
+        exp_lbfgs_cost,
+        exp_newton_head,
+        exp_pad_study,
+        exp_super_rows,
+        exp_topology_sweep,
+    )
+
+    t_phase = time.perf_counter()
+    dev = x.device
+    holds = Holds()
+    launches, seconds, out = {}, {}, {}
+
+    def script(name, fn, kernels=()):
+        buf = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            result, n = counted(fn)
+        seconds[name] = time.perf_counter() - t0
+        launches[name] = n
+        log(buf.getvalue().rstrip())
+        need(n, kernels, name)
+        return result, buf.getvalue()
+
+    # the topology sweep, every hop held as its plan runs it
+    def topo_held(res):
+        with uncounted():
+            g1, g2, xs = res["segment"]
+            h = holds.b(g1.to(dev), xs)
+            if not torch.equal(holds.b(g2.to(dev), h),
+                               res["outputs"]["segment"]):
+                raise AssertionError("script_path: held segment hops differ")
+            for form, p in res["plans"].items():
+                holds.plan_hops(p, res["outputs"][form])
+
+    rows, _ = script("exp_topology_sweep", lambda: exp_topology_sweep.run(
+        SCRIPT_SIZES["topology"], dev, on_config=topo_held), ("csr_spmm", "tiled_spmm",
+                                          "blockdense_cells"))
+    if [r["config"] for r in rows] != [n for n, _ in
+                                       exp_topology_sweep.grid()]:
+        raise AssertionError("script_path: topology sweep configs")
+    out["exp_topology_sweep"] = {
+        "rows": rows, "verdict": f"{sum(r['pass'] for r in rows)}/"
+                                 f"{len(rows)} configs pass (printed, not "
+                                 "enforced)"}
+
+    # features beyond a device: the ranks count and hold their own calls
+    torch.cuda.empty_cache()
+    beyond, _ = script("exp_beyond_device", lambda: exp_beyond_device.run(
+        SCRIPT_BEYOND_SCALE, SCRIPT_BEYOND_EPOCHS, dev, hold=True))
+    launches["exp_beyond_device"] = rank_launches(beyond["_launches"])
+    need(launches["exp_beyond_device"], ("csr_spmm",), "exp_beyond_device")
+    beyond_held = ranks_held(beyond["_held"], beyond["_launches"])
+    if beyond["exceeds_device_memory"] or not (
+            beyond["train_accuracy"] > 1.0 / exp_beyond_device.N_CLASSES):
+        raise AssertionError(f"script_path: exp_beyond_device {beyond}")
+    out["exp_beyond_device"] = {k: v for k, v in beyond.items()
+                                if not k.startswith("_")}
+    stages, _ = script("exp_beyond_stages", lambda: exp_beyond_stages.run(
+        SCRIPT_BEYOND_SCALE, dev, hold=True))
+    launches["exp_beyond_stages"] = rank_launches(stages["launches"])
+    need(launches["exp_beyond_stages"], ("csr_spmm",), "exp_beyond_stages")
+    stages_held = ranks_held(stages["held"], stages["launches"])
+    if len(stages["rows"]) != 11:
+        raise AssertionError("script_path: exp_beyond_stages stages")
+    out["exp_beyond_stages"] = [list(r) for r in stages["rows"]]
+
+    # the head
+    def newton():
+        tr, y, p = exp_newton_head.propagated(
+            SCRIPT_SIZES["newton"], dev)
+        with uncounted():
+            holds.plan_hops(p, tr)
+        params0 = init_sgc(torch.Generator().manual_seed(42), tr.shape[1],
+                           int(y.max()) + 1, device=dev)
+        return exp_newton_head.run(tr, y, params0)
+
+    head, _ = script("exp_newton_head", newton, ("blockdense_cells",
+                                                 "csr_spmm"))
+    losses = [loss for _, loss, _ in head["iters"]]
+    if not all(map(math.isfinite, losses)) or any(
+            b > a + 1e-6 * abs(a) for a, b in zip(losses, losses[1:])):
+        raise AssertionError(f"script_path: Böhning losses {losses}")
+    out["exp_newton_head"] = {k: v for k, v in head.items()}
+
+    n_l, f_l, c_l = SCRIPT_SIZES["lbfgs"]
+    xl, yl = exp_lbfgs_cost.make_inputs(n_l, f_l, c_l)
+    p0 = init_sgc(torch.Generator().manual_seed(0), f_l, c_l, device=dev)
+    lb, _ = script("exp_lbfgs_cost", lambda: exp_lbfgs_cost.run(
+        torch.as_tensor(xl, device=dev), torch.as_tensor(yl, device=dev),
+        p0))
+    del xl, yl
+    if not all(bool(torch.isfinite(r["flat"]).all()) for r in lb.values()):
+        raise AssertionError("script_path: exp_lbfgs_cost non-finite fit")
+    out["exp_lbfgs_cost"] = {m: {k: r[k] for k in ("ms", "iters",
+                                                   "ms_per_iter")}
+                             for m, r in lb.items()}
+
+    # the onehot geometry
+    from sgc_tpu_torch.data.synthetic import synthetic_reddit
+
+    graph1, _, _, _ = synthetic_reddit(SCRIPT_SIZES["pad"])
+    pad, _ = script("exp_pad_study", lambda: exp_pad_study.run(graph1))
+    del graph1
+    if len(pad) != 36 or len({r["c_bound_ms"] for r in pad}) != 1:
+        raise AssertionError("script_path: exp_pad_study rows")
+    out["exp_pad_study"] = pad
+
+    def cross_held(res):
+        with uncounted():
+            if not torch.equal(holds.b(res["graph"], res["x"]), res["ref"]):
+                raise AssertionError("script_path: held segment differs")
+            tiled, targs = res["tiled"]
+            for prec in exp_crossover.PRECISIONS:
+                holds.c(tiled, targs, res["x"], prec)
+            for split, hargs in res["hybrid"].values():
+                holds.hop(split, hargs, res["x"], True)
+
+    cross, _ = script("exp_crossover", lambda: exp_crossover.run(
+        SCRIPT_SIZES["crossover"], "uniform", dev, on_scale=cross_held),
+        ("csr_spmm", "tiled_spmm"))
+    if any(r["rel_err"] > TOLERANCE for r in cross
+           if r["impl"] in ("tiled_flat_f32", "hybrid")):
+        raise AssertionError("script_path: exp_crossover rel_err")
+    out["exp_crossover"] = {"rows": cross, "winner_by_scale": {
+        s: min((r for r in cross if r["scale"] == s),
+               key=lambda r: r["ms"])["impl"]
+        for s in sorted({r["scale"] for r in cross})}}
+
+    g01, x01, _, _ = synthetic_reddit(SCRIPT_SIZES["flat"])
+    x01 = torch.as_tensor(x01, device=dev)
+
+    def flat_held(tiled, targs):
+        with uncounted():
+            for prec in exp_crossover.PRECISIONS:
+                holds.c(tiled, targs, x01, prec)
+
+    def flat():
+        with uncounted():
+            holds.b(g01.to(dev), x01)
+        return exp_flat_sweep.run(g01, x01, on_tiling=flat_held)
+
+    fl, _ = script("exp_flat_sweep", flat, ("csr_spmm", "tiled_spmm"))
+    out["exp_flat_sweep"] = {k: fl[k] for k in ("xla_s", "rows", "best",
+                                                "bf16")}
+    del g01, x01, fl
+
+    gh, fh = exp_hybrid_sweep.lpa_graph(SCRIPT_SIZES["hybrid"])
+    xh = torch.as_tensor(fh, device=dev)
+
+    def hybrid_held(split, hargs):
+        with uncounted():
+            holds.hop(split, hargs, xh, True)
+
+    hy, _ = script("exp_hybrid_sweep", lambda: exp_hybrid_sweep.run(
+        gh, xh, on_split=hybrid_held), ("csr_spmm", "tiled_spmm"))
+    out["exp_hybrid_sweep"] = hy
+    del gh, fh, xh
+
+    # kernel A's cell order on the main path's plan
+    def super_held(name, split, args):
+        with uncounted():
+            holds.a(split, args, x, "bf16")
+
+    sr, _ = script("exp_super_rows", lambda: exp_super_rows.run(
+        plan, x, on_variant=super_held), ("blockdense_cells",))
+    loads = {k: r["stripe_loads"] for k, r in sr["rows"].items()}
+    if loads["None"] != sr["rows"]["None"]["n_cells"] or not (
+            loads["S16"] <= loads["S8"] <= loads["S4"] <= loads["None"]):
+        raise AssertionError(f"script_path: stripe loads {loads}")
+    out["exp_super_rows"] = sr
+
+    for name, n in holds.errs.items():
+        total = sum(launches[s][name] for s in launches)
+        if n["calls"] < 1 or total < 1:
+            raise AssertionError(f"script_path: {name} not held")
+    wall_s = time.perf_counter() - t_phase
+    emit({"phase": "script_path", "wall_s": wall_s, "seconds": seconds,
+          "launches": launches, "held": holds.errs,
+          "held_in_ranks": {"exp_beyond_device": beyond_held,
+                            "exp_beyond_stages": stages_held},
+          "tolerance_rel": TOLERANCE, "cuts": SCRIPT_CUTS,
+          "scripts": out})
+    return {"launches": launches, "wall_s": wall_s, "held": holds.errs}
+
+
 BENCH_TIMEOUT_S = 300
 # the kernels each leg of the bench must have launched
 BENCH_LEG_KERNELS = {
@@ -4475,6 +4848,7 @@ def main() -> int:
                                args.reps, shuffled))
     phase_roofline(main["plan"], rows)
     probe = phase_probe_path(main["plan"], main["x"], args.reps)
+    scripts = phase_script_path(main["plan"], main["x"])
     lpa_rows = main.pop("lpa_rows")
     del main
     rows.append(phase_kernel_c(onehot, args.reps))
@@ -4492,7 +4866,8 @@ def main() -> int:
     t_new = time.perf_counter()
     orderings = phase_ordering_path(data, lpa_rows, device, args.reps)
     by_path = {"ordering_path": orderings["launches"],
-               "probe_path": probe["launches"]}
+               "probe_path": probe["launches"],
+               "script_path": scripts["launches"]}
     del data, lpa_rows
     by_path["sharded_path"] = sharded["launches"]
     by_path["sharded_training_path"] = training["launches"]
@@ -4560,9 +4935,16 @@ def main() -> int:
     # rank 0's sharded operands alone on the card, beside library calls
     rows[0]["sharded_library"] = sharded["library"]["a"]
     rows[1]["sharded_library"] = sharded["library"]["b"]
+    # script_path's held launches (kernels A, B and C)
+    for row in rows:
+        if row["name"] in scripts["held"]:
+            row["max_abs_err"] = max(row["max_abs_err"],
+                                     scripts["held"][row["name"]][
+                                         "max_abs_err"])
     rows.extend(probe["rows"])
     log(f"chip_smoke: {time.perf_counter() - t_start:.1f}s (probe_path: "
-        f"{probe['wall_s']:.1f}s; ordering_path, graph_store, "
+        f"{probe['wall_s']:.1f}s; script_path: {scripts['wall_s']:.1f}s; "
+        "ordering_path, graph_store, "
         f"kernel_bench_cli, devices_cli: {new_paths_s:.1f}s)")
     emit({"kernels": rows})
     emit({"ok": True, "device": {"platform": "gpu",

@@ -139,17 +139,20 @@ def stage_rows(mesh: Mesh, provider, n_rows_padded: int | None = None,
                        slice(j * c, (j + 1) * c), dtype, mesh.device)
 
 
-def sharding_report(mesh: Mesh, tile: torch.Tensor) -> dict:
+def sharding_report(mesh: Mesh, tile: torch.Tensor, device=None) -> dict:
     """Size evidence for a ``(nodes, feat)``-sharded matrix from this
     rank's tile: the global shape and bytes, the tile's bytes, the
     reference's v5e keys (a TPU capacity, for parity) and the tile
-    against this rank's device memory (None off a card)."""
+    against the memory of ``device`` (default the tile's; None off a
+    card). A tile on the ``meta`` device gives the report of a matrix
+    that is not held anywhere."""
     rows, cols = (int(s) for s in tile.shape)
     shape = (rows * mesh.shape[NODES_AXIS], cols * mesh.shape[FEAT_AXIS])
     total = shape[0] * shape[1] * tile.element_size()
     per_dev = tile.numel() * tile.element_size()
-    capacity = (torch.cuda.get_device_properties(tile.device).total_memory
-                if tile.device.type == "cuda" else None)
+    dev = tile.device if device is None else torch.device(device)
+    capacity = (torch.cuda.get_device_properties(dev).total_memory
+                if dev.type == "cuda" else None)
     return {
         "global_shape": shape,
         "global_gb": round(total / 1e9, 2),

@@ -41,21 +41,10 @@ from sgc_tpu_torch.data.synthetic import synthetic_reddit_clustered
 from sgc_tpu_torch.graph.locality import LocalityPlan
 from sgc_tpu_torch.ops import blockdense_int8 as h
 from sgc_tpu_torch.ops import spmm_blockdense as bd
-from sgc_tpu_torch.scripts import backend, device_parser
+from sgc_tpu_torch.scripts import backend, best_seconds, device_parser, log
 from sgc_tpu_torch.utils.device import resolve_device
-from sgc_tpu_torch.utils.profiling import timed_runs
 
 INT8_FEATURE_TILES = (256, 768)
-
-
-def log(msg: str) -> None:
-    print(msg, file=sys.stderr, flush=True)
-
-
-def timed(fn, reps: int) -> tuple[float, object]:
-    """(best seconds of ``reps`` runs after a warm one, last output)."""
-    ts, out = timed_runs(fn, reps)
-    return min(ts), out
 
 
 def run(split, x: torch.Tensor, dargs=None, reps: int = 3) -> dict:
@@ -69,10 +58,10 @@ def run(split, x: torch.Tensor, dargs=None, reps: int = 3) -> dict:
     if dargs is None:
         dargs = bd.blockdense_device_args(split, dev)
     log(f"cells {split.n_cells} ({split.cell_bytes / 1e9:.2f} GB bf16)")
-    floor, _ = timed(lambda: torch.ones((8, 128), device=dev) * 2.0, reps)
+    floor, _ = best_seconds(lambda: torch.ones((8, 128), device=dev) * 2.0, reps)
     log(f"dispatch floor {floor * 1e3:.1f} ms")
 
-    t_a, out_a = timed(lambda: bd.apply_cells(split, dargs, x, "bf16"), reps)
+    t_a, out_a = best_seconds(lambda: bd.apply_cells(split, dargs, x, "bf16"), reps)
     ref_row_sum = out_a.sum(dim=1)
     log(f"kernel A bf16 (no feature tile: the reference's sweep over "
         f"256 / 512 / 768 is this one timing): {t_a * 1e3:.1f} ms (net "
@@ -87,7 +76,7 @@ def run(split, x: torch.Tensor, dargs=None, reps: int = 3) -> dict:
     scale = max(float(ref_row_sum.abs().max()), 1e-9)
     for ft in INT8_FEATURE_TILES:
         xp = h.pad_x_bf16(x, split.n_stripes * split.stripe, ft)
-        t8, out8 = timed(lambda: h.apply_cells_int8(cells, xp), reps)
+        t8, out8 = best_seconds(lambda: h.apply_cells_int8(cells, xp), reps)
         row8 = out8[: split.n_rows, : x.shape[1]].sum(dim=1)
         err8 = float((row8 - ref_row_sum).abs().max()) / scale
         log(f"int8 cells ft{ft}: {t8 * 1e3:.1f} ms (net "

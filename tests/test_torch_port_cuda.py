@@ -1605,3 +1605,116 @@ def test_cuda_int8_dense_term_matches_plain(cuda, super_rows):
         assert h.LAUNCHES == before + 2
         assert torch.equal(got, again)
         assert_close_rel(got.cpu(), h.apply_cells_int8_plain(c, xp).cpu())
+
+
+# ------------------------------------------------ the experiments of scripts/
+
+def _quiet(fn, *a, **kw):
+    import contextlib
+    import io
+
+    with contextlib.redirect_stdout(io.StringIO()), \
+            contextlib.redirect_stderr(io.StringIO()):
+        return fn(*a, **kw)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("config", ["intra0.85_comm50_sq",
+                                    "uniform_structureless"])
+def test_cuda_scripts_topology_config_matches_plain(cuda, config):
+    """One topology config on the card (segment on kernel B, the plans on
+    kernels A + B and C + B) against the same config's plain versions on
+    the CPU: every form's rows within 1e-5, the same admissions at the
+    committed rates."""
+    from sgc_tpu_torch.scripts import exp_topology_sweep as ts
+
+    kw = dict(ts.grid())[config]
+    data = ts.make_data(kw, 0.02)
+    got = _quiet(ts.run_config, config, data, cuda, 1)
+    want = _quiet(ts.run_config, config, data, torch.device("cpu"), 1)
+    for form in ("segment", "auto_uncal", "onehot"):
+        assert_close_rel(got["outputs"][form].cpu(), want["outputs"][form])
+    assert got["row"]["auto_uncal_dense_frac"] == \
+        want["row"]["auto_uncal_dense_frac"]
+    assert got["row"]["auto_uncal_formulation"] == "blockdense_kernel"
+
+
+@pytest.mark.cuda
+def test_cuda_scripts_crossover_matches_plain(cuda):
+    from sgc_tpu_torch.ops.spmm_hybrid import spmm_hybrid_split
+    from sgc_tpu_torch.ops.spmm_tiled import spmm_tiled_flat, spmm_tiled_plain
+    from sgc_tpu_torch.scripts import exp_crossover as cx
+
+    res = _quiet(cx.run_scale, 0.02, "clustered", cuda, 1)
+    cpu = _quiet(cx.run_scale, 0.02, "clustered", torch.device("cpu"), 1)
+    assert_close_rel(res["ref"].cpu(), cpu["ref"])
+    tiled, targs = res["tiled"]
+    xc = res["x"].cpu()
+    for prec in cx.PRECISIONS:
+        assert_close_rel(spmm_tiled_flat(tiled, res["x"], targs, prec).cpu(),
+                         spmm_tiled_plain(tiled, xc, prec))
+    for (split, hargs), (_, cargs) in zip(res["hybrid"].values(),
+                                          cpu["hybrid"].values()):
+        assert_close_rel(spmm_hybrid_split(split, res["x"], hargs).cpu(),
+                         spmm_hybrid_split(split, xc, cargs))
+    for got, want in zip(res["rows"], cpu["rows"]):
+        for k in ("rb", "w", "pad", "dense_frac", "nodes", "edges"):
+            assert got.get(k) == want.get(k), k
+
+
+@pytest.mark.cuda
+def test_cuda_scripts_super_rows_match_plain(cuda):
+    """Kernel A at "bf16" in every cell order against its plain version,
+    and the orders against each other at "f32"."""
+    from sgc_tpu_torch.data.synthetic import synthetic_reddit_clustered
+    from sgc_tpu_torch.graph.locality import LocalityPlan
+    from sgc_tpu_torch.scripts import exp_super_rows as sr
+
+    plan = LocalityPlan.build(*synthetic_reddit_clustered(0.02, shuffle=True),
+                              formulation="blockdense_kernel", device=cuda)
+    x = torch.as_tensor(plan.features, device=cuda)
+    f32 = {}
+
+    def check(name, split, args):
+        assert_close_rel(port_bd.apply_cells(split, args, x, "bf16").cpu(),
+                         port_bd.apply_cells_plain(split, args, x,
+                                                   "bf16").cpu())
+        f32[name] = port_bd.apply_cells(split, args, x, "f32").cpu()
+
+    out = _quiet(sr.run, plan, x, on_variant=check)
+    assert set(out["rows"]) == set(f32)
+    for name, o in f32.items():
+        assert_close_rel(o, f32["None"])
+
+
+@pytest.mark.cuda
+def test_cuda_scripts_newton_head_matches_cpu(cuda):
+    """The propagated rows (kernels A + B) and the Böhning losses on the
+    card against the same on the CPU."""
+    from sgc_tpu_torch.scripts import exp_newton_head as nh
+
+    tr, y, _ = nh.propagated(0.02, cuda)
+    tc, yc, _ = nh.propagated(0.02, "cpu")
+    assert_close_rel(tr.cpu(), tc)
+    C = int(yc.max()) + 1
+    got = nh.newton_to_parity(tr, y, C, 0.0, 1.0, 5, emit=lambda s: None)
+    want = nh.newton_to_parity(tc, yc, C, 0.0, 1.0, 5, emit=lambda s: None)
+    for (_, a, _), (_, b, _) in zip(got["iters"], want["iters"]):
+        assert abs(a - b) <= 1e-4 * abs(b)
+
+
+@pytest.mark.cuda
+def test_cuda_scripts_beyond_device_world_of_the_card(cuda, monkeypatch):
+    """The fit over the card's NCCL world of one rank (every kernel-B call
+    held in the rank) against one gloo rank on the CPU."""
+    from sgc_tpu_torch.scripts import exp_beyond_device as bdv
+
+    monkeypatch.setenv("SGC_TPU_TORCH_CPU_RANKS", "1")
+    got = _quiet(bdv.run, 0.001, 2, cuda, hold=True)
+    want = _quiet(bdv.run, 0.001, 2, "cpu")
+    assert got["exceeds_device_memory"] is False
+    held = got["_held"][0]["csr_spmm"]
+    assert held["calls"] == got["_launches"][0]["csr_spmm"] > 0
+    assert held["rel_err"] <= TOL
+    np.testing.assert_allclose(got["_head"][0], want["_head"][0], rtol=1e-4,
+                               atol=1e-5)
