@@ -367,12 +367,13 @@ def drive_plan(plan, device, counters) -> dict:
     """One user-level run of a plan: ``khop_traceable(degree=2)`` and the
     8-step Newton head, warm, then timed (the bench's pair of regions,
     ``sgc_tpu_torch/bench.py::time_hops_and_head``); the launch counters
-    in ``counters`` ({name: module}) are zeroed just before and read just
-    after the timed run and the timed hops."""
+    in ``counters`` ({name: registry counter}) are zeroed just before and
+    read just after the timed run and the timed hops."""
     import torch
 
     from sgc_tpu_torch.bench import time_hops_and_head
     from sgc_tpu_torch.models.sgc import init_sgc
+    from sgc_tpu_torch.utils.profiling import read_counts
 
     x = torch.as_tensor(plan.features, device=device)
     n_classes = int(plan.labels.max()) + 1
@@ -383,7 +384,7 @@ def drive_plan(plan, device, counters) -> dict:
     khop, dev_args = plan.khop_traceable(degree=2, precision="f32")
     t = time_hops_and_head(khop, dev_args, x, params0, y, 0.0, cw, device)
     tr = t["tr"]
-    launches = {name: mod.LAUNCHES for name, mod in counters.items()}
+    launches = read_counts(counters)
     if tuple(tr.shape) != (len(plan.idx_train), x.shape[1]):
         raise AssertionError(f"propagated shape {tuple(tr.shape)}")
     edges = plan.graph.nnz + plan.graph_final.nnz
@@ -398,11 +399,12 @@ def phase_main_path(args, device) -> dict:
     from sgc_tpu_torch.bench import train_parity
     from sgc_tpu_torch.data.synthetic import synthetic_reddit_clustered
     from sgc_tpu_torch.graph.locality import LocalityPlan
-    from sgc_tpu_torch.ops import spmm, spmm_blockdense
+    from sgc_tpu_torch.ops import spmm_blockdense
+    from sgc_tpu_torch.utils.profiling import zero_counts
 
-    counters = {"blockdense_cells": spmm_blockdense, "csr_spmm": spmm}
-    for mod in counters.values():
-        mod.LAUNCHES = 0
+    counters = {"blockdense_cells": "launch.blockdense_cells",
+                "csr_spmm": "launch.csr_spmm"}
+    zero_counts()
     t0 = time.perf_counter()
     graph, features, labels, idx_train = synthetic_reddit_clustered(
         args.scale, seed=args.seed, shuffle=True)
@@ -462,11 +464,12 @@ def phase_onehot_path(data, device) -> dict:
     operators, and the head against the LBFGS oracle (the bench's gate)."""
     from sgc_tpu_torch.bench import train_parity
     from sgc_tpu_torch.graph.locality import LocalityPlan
-    from sgc_tpu_torch.ops import spmm, spmm_tiled
+    from sgc_tpu_torch.ops import spmm
+    from sgc_tpu_torch.utils.profiling import zero_counts
 
-    counters = {"tiled_spmm": spmm_tiled, "csr_spmm": spmm}
-    for mod in counters.values():
-        mod.LAUNCHES = 0
+    counters = {"tiled_spmm": "launch.tiled_spmm",
+                "csr_spmm": "launch.csr_spmm"}
+    zero_counts()
     t0 = time.perf_counter()
     plan = LocalityPlan.build(*data, formulation="onehot", device=device)
     prep_s = time.perf_counter() - t0
@@ -983,6 +986,7 @@ def sddmm_on(g, a, b, reps, precisions) -> dict:
 
     from sgc_tpu_torch.ops import roofline as rf
     from sgc_tpu_torch.ops import spmm
+    from sgc_tpu_torch.utils.profiling import read_counts, zero_counts
 
     F, nnz = int(a.shape[1]), g.nnz
     rows = g.rows[:nnz]
@@ -995,10 +999,10 @@ def sddmm_on(g, a, b, reps, precisions) -> dict:
            "row_runs": runs}
     csr = csr_of(g)
     for precision in precisions:
-        spmm.SDDMM_LAUNCHES = 0
+        zero_counts()
         got = spmm.sddmm(g, a, b, precision)
         torch.cuda.synchronize()
-        launches = spmm.SDDMM_LAUNCHES
+        launches = read_counts(["launch.sddmm"])["launch.sddmm"]
         if launches != 1:
             raise AssertionError(f"sddmm launched kernel D {launches} "
                                  "times")
@@ -1080,25 +1084,25 @@ def phase_kernel_d(onehot, shuffled, reps) -> dict:
 def phase_dispatcher(onehot, reps) -> None:
     """``spmm(graph, x, impl=...)`` for every impl, each against kernel
     B's product; every impl must launch the kernels it stands for."""
-    from sgc_tpu_torch.ops import spmm, spmm_blockdense, spmm_tiled
+    from sgc_tpu_torch.ops import spmm
     from sgc_tpu_torch.utils.buildcache import clear_placed
+    from sgc_tpu_torch.utils.profiling import read_counts, zero_counts
 
     g, x = onehot["graph"], onehot["x"]
     expect = {"auto": ("csr_spmm",), "segment": ("csr_spmm",),
               "chunked": ("csr_spmm",), "tiled": ("tiled_spmm",),
               "hybrid": ("tiled_spmm", "csr_spmm"),
               "blockdense": ("blockdense_cells", "csr_spmm")}
-    mods = {"csr_spmm": spmm, "tiled_spmm": spmm_tiled,
-            "blockdense_cells": spmm_blockdense}
+    mods = {"csr_spmm": "launch.csr_spmm", "tiled_spmm": "launch.tiled_spmm",
+            "blockdense_cells": "launch.blockdense_cells"}
     ref = spmm.spmm_segment(g, x)
     impls = {}
     for impl in spmm.IMPLS:
-        for mod in mods.values():
-            mod.LAUNCHES = 0
+        zero_counts()
         t0 = time.perf_counter()
         out = spmm.spmm(g, x, impl=impl)
         first_s = time.perf_counter() - t0
-        launches = {k: m.LAUNCHES for k, m in mods.items()}
+        launches = read_counts(mods)
         _, err = rel_err(out, ref)
         del out
         tol = BF16_TOLERANCE if impl == "blockdense" else TOLERANCE
@@ -1121,12 +1125,13 @@ def counted(fn):
     just before the call and read just after it (the card synchronized)."""
     import torch
 
-    from sgc_tpu_torch.bench import read_launches, zero_launches
+    from sgc_tpu_torch.bench import LAUNCH_COUNTERS
+    from sgc_tpu_torch.utils.profiling import read_counts, zero_counts
 
-    zero_launches()
+    zero_counts()
     out = fn()
     torch.cuda.synchronize()
-    return out, read_launches()
+    return out, read_counts(LAUNCH_COUNTERS)
 
 
 def scratch_dir():
@@ -4262,10 +4267,8 @@ def phase_probe_path(plan, x, reps) -> dict:
 
     import torch
 
-    from sgc_tpu_torch.bench import read_launches, zero_launches
-    from sgc_tpu_torch.ops import blockdense_int8 as h
+    from sgc_tpu_torch.bench import LAUNCH_COUNTERS
     from sgc_tpu_torch.ops import edge_accumulate as ea
-    from sgc_tpu_torch.ops import probe_copy as pe
     from sgc_tpu_torch.ops import row_gather as rg
     from sgc_tpu_torch.scripts import (
         exp_dense_term,
@@ -4275,13 +4278,17 @@ def phase_probe_path(plan, x, reps) -> dict:
         exp_pallas_probe2,
         exp_take_probe,
     )
+    from sgc_tpu_torch.utils.profiling import read_counts, zero_counts
 
     t0 = time.perf_counter()
     dev = x.device
-    counters = {"probe_copy": pe, "row_gather": rg, "edge_accumulate": ea,
-                "blockdense_int8_cells": h}
-    entries = {"probe_copy": pe.BY_ENTRY, "row_gather": rg.BY_ENTRY,
-               "edge_accumulate": ea.BY_MODE}
+    # each module's launches by entry (kernel G's by mode)
+    entries = {"probe_copy": {e: f"launch.probe_{e}"
+                              for e in ("scale2", "select_blocks")},
+               "row_gather": {e: f"launch.row_gather_{e}"
+                              for e in rg.ENTRIES},
+               "edge_accumulate": {m: f"within.edge_accumulate.{m}"
+                                   for m in ea.MODES}}
 
     def placed(arrays):
         return [torch.from_numpy(a).to(dev) for a in arrays]
@@ -4298,11 +4305,7 @@ def phase_probe_path(plan, x, reps) -> dict:
                               TAKE_REPS)
     del tx, tidx64
     torch.cuda.synchronize()
-    zero_launches()
-    for mod in counters.values():
-        mod.LAUNCHES = 0
-    for d in entries.values():
-        d.update({k: 0 for k in d})
+    zero_counts()
     out = io.StringIO()
     with contextlib.redirect_stdout(out):
         e1 = exp_pallas_probe.run(dev)
@@ -4314,9 +4317,11 @@ def phase_probe_path(plan, x, reps) -> dict:
                   for m in ea.MODES}
         dense = exp_dense_term.run(plan.split_main, x, dargs, reps=3)
     torch.cuda.synchronize()
-    launches = {name: mod.LAUNCHES for name, mod in counters.items()}
-    by_entry = {name: dict(d) for name, d in entries.items()}
-    launches_a_d = read_launches()
+    by_entry = {name: read_counts(d) for name, d in entries.items()}
+    launches = {name: sum(d.values()) for name, d in by_entry.items()}
+    launches["blockdense_int8_cells"] = read_counts(
+        ["launch.blockdense_int8_cells"])["launch.blockdense_int8_cells"]
+    launches_a_d = read_counts(LAUNCH_COUNTERS)
     path_s = time.perf_counter() - t0
     log(out.getvalue().rstrip())
     if min([*launches.values(), launches_a_d["blockdense_cells"]]
@@ -4386,19 +4391,15 @@ SCRIPT_CUTS = {
 @contextlib.contextmanager
 def uncounted():
     """Kernel calls inside the block (a hold's second launch) leave every
-    counter of kernels A-D as it was."""
-    import importlib
+    counter as it was: what the block counted is taken off again."""
+    from sgc_tpu_torch.utils.profiling import count, read_counts
 
-    from sgc_tpu_torch.bench import LAUNCH_COUNTERS
-
-    mods = {(mod, attr): importlib.import_module(f"sgc_tpu_torch.ops.{mod}")
-            for mod, attr in LAUNCH_COUNTERS.values()}
-    saved = {key: getattr(m, key[1]) for key, m in mods.items()}
+    saved = read_counts()
     try:
         yield
     finally:
-        for key, m in mods.items():
-            setattr(m, key[1], saved[key])
+        for name, n in read_counts().items():
+            count(name, saved.get(name, 0) - n)
 
 
 class Holds:

@@ -77,7 +77,7 @@ from sgc_tpu_torch.data.synthetic import (  # noqa: F401
     REDDIT_TRAIN,
 )
 from sgc_tpu_torch.utils.device import resolve_device
-from sgc_tpu_torch.utils.profiling import sync
+from sgc_tpu_torch.utils.profiling import read_counts, sync, zero_counts
 
 BASELINE_SECONDS = 2.7  # the SGC paper's README (GTX 1080 Ti)
 
@@ -87,15 +87,15 @@ FORMULATION_ALIASES = {"blockdense_pallas": "blockdense_kernel"}
 # the committed-admission forms reported beside the headline
 FORMS = ("blockdense_kernel", "onehot")
 
-# each kernel's launch counter, by its row name in chip_smoke.py's
-# kernels line: (module of sgc_tpu_torch.ops, attribute)
+# each kernel's launch counter in utils/profiling.py's registry, by its
+# row name in chip_smoke.py's kernels line
 LAUNCH_COUNTERS = {
-    "blockdense_cells": ("spmm_blockdense", "LAUNCHES"),     # kernel A
-    "csr_spmm": ("spmm", "LAUNCHES"),                        # kernel B
-    "tiled_spmm": ("spmm_tiled", "LAUNCHES"),                # kernel C
-    "sddmm": ("spmm", "SDDMM_LAUNCHES"),                     # kernel D
+    "blockdense_cells": "launch.blockdense_cells",           # kernel A
+    "csr_spmm": "launch.csr_spmm",                           # kernel B
+    "tiled_spmm": "launch.tiled_spmm",                       # kernel C
+    "sddmm": "launch.sddmm",                                 # kernel D
     # of csr_spmm's: those over a transpose (a backward)
-    "csr_spmm_transposed": ("autograd", "TRANSPOSED_LAUNCHES"),
+    "csr_spmm_transposed": "within.csr_spmm_transposed",
 }
 
 REPO_ROOT = Path(__file__).resolve().parents[1]
@@ -110,29 +110,14 @@ def log(msg: str) -> None:
     print(msg, file=sys.stderr, flush=True)
 
 
-def zero_launches() -> None:
-    import importlib
-
-    for mod, attr in LAUNCH_COUNTERS.values():
-        setattr(importlib.import_module(f"sgc_tpu_torch.ops.{mod}"), attr, 0)
-
-
-def read_launches() -> dict:
-    import importlib
-
-    return {name: getattr(importlib.import_module(f"sgc_tpu_torch.ops.{mod}"),
-                          attr)
-            for name, (mod, attr) in LAUNCH_COUNTERS.items()}
-
-
 def counted_leg(fn, *args, **kwargs) -> dict:
     """``fn(*args, **kwargs)`` (a leg's result dict, ``device=`` among
     the keywords) with the launches of every kernel during the call under
     ``"launches"``."""
-    zero_launches()
+    zero_counts()
     out = fn(*args, **kwargs)
     sync(kwargs["device"])
-    out["launches"] = read_launches()
+    out["launches"] = read_counts(LAUNCH_COUNTERS)
     return out
 
 

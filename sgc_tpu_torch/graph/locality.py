@@ -56,6 +56,7 @@ import torch
 from sgc_tpu_torch.graph.reorder import reorder_graph_arrays
 from sgc_tpu_torch.graph.sparse import SparseGraph
 from sgc_tpu_torch.utils.device import resolve_device
+from sgc_tpu_torch.utils.profiling import span
 
 FORMULATIONS = ("auto", "blockdense", "blockdense_kernel", "onehot")
 SUPER_ROWS = 8
@@ -193,7 +194,8 @@ class LocalityPlan:
 
     def _spmm_form(self, split, precision: str):
         """(x, args) -> S @ x for one split, under the plan's formulation
-        and the dense term's ``precision`` (ops/spmm_blockdense.py)."""
+        and the dense term's ``precision`` (ops/spmm_blockdense.py); each
+        hop is a ``prop.hop`` span."""
         from sgc_tpu_torch.ops.spmm_blockdense import (
             check_precision,
             spmm_block_dense,
@@ -202,11 +204,15 @@ class LocalityPlan:
         from sgc_tpu_torch.ops.spmm_hybrid import spmm_hybrid_split
 
         check_precision(precision)
-        if self.formulation == "onehot":
-            return lambda x, a: spmm_hybrid_split(split, x, a, precision)
-        op = {"blockdense_kernel": spmm_blockdense,
+        op = {"onehot": spmm_hybrid_split,
+              "blockdense_kernel": spmm_blockdense,
               "blockdense": spmm_block_dense}[self.formulation]
-        return lambda x, a: op(split, x, a, precision)
+
+        def hop(x, a):
+            with span("prop.hop", x.device):
+                return op(split, x, a, precision)
+
+        return hop
 
     def hop_fns(self, precision: str = "f32"):
         """``(full_hop, final_hop)``: x -> S @ x on the plan's device,

@@ -31,6 +31,12 @@ CPU tests exercise the card's backward formulas.
   ``ops.spmm.scatter_graph(ids)``, positions in increasing order, as
   the reference's sequential scatter-add does.
 
+Each Function's forward and backward is a span of the recorder
+(utils/profiling.py), the name one per Function: ``gat.spmm``
+(``SpmmSegmentFn``), ``gat.scores`` (``EdgeScoresFn``) and
+``gat.softmax`` (``SegmentSoftmaxFn``); kernel B's launches over a
+transpose count also as ``within.csr_spmm_transposed``.
+
 No backward here goes through ``index_add_``, ``scatter_add_`` or
 ``index_put_(accumulate=True)``: on CUDA those sum with float atomics in
 an order that changes from run to run, and determinism is part of the
@@ -50,13 +56,13 @@ from __future__ import annotations
 import torch
 
 from sgc_tpu_torch.graph.sparse import SparseGraph
-from sgc_tpu_torch.ops import spmm as _spmm
 from sgc_tpu_torch.ops.spmm import scatter_graph, sddmm, spmm_segment
 from sgc_tpu_torch.utils.buildcache import placed
+from sgc_tpu_torch.utils.profiling import span, within
 
-# kernel B launches over a transpose (backward products), also counted in
-# ops.spmm.LAUNCHES with every other kernel B launch
-TRANSPOSED_LAUNCHES = 0
+# kernel B launches over a transpose (backward products), a sub-count of
+# launch.csr_spmm
+_TRANSPOSED = {"launch.csr_spmm": "within.csr_spmm_transposed"}
 
 
 def _transpose_entry(graph: SparseGraph):
@@ -96,13 +102,10 @@ def on_transpose(graph: SparseGraph, vals: torch.Tensor) -> SparseGraph:
 def spmm_transposed(graph: SparseGraph, vals: torch.Tensor,
                     x: torch.Tensor) -> torch.Tensor:
     """``A^T @ x`` for the pattern of ``graph`` with edge values
-    ``vals``: kernel B over the cached transpose."""
-    global TRANSPOSED_LAUNCHES
-    before = _spmm.LAUNCHES
-    out = spmm_segment(on_transpose(graph, _edge_vals(vals)), x)
-    # the kernel's own launches: none for an empty product
-    TRANSPOSED_LAUNCHES += _spmm.LAUNCHES - before
-    return out
+    ``vals``: kernel B over the cached transpose, each launch counted
+    also as ``within.csr_spmm_transposed``."""
+    with within(_TRANSPOSED):
+        return spmm_segment(on_transpose(graph, _edge_vals(vals)), x)
 
 
 def row_sums(graph: SparseGraph, vals: torch.Tensor) -> torch.Tensor:
@@ -127,24 +130,26 @@ class SpmmSegmentFn(torch.autograd.Function):
     @staticmethod
     def forward(ctx, graph: SparseGraph, vals: torch.Tensor,
                 x: torch.Tensor) -> torch.Tensor:
-        # the graph keeps vals itself, so that on_transpose can tell the
-        # tensor the cached transpose was built from
-        graph, x = graph.with_vals(_edge_vals(vals)), x.contiguous()
-        ctx.graph = graph
-        # x feeds dvals alone
-        ctx.save_for_backward(x if ctx.needs_input_grad[1] else None)
-        return spmm_segment(graph, x)
+        with span("gat.spmm", x.device):
+            # the graph keeps vals itself, so that on_transpose can tell
+            # the tensor the cached transpose was built from
+            graph, x = graph.with_vals(_edge_vals(vals)), x.contiguous()
+            ctx.graph = graph
+            # x feeds dvals alone
+            ctx.save_for_backward(x if ctx.needs_input_grad[1] else None)
+            return spmm_segment(graph, x)
 
     @staticmethod
     def backward(ctx, g: torch.Tensor):
-        (x,) = ctx.saved_tensors
-        graph, g = ctx.graph, g.contiguous()
-        dvals = dx = None
-        if ctx.needs_input_grad[1]:
-            dvals = sddmm(graph, g, x)
-        if ctx.needs_input_grad[2]:
-            dx = spmm_transposed(graph, graph.vals, g)
-        return None, dvals, dx
+        with span("gat.spmm", g.device):
+            (x,) = ctx.saved_tensors
+            graph, g = ctx.graph, g.contiguous()
+            dvals = dx = None
+            if ctx.needs_input_grad[1]:
+                dvals = sddmm(graph, g, x)
+            if ctx.needs_input_grad[2]:
+                dx = spmm_transposed(graph, graph.vals, g)
+            return None, dvals, dx
 
 
 class EdgeScoresFn(torch.autograd.Function):
@@ -156,15 +161,19 @@ class EdgeScoresFn(torch.autograd.Function):
     def forward(ctx, graph: SparseGraph, dst: torch.Tensor,
                 src: torch.Tensor) -> torch.Tensor:
         ctx.graph = graph
-        return (dst.index_select(0, graph.rows)
-                + src.index_select(0, graph.cols))
+        with span("gat.scores", dst.device):
+            return (dst.index_select(0, graph.rows)
+                    + src.index_select(0, graph.cols))
 
     @staticmethod
     def backward(ctx, g: torch.Tensor):
-        g = _edge_vals(g)
-        d_dst = row_sums(ctx.graph, g) if ctx.needs_input_grad[1] else None
-        d_src = col_sums(ctx.graph, g) if ctx.needs_input_grad[2] else None
-        return None, d_dst, d_src
+        with span("gat.scores", g.device):
+            g = _edge_vals(g)
+            d_dst = (row_sums(ctx.graph, g) if ctx.needs_input_grad[1]
+                     else None)
+            d_src = (col_sums(ctx.graph, g) if ctx.needs_input_grad[2]
+                     else None)
+            return None, d_dst, d_src
 
 
 class SegmentSoftmaxFn(torch.autograd.Function):
@@ -178,14 +187,15 @@ class SegmentSoftmaxFn(torch.autograd.Function):
     def forward(ctx, graph: SparseGraph, logits: torch.Tensor,
                 live: torch.Tensor) -> torch.Tensor:
         ctx.graph = graph
-        rows = graph.rows.long()
-        neg = torch.finfo(torch.float32).min
-        masked = torch.where(live, logits, neg)
-        seg_max = logits.new_zeros(graph.n_rows).scatter_reduce(
-            0, rows, masked, "amax", include_self=False)
-        ex = torch.where(live, torch.exp(logits - seg_max[rows]), 0.0)
-        denom = row_sums(graph, ex)
-        alpha = ex / denom[rows].clamp_min(1e-30)
+        with span("gat.softmax", logits.device):
+            rows = graph.rows.long()
+            neg = torch.finfo(torch.float32).min
+            masked = torch.where(live, logits, neg)
+            seg_max = logits.new_zeros(graph.n_rows).scatter_reduce(
+                0, rows, masked, "amax", include_self=False)
+            ex = torch.where(live, torch.exp(logits - seg_max[rows]), 0.0)
+            denom = row_sums(graph, ex)
+            alpha = ex / denom[rows].clamp_min(1e-30)
         ctx.save_for_backward(alpha)
         return alpha
 
@@ -193,8 +203,9 @@ class SegmentSoftmaxFn(torch.autograd.Function):
     def backward(ctx, g: torch.Tensor):
         (alpha,) = ctx.saved_tensors
         graph = ctx.graph
-        s = row_sums(graph, alpha * g)
-        d = alpha * (g - s.index_select(0, graph.rows))
+        with span("gat.softmax", g.device):
+            s = row_sums(graph, alpha * g)
+            d = alpha * (g - s.index_select(0, graph.rows))
         return None, d, None
 
 

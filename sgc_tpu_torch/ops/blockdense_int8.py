@@ -21,8 +21,8 @@ order; here the cells of any order are indexed per row block
 (:func:`int8_cells`, as kernel A's ``cell_index``), so both orders give
 the intended function.
 
-On a CUDA tensor :func:`apply_cells_int8` launches the kernel (counted in
-``LAUNCHES``) or raises; on a CPU tensor it runs
+On a CUDA tensor :func:`apply_cells_int8` launches the kernel (counted as
+``launch.blockdense_int8_cells``) or raises; on a CPU tensor it runs
 :func:`apply_cells_int8_plain`, a loop over each row block's cells with
 f32 matmuls.
 """
@@ -35,6 +35,7 @@ import numpy as np
 import torch
 
 from sgc_tpu_torch.ops import kernels
+from sgc_tpu_torch.utils.profiling import count
 
 # cells a quantization step takes at once (an f32 temporary of this many
 # cells; the reference's chunk)
@@ -42,8 +43,6 @@ QUANT_CHUNK = 256
 # F_pad must be a multiple of it: the kernel's tiles are 256 features
 # wide, the last one 128 wide where F_pad is not a multiple of 256
 FEATURE_TILE = 128
-
-LAUNCHES = 0
 
 
 def quantize_cells(cells: torch.Tensor,
@@ -169,7 +168,6 @@ def apply_cells_int8(c: Int8Cells, xp: torch.Tensor) -> torch.Tensor:
     _check(c, xp)
     if xp.device.type == "cpu":
         return apply_cells_int8_plain(c, xp)
-    global LAUNCHES
     xp = xp.contiguous()
     R, W = c.row_block, c.stripe
     f_pad = int(xp.shape[1])
@@ -184,5 +182,5 @@ def apply_cells_int8(c: Int8Cells, xp: torch.Tensor) -> torch.Tensor:
         c.st_ids.data_ptr(), int(c.cells.shape[0]), c.n_rb, c.n_st, f_pad,
         R, W, kernels.stream_of(xp))
     kernels.check_launch(rc, "blockdense_int8_cells")
-    LAUNCHES += 1
+    count("launch.blockdense_int8_cells")
     return out

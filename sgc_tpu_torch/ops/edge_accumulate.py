@@ -18,8 +18,9 @@ Every row's updates are applied in edge order, a product and then an add
 each rounded to f32, so the result is the sequential loop's; ``store``
 keeps each row's last edge. On a CUDA tensor :func:`edge_accumulate`
 launches the kernel (one call of its C entry, four bucket launches and
-one or two accumulate launches, counted once in ``LAUNCHES`` and
-``BY_MODE``) or raises; on a CPU tensor it runs
+one or two accumulate launches, counted once as
+``launch.edge_accumulate`` and ``within.edge_accumulate.<mode>``) or
+raises; on a CPU tensor it runs
 :func:`edge_accumulate_plain`, which applies the same updates in rounds
 (round k takes each row's k-th edge, so the rows of one round are
 distinct).
@@ -29,7 +30,8 @@ permutation and ``row_ptr`` (:func:`bucket_edges`, whose plain version
 :func:`bucket_edges_plain` is the definition: a stable argsort of the
 effective rows and their counts' prefix sums), then walks each row's
 bucket in order (:func:`accumulate_buckets`). Both passes can be
-launched alone (counted in ``PASSES``), to time them apart.
+launched alone (counted as ``launch.edge_buckets`` and
+``launch.edge_accumulate_bucketed``), to time them apart.
 """
 
 from __future__ import annotations
@@ -40,6 +42,7 @@ import itertools
 import torch
 
 from sgc_tpu_torch.ops import kernels
+from sgc_tpu_torch.utils.profiling import count
 
 MODES = ("rmw", "store", "fixed_out", "fixed_in", "noop")
 # the kernel's mode bits: 1 every edge on row 0, 2 every edge reads x row
@@ -52,10 +55,6 @@ BUCKET_CHUNK = 512
 # chains take the kernel's deep-pipelined launch
 HEAVY = 512
 
-LAUNCHES = 0
-BY_MODE = {m: 0 for m in MODES}
-# launches of one pass alone: bucket_edges, accumulate_buckets
-PASSES = {"bucket": 0, "accumulate": 0}
 
 
 def _check(rows, cols, vals, x, n_rows: int, mode: str) -> None:
@@ -198,8 +197,8 @@ def _launch_args(rows, cols, vals, x):
 def bucket_edges(rows, cols, vals, x, n_rows: int,
                  mode: str = "rmw") -> Buckets:
     """The bucket pass alone (x gives the column range and the device):
-    kernel G's four bucket launches on a CUDA tensor, counted in
-    ``PASSES["bucket"]``; the plain version on a CPU tensor."""
+    kernel G's four bucket launches on a CUDA tensor, counted once as
+    ``launch.edge_buckets``; the plain version on a CPU tensor."""
     _check(rows, cols, vals, x, n_rows, mode)
     if x.device.type == "cpu":
         return bucket_edges_plain(rows, cols, vals, n_rows, mode)
@@ -211,16 +210,16 @@ def bucket_edges(rows, cols, vals, x, n_rows: int,
         x.shape[0], _MODE_BITS[mode], BUCKET_CHUNK, *ptrs,
         kernels.stream_of(x))
     kernels.check_launch(rc, "edge_buckets")
-    PASSES["bucket"] += 1
+    count("launch.edge_buckets")
     return _buckets_of(buf, E, n_rows)
 
 
 def accumulate_buckets(b: Buckets, x, n_rows: int,
                        mode: str = "rmw") -> torch.Tensor:
     """The accumulate pass alone on :func:`bucket_edges`'s output (the
-    same mode): the ``(n_rows, F)`` result, counted in
-    ``PASSES["accumulate"]``; on a CPU tensor the plain version of the
-    same updates."""
+    same mode): the ``(n_rows, F)`` result, counted as
+    ``launch.edge_accumulate_bucketed``; on a CPU tensor the plain version
+    of the same updates."""
     if x.device.type == "cpu":
         # the bucket's rows and columns are the effective ones already
         return edge_accumulate_plain(_rows_of(b, n_rows), b.cols, b.vals, x,
@@ -237,7 +236,7 @@ def accumulate_buckets(b: Buckets, x, n_rows: int,
         b.cols.shape[0], n_rows, x.shape[0], F, _MODE_BITS[mode],
         kernels.stream_of(x))
     kernels.check_launch(rc, "edge_accumulate_bucketed")
-    PASSES["accumulate"] += 1
+    count("launch.edge_accumulate_bucketed")
     return out
 
 
@@ -257,7 +256,6 @@ def edge_accumulate(rows, cols, vals, x, n_rows: int,
     _check(rows, cols, vals, x, n_rows, mode)
     if x.device.type == "cpu":
         return edge_accumulate_plain(rows, cols, vals, x, n_rows, mode)
-    global LAUNCHES
     rows, cols, vals = _launch_args(rows, cols, vals, x)
     F = int(x.shape[1])
     out = torch.empty((n_rows, F), dtype=torch.float32, device=x.device)
@@ -270,6 +268,6 @@ def edge_accumulate(rows, cols, vals, x, n_rows: int,
         _MODE_BITS[mode], BUCKET_CHUNK, *ptrs, kernels.stream_of(x))
     del buf   # freed in stream order, after the launches
     kernels.check_launch(rc, "edge_accumulate")
-    LAUNCHES += 1
-    BY_MODE[mode] += 1
+    count("launch.edge_accumulate")
+    count(f"within.edge_accumulate.{mode}")
     return out

@@ -9,8 +9,8 @@ source block comes from a scalar-prefetch index). Two entries:
   B]`` over the rows of a 2-D f32 ``x``, ``B`` rows a block; each CTA
   reads its own ``sel[i]`` on the card.
 
-On a CUDA tensor each entry launches the kernel (counted once in
-``LAUNCHES`` and in ``BY_ENTRY``) or raises; on a CPU tensor it runs its
+On a CUDA tensor each entry launches the kernel (counted once as
+``launch.<C entry>``) or raises; on a CPU tensor it runs its
 plain version. Doubling is exact in f32, so the two agree bit for bit.
 
 A call moves 4 KB at the probe's shape, so its time is the host's path
@@ -24,9 +24,7 @@ from __future__ import annotations
 import torch
 
 from sgc_tpu_torch.ops import kernels
-
-LAUNCHES = 0
-BY_ENTRY = {"scale2": 0, "select_blocks": 0}
+from sgc_tpu_torch.utils.profiling import count
 
 # the C entries, resolved (and built) at their first launch
 _SCALE2 = None
@@ -40,7 +38,7 @@ def scale2_plain(x: torch.Tensor) -> torch.Tensor:
 def scale2(x: torch.Tensor) -> torch.Tensor:
     """``2 x`` (f32): kernel E on a CUDA tensor, the plain version on a
     CPU tensor."""
-    global LAUNCHES, _SCALE2
+    global _SCALE2
     if not x.is_cuda and x.device.type == "cpu":
         return scale2_plain(x)
     if not x.is_cuda or x.dtype is not torch.float32 or (
@@ -55,8 +53,7 @@ def scale2(x: torch.Tensor) -> torch.Tensor:
     rc = _SCALE2(x.data_ptr(), y.data_ptr(), n, kernels.stream_of(x))
     if rc:
         kernels.check_launch(rc, "probe_scale2")
-    LAUNCHES += 1
-    BY_ENTRY["scale2"] += 1
+    count("launch.probe_scale2")
     return y
 
 
@@ -81,7 +78,7 @@ def select_blocks(x: torch.Tensor, sel: torch.Tensor,
                   block: int) -> torch.Tensor:
     """Block ``i`` of the output (``block`` rows) is 2 x block ``sel[i]``:
     kernel E on a CUDA tensor, the plain version on a CPU tensor."""
-    global LAUNCHES, _SELECT
+    global _SELECT
     if not x.is_cuda and x.device.type == "cpu":
         return select_blocks_plain(x, sel, block)
     _check_select(x, sel, block)
@@ -97,6 +94,5 @@ def select_blocks(x: torch.Tensor, sel: torch.Tensor,
         x.shape[0] // block, block * x.shape[1], kernels.stream_of(x))
     if rc:
         kernels.check_launch(rc, "probe_select_blocks")
-    LAUNCHES += 1
-    BY_ENTRY["select_blocks"] += 1
+    count("launch.probe_select_blocks")
     return out

@@ -22,8 +22,8 @@ shared memory of a launch; the C entries take the plan as arguments and
 refuse one they do not compile, and :func:`plan_rows` lists the rows each
 warp or CTA of a plan copies, in the kernel's order.
 
-On a CUDA tensor :func:`row_gather` launches the kernel (counted once in
-``LAUNCHES`` and in ``BY_ENTRY``) or raises; on a CPU tensor it runs
+On a CUDA tensor :func:`row_gather` launches the kernel (counted once as
+``launch.row_gather_<entry>``) or raises; on a CPU tensor it runs
 :func:`row_gather_plain`. Both copy bits, so they agree exactly.
 """
 
@@ -36,6 +36,7 @@ import numpy as np
 import torch
 
 from sgc_tpu_torch.ops import kernels
+from sgc_tpu_torch.utils.profiling import count
 
 ENTRIES = ("load", "async")
 IN_FLIGHT = (1, 2, 4, 8, 16)
@@ -55,9 +56,6 @@ CTA_RESERVED_SMEM = 1024
 SM_MAX_CTAS = 32
 SM_MAX_THREADS = 2048
 H100_SMS = 132
-
-LAUNCHES = 0
-BY_ENTRY = {e: 0 for e in ENTRIES}
 
 
 @dataclass(frozen=True)
@@ -201,7 +199,6 @@ def row_gather(x: torch.Tensor, idx: torch.Tensor, entry: str = "load",
                in_flight: int = DEFAULT_IN_FLIGHT) -> torch.Tensor:
     """``x[idx]`` (x f32 ``[n, F]``, idx int32): kernel F through
     ``entry`` on a CUDA tensor, the plain version on a CPU tensor."""
-    global LAUNCHES
     _check(x, idx, entry, in_flight)
     if not x.is_cuda and x.device.type == "cpu":
         return row_gather_plain(x, idx)
@@ -215,6 +212,5 @@ def row_gather(x: torch.Tensor, idx: torch.Tensor, entry: str = "load",
     plan = gather_plan(n_out, F, entry, in_flight, x.data_ptr() % 16 == 0,
                        sms_of(x))
     launch_gather(x, idx, out, plan)
-    LAUNCHES += 1
-    BY_ENTRY[entry] += 1
+    count(f"launch.row_gather_{entry}")
     return out

@@ -45,12 +45,11 @@ import torch
 
 from sgc_tpu_torch.graph.sparse import SparseGraph
 from sgc_tpu_torch.ops import kernels
+from sgc_tpu_torch.utils.profiling import count
 
-# launches of the CUDA kernel behind spmm_segment (kernel B)
-LAUNCHES = 0
-# launches of the CUDA kernel behind sddmm (kernel D), each after a
-# memset of the padding slots
-SDDMM_LAUNCHES = 0
+# launches are counted in utils/profiling.py's registry: the CUDA kernel
+# behind spmm_segment (kernel B) as launch.csr_spmm, that behind sddmm
+# (kernel D, each after a memset of the padding slots) as launch.sddmm
 
 PRECISIONS = ("f32", "bf16")
 
@@ -224,7 +223,6 @@ def spmm_segment(graph: SparseGraph, x: torch.Tensor,
 
 
 def _spmm_segment_cuda(graph, x, dense):
-    global LAUNCHES
     F = int(x.shape[1])
     kernels.require_cuda_f32(x, "x")
     if dense is not None:
@@ -239,7 +237,7 @@ def _spmm_segment_cuda(graph, x, dense):
     if graph.n_rows == 0 or F == 0:
         return out
     launch_csr(graph.row_ptr, graph.cols, graph.vals, x, dense, out)
-    LAUNCHES += 1
+    count("launch.csr_spmm")
     return out
 
 
@@ -428,7 +426,6 @@ def _sddmm_cuda(graph: SparseGraph, a: torch.Tensor, b: torch.Tensor,
                 precision: str, lib=None) -> torch.Tensor:
     """Kernel D on CUDA operands; ``lib`` is another build of the kernel's
     C entry (the A/B tool's variants), default the package's."""
-    global SDDMM_LAUNCHES
     kernels.require_cuda_f32(a, "a")
     kernels.require_cuda_f32(b, "b")
     for name, t in (("rows", graph.rows), ("cols", graph.cols)):
@@ -446,5 +443,5 @@ def _sddmm_cuda(graph: SparseGraph, a: torch.Tensor, b: torch.Tensor,
         bk.data_ptr(), out.data_ptr(), graph.nnz, graph.n_edges_padded, F,
         ld, int(precision == "bf16"), kernels.stream_of(a))
     kernels.check_launch(rc, "sddmm")
-    SDDMM_LAUNCHES += 1
+    count("launch.sddmm")
     return out

@@ -60,6 +60,7 @@ from sgc_tpu_torch.ops.spmm import (  # noqa: F401 (PRECISIONS re-exported)
     spmm_segment_plain,
 )
 from sgc_tpu_torch.utils.buildcache import placed
+from sgc_tpu_torch.utils.profiling import count
 
 # Admission-model rates measured by the reference on a TPU v5e (its
 # einsum cell path, and its XLA segment path, sgc_tpu/ops/spmm_hybrid.py).
@@ -75,9 +76,9 @@ DEFAULT_BYTE_BUDGET = 4 << 30   # bf16 cell bytes per split
 # tail padding granularity of the cell list (the reference's scan step)
 CELL_CHUNK = 256
 
-# calls of kernel A's entry by apply_cells; each call is two CUDA
+# calls of kernel A's entry by apply_cells count as
+# launch.blockdense_cells (utils/profiling.py); each call is two CUDA
 # launches, the operand stage (x_terms_kernel) and then the MMA kernel
-LAUNCHES = 0
 
 # kernel A's feature tile: the bf16 scratch of x is padded to a multiple
 FEATURE_TILE = 128
@@ -371,7 +372,8 @@ def apply_cells(split: BlockDenseSplit, args: BlockDenseArgs,
                 x: torch.Tensor, precision: str = "bf16") -> torch.Tensor:
     """The dense-cell term, f32 ``[n_rows, F]``: kernel A on a CUDA
     tensor (or raise), :func:`apply_cells_plain` on a CPU tensor. One
-    call of kernel A's entry, counted once in ``LAUNCHES``, launches its
+    call of kernel A's entry, counted once as ``launch.blockdense_cells``,
+    launches its
     operand stage and its MMA kernel."""
     check_precision(precision)
     if x.dim() != 2 or x.shape[0] != split.n_cols:
@@ -379,7 +381,6 @@ def apply_cells(split: BlockDenseSplit, args: BlockDenseArgs,
                          f"{tuple(x.shape)}")
     if x.device.type == "cpu":
         return apply_cells_plain(split, args, x, precision)
-    global LAUNCHES
     kernels.require_cuda_f32(x, "x")
     if args.cells is None or args.cells.device != x.device:
         raise ValueError("the split's cells are not placed on x's device")
@@ -405,7 +406,7 @@ def apply_cells(split: BlockDenseSplit, args: BlockDenseArgs,
         split.n_cols, n_x_rows, F, f_pad, R, W, n_terms,
         kernels.stream_of(x))
     kernels.check_launch(rc, "blockdense_cells")
-    LAUNCHES += 1
+    count("launch.blockdense_cells")
     return out
 
 

@@ -23,7 +23,7 @@ permutation; :func:`row_csr` gathers the edges through it). Padding slots
 The result is a CSR matrix whose product, summed row by row in order, is
 the tiled SpMM, so kernel C is the port's CSR kernel
 (``csrc/spmm_csr.cu``, kernel B's) launched on it, counted in this
-module's ``LAUNCHES``. One placement serves both entries:
+registry as ``launch.tiled_spmm``. One placement serves both entries:
 
 * :func:`spmm_tiled_flat` <-> ``spmm_pallas_flat`` (the flat chunk
   schedule; :func:`flat_index` is that schedule, which the tests hold
@@ -61,6 +61,7 @@ from sgc_tpu_torch.graph.sparse import SparseGraph, host
 from sgc_tpu_torch.ops import kernels
 from sgc_tpu_torch.ops.spmm import bf16_round, check_precision, launch_csr
 from sgc_tpu_torch.utils.buildcache import placed
+from sgc_tpu_torch.utils.profiling import count
 
 DEFAULT_ROW_BLOCK = 2048     # R
 DEFAULT_STRIPE = 2048        # W
@@ -70,8 +71,6 @@ DEFAULT_CHUNK = 1024         # C (slots per chunk)
 # gather to ~2.5 GB at F = 602
 PLAIN_SLOTS = 1 << 20
 
-# launches of kernel C by the tiled wrappers
-LAUNCHES = 0
 
 
 @dataclasses.dataclass(frozen=True)
@@ -335,7 +334,6 @@ def _apply(tiled: TiledGraph, x: torch.Tensor, args: TiledArgs,
         raise ValueError(f"args on {args.device}, x on {x.device}")
     if x.device.type == "cpu":
         return spmm_tiled_plain(tiled, x, precision)
-    global LAUNCHES
     kernels.require_cuda_f32(x, "x")
     for name, t, dt in (("row_ptr", args.row_ptr, torch.int32),
                         ("cols", args.cols, torch.int32),
@@ -356,7 +354,7 @@ def _apply(tiled: TiledGraph, x: torch.Tensor, args: TiledArgs,
     xk = x.to(torch.bfloat16) if precision == "bf16" else x
     launch_csr(args.row_ptr, args.cols, args.vals, xk, None, out,
                x_bf16=precision == "bf16")
-    LAUNCHES += 1
+    count("launch.tiled_spmm")
     return out
 
 

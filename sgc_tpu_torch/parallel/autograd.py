@@ -55,8 +55,6 @@ import dataclasses
 import numpy as np
 import torch
 
-from sgc_tpu_torch.ops import spmm as spmm_ops
-from sgc_tpu_torch.ops import spmm_blockdense as bd_ops
 from sgc_tpu_torch.ops.spmm import scatter_graph
 from sgc_tpu_torch.ops.spmm_blockdense import (
     BlockDenseArgs,
@@ -72,24 +70,12 @@ from sgc_tpu_torch.parallel.halo import (
     segment_spmm,
 )
 from sgc_tpu_torch.parallel.mesh import NODES_AXIS, Mesh
+from sgc_tpu_torch.utils.profiling import within
 
-# kernel launches made by the sharded hops' backwards (also counted in
-# ops.spmm_blockdense.LAUNCHES and ops.spmm.LAUNCHES with every other)
-A_BACKWARD_LAUNCHES = 0
-B_BACKWARD_LAUNCHES = 0
-
-
-class _CountBackward:
-    """Adds the kernel launches made inside the block to the backward
-    counters."""
-
-    def __enter__(self):
-        self._a, self._b = bd_ops.LAUNCHES, spmm_ops.LAUNCHES
-
-    def __exit__(self, *exc):
-        global A_BACKWARD_LAUNCHES, B_BACKWARD_LAUNCHES
-        A_BACKWARD_LAUNCHES += bd_ops.LAUNCHES - self._a
-        B_BACKWARD_LAUNCHES += spmm_ops.LAUNCHES - self._b
+# kernel launches made by the sharded hops' backwards, sub-counts of
+# launch.blockdense_cells and launch.csr_spmm
+_BACKWARD = {"launch.blockdense_cells": "within.blockdense_cells_backward",
+             "launch.csr_spmm": "within.csr_spmm_backward"}
 
 
 # ------------------------------------------------------ transposed operands
@@ -211,7 +197,7 @@ class AllGatherHopFn(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         mesh, t = ctx.mesh, ctx.transposed()
-        with _CountBackward():
+        with within(_BACKWARD):
             g_full = segment_spmm(t.edges, g.contiguous(), ctx.edge_chunk)
         # the all-gather's transpose: block q goes to rank q, and the P
         # blocks received are summed in rank order
@@ -241,7 +227,7 @@ class HaloHopFn(torch.autograd.Function):
     def backward(ctx, g):
         mesh, t, ec, R = ctx.mesh, ctx.transposed(), ctx.edge_chunk, ctx.rows
         g = g.contiguous()
-        with _CountBackward():
+        with within(_BACKWARD):
             if t.table is not None:
                 g_cat = segment_spmm(t.table, g, ec)
                 pending = mesh.all_to_all(NODES_AXIS, g_cat[R:],
@@ -273,7 +259,7 @@ class BlockDenseHopFn(torch.autograd.Function):
     def backward(ctx, g):
         mesh, t, prec = ctx.mesh, ctx.transposed(), ctx.precision
         g = g.contiguous()
-        with _CountBackward():
+        with within(_BACKWARD):
             g_halo = segment_spmm(t.boundary, g,
                                   dense=_cells_t(t.cells_bnd, g, prec))
             pending = mesh.all_to_all(NODES_AXIS, g_halo, async_op=True)

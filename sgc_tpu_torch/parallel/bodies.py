@@ -34,11 +34,8 @@ from pathlib import Path
 import numpy as np
 import torch
 
-from sgc_tpu_torch.ops import autograd
 from sgc_tpu_torch.ops import spmm as spmm_ops
 from sgc_tpu_torch.ops import spmm_blockdense as bd_ops
-from sgc_tpu_torch.ops import spmm_tiled
-from sgc_tpu_torch.parallel import autograd as sharded_autograd
 from sgc_tpu_torch.parallel import blockdense as bd_mod
 from sgc_tpu_torch.parallel import halo as halo_mod
 from sgc_tpu_torch.parallel.debug import (
@@ -70,30 +67,20 @@ from sgc_tpu_torch.parallel.train import (
     place_node_targets,
     sharded_state_from_jax,
 )
-from sgc_tpu_torch.utils.profiling import sync
+from sgc_tpu_torch.utils.profiling import read_counts, sync, zero_counts
 
-# every kernel's launch counter, by its name in the chip smoke's kernels
-# line (the sharded path launches A and B only; the rest read 0)
-COUNTERS = {"blockdense_cells": (bd_ops, "LAUNCHES"),
-            "csr_spmm": (spmm_ops, "LAUNCHES"),
-            "tiled_spmm": (spmm_tiled, "LAUNCHES"),
-            "sddmm": (spmm_ops, "SDDMM_LAUNCHES"),
-            "csr_spmm_transposed": (autograd, "TRANSPOSED_LAUNCHES"),
+# every kernel's launch counter in utils/profiling.py's registry, by its
+# name in the chip smoke's kernels line (the sharded path launches A and
+# B only; the rest read 0)
+COUNTERS = {"blockdense_cells": "launch.blockdense_cells",
+            "csr_spmm": "launch.csr_spmm",
+            "tiled_spmm": "launch.tiled_spmm",
+            "sddmm": "launch.sddmm",
+            "csr_spmm_transposed": "within.csr_spmm_transposed",
             # the sharded hops' backwards (parallel/autograd.py), also
             # counted in blockdense_cells and csr_spmm
-            "blockdense_cells_backward": (sharded_autograd,
-                                          "A_BACKWARD_LAUNCHES"),
-            "csr_spmm_backward": (sharded_autograd, "B_BACKWARD_LAUNCHES")}
-
-
-def zero_counts() -> None:
-    for mod, attr in COUNTERS.values():
-        setattr(mod, attr, 0)
-
-
-def read_counts() -> dict:
-    return {name: getattr(mod, attr)
-            for name, (mod, attr) in COUNTERS.items()}
+            "blockdense_cells_backward": "within.blockdense_cells_backward",
+            "csr_spmm_backward": "within.csr_spmm_backward"}
 
 
 def rel_err(got: torch.Tensor, want: torch.Tensor) -> tuple[float, float]:
@@ -451,7 +438,7 @@ def _form(mesh, pg, xs, kw, degree, tolerance, exchange, timed) -> tuple:
     with hold_launches(record):
         y = propagate_sharded(mesh, pg, xs, degree, **kw)
     sync(dev)
-    launches = read_counts()
+    launches = read_counts(COUNTERS)
     sections = {"held_s": time.perf_counter() - t0}
     worst = _worst(record)
     for name, (_, r) in worst.items():
@@ -704,7 +691,7 @@ def smoke_world_of_one(plan_dir: str, cfg: dict) -> dict:
         zero_counts()
         hop_s, y = _timed(lambda: spmm_sharded(
             mesh, pg, xs, blockdense=bd, precision="f32"), mesh.device)
-        launches = read_counts()
+        launches = read_counts(COUNTERS)
         tr = _train(mesh, pg, x, labels, idx_train, cfg["state"], 1,
                     degree=cfg["degree"], lr=cfg["lr"],
                     weight_decay=cfg["weight_decay"], halo=ho)
@@ -1197,7 +1184,7 @@ def held_gcn_step(mesh, pg, plan: dict, state, xs, y, m) -> dict:
     return {"forward": _worst(record[:n_fwd]),
             "backward": _worst(record[n_fwd:]),
             "held": {"forward": n_fwd, "backward": len(record) - n_fwd},
-            "launches": read_counts(), "grads": grads}
+            "launches": read_counts(COUNTERS), "grads": grads}
 
 
 def held_gcn_step_check(plan_dir: str, n_parts: int, precision: str,
@@ -1279,7 +1266,7 @@ def _part(out: dict, name: str, t0: float, **extra) -> None:
     """Close a smoke part: its seconds and this rank's launches since the
     counters were zeroed."""
     out["parts"][name] = {"seconds": time.perf_counter() - t0,
-                          "launches": read_counts(), **extra}
+                          "launches": read_counts(COUNTERS), **extra}
 
 
 def _training_fits(root: Path, cfg: dict, mesh, out: dict) -> None:
@@ -1471,7 +1458,7 @@ def _training_inductive(root: Path, cfg: dict, mesh, out: dict) -> None:
         ev, tr = inductive_dual_propagate(mesh, dual, x, cfg["degree"])
         sync(mesh.device)
         hops_s = time.perf_counter() - t0
-        launches = read_counts()
+        launches = read_counts(COUNTERS)
         errs = {}
         for name, tile, n, ref in (
                 ("eval", ev, pf.n_rows, f"ref_{form}.npy"),
@@ -1551,7 +1538,7 @@ def smoke_training_world_of_one(root: str, cfg: dict) -> dict:
             degree=cfg["degree"], epochs=cfg["one_epochs"], lr=cfg["lr"],
             weight_decay=cfg["weight_decay"], seed=cfg["seed"], plan=plan))
         run["seconds"] = time.perf_counter() - t0
-        run["launches"] = read_counts()
+        run["launches"] = read_counts(COUNTERS)
         runs.append(run)
     n, g = runs
     same = bool(np.array_equal(n["w"], g["w"]) and np.array_equal(

@@ -188,7 +188,7 @@ def fit_rank(root: str, cfg: dict) -> dict:
     from sgc_tpu_torch.parallel.mesh import make_mesh
     from sgc_tpu_torch.parallel.partition import _round_up
     from sgc_tpu_torch.parallel.staging import sharding_report
-    from sgc_tpu_torch.utils.profiling import sync
+    from sgc_tpu_torch.utils.profiling import read_counts, sync, zero_counts
 
     graph = load_host(Path(root) / "graph")
     world = torch.distributed.get_world_size()
@@ -197,7 +197,7 @@ def fit_rank(root: str, cfg: dict) -> dict:
     prov = class_signal_features(n, f, N_CLASSES)
     labels = prov.labels(0, n)
     record = []
-    bodies.zero_counts()
+    zero_counts()
     t0 = time.perf_counter()
     if cfg["trace_rss"]:
         start_rss_tracer(t0, f" rank {mesh.rank}")
@@ -220,7 +220,8 @@ def fit_rank(root: str, cfg: dict) -> dict:
     out = {"rank": mesh.rank, "fit_s": fit_s, "peak_rss_gib": rss_gib(),
            "sharding": sharding_report(mesh, tile, mesh.device),
            "report": dataclasses.asdict(report),
-           "launches": bodies.read_counts(), "held": held_errors(record)}
+           "launches": read_counts(bodies.COUNTERS),
+           "held": held_errors(record)}
     if mesh.rank == 0:
         out.update(w=params.w.cpu().numpy(), b=params.b.cpu().numpy())
     return out

@@ -73,7 +73,7 @@ def stages_rank(root: str, cfg: dict) -> dict:
         make_sharded_train_step,
         place_node_targets,
     )
-    from sgc_tpu_torch.utils.profiling import sync
+    from sgc_tpu_torch.utils.profiling import read_counts, sync, zero_counts
 
     t0 = cfg["t0"]
     out = []
@@ -95,14 +95,14 @@ def stages_rank(root: str, cfg: dict) -> dict:
     x = stage_rows(mesh, prov, n_rows_padded=pg.n_rows_padded)
     mark(f"staged x {tuple(x.shape)}")
     record = []
-    bodies.zero_counts()
+    zero_counts()
     with (bodies.hold_launches(record) if cfg.get("hold")
           else contextlib.nullcontext()):
         h1 = spmm_sharded(mesh, pg, x, halo=halo)
         mark("hop1")
         h2 = spmm_sharded(mesh, pg, h1, halo=halo)
         mark("hop2")
-    launches = bodies.read_counts()
+    launches = read_counts(bodies.COUNTERS)
     del h1, x
     labels = prov.labels(0, n)
     idx_train = np.arange(0, n, 10)

@@ -12,6 +12,8 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from sgc_tpu_torch.utils.profiling import host_sync, span
+
 
 @torch.no_grad()
 def newton_linear_fit(
@@ -33,6 +35,12 @@ def newton_linear_fit(
     Returns ``(w, b, loss)``; ``b`` is None iff ``b0`` is None. The loss
     includes ``0.5 * wd * ||W||^2``.
 
+    Spans of the recorder (utils/profiling.py): ``head.factor`` (``Z``,
+    the Gram matrix, the ridge, the factor, the targets), then a
+    ``head.step`` a step with its ``head.search`` (the batched loss over
+    the step grid, the argmin, the update) inside. Each read that blocks
+    the host on a card counts as a ``host_sync``.
+
     ``row_sum`` completes every sum over the rows (the Gram matrix, the
     gradient, the weights' total and the losses): for a row-sharded fit
     it sums this rank's partial over the ranks that hold the other rows
@@ -44,34 +52,43 @@ def newton_linear_fit(
     f32 = torch.float32
     dev = features.device
 
-    if has_bias:
-        Z = torch.cat([features, torch.ones((n, 1), dtype=f32, device=dev)],
-                      dim=1)
-        theta0 = torch.cat([w0, b0[None, :]], dim=0)
-    else:
-        Z = features
-        theta0 = w0
-    d = Z.shape[1]
+    with span("head.factor", dev):
+        if has_bias:
+            Z = torch.cat([features,
+                           torch.ones((n, 1), dtype=f32, device=dev)], dim=1)
+            theta0 = torch.cat([w0, b0[None, :]], dim=0)
+        else:
+            Z = features
+            theta0 = w0
+        d = Z.shape[1]
 
-    sw = (torch.ones((n,), dtype=f32, device=dev) if sample_weights is None
-          else sample_weights.to(f32))
-    if row_sum is None:
-        def row_sum(t):
-            return t
-    sw_sum = row_sum(sw.sum())
-    curv = 0.25 if binary else 0.5
-    A = row_sum(Z.T @ (Z * sw[:, None])) / sw_sum
-    # wd penalizes W only; the bias keeps a small ridge so the factor
-    # stays positive definite when wd == 0
-    ridge = 1e-6 * torch.trace(A) / d
-    diag = torch.full((d,), float(ridge), dtype=f32, device=dev) + weight_decay
-    if has_bias:
-        diag[-1] = ridge
-    factor = torch.linalg.cholesky(curv * A + torch.diag(diag))
+        sw = (torch.ones((n,), dtype=f32, device=dev)
+              if sample_weights is None else sample_weights.to(f32))
+        if row_sum is None:
+            def row_sum(t):
+                return t
+        sw_sum = row_sum(sw.sum())
+        curv = 0.25 if binary else 0.5
+        A = row_sum(Z.T @ (Z * sw[:, None])) / sw_sum
+        # wd penalizes W only; the bias keeps a small ridge so the factor
+        # stays positive definite when wd == 0
+        ridge = 1e-6 * torch.trace(A) / d
+        diag = torch.full((d,), float(ridge), dtype=f32,
+                          device=dev) + weight_decay
+        host_sync(dev)                              # float(ridge)
+        if has_bias:
+            diag[-1] = ridge
+        factor = torch.linalg.cholesky(curv * A + torch.diag(diag))
+        host_sync(dev)                 # the factor's error flag, read back
 
-    y_idx = labels.long()
-    y = (y_idx.to(f32)[:, None] if binary
-         else F.one_hot(y_idx, C).to(f32))                 # [n, C]
+        y_idx = labels.long()
+        y = (y_idx.to(f32)[:, None] if binary
+             else F.one_hot(y_idx, C).to(f32))                 # [n, C]
+        # t = 0 keeps the momentum point; large t exploits the bound's
+        # slack
+        ts = torch.tensor([0.0, 0.25, 0.5, 1.0, 2.0, 4.0, 8.0, 16.0],
+                          dtype=f32, device=dev)
+        host_sync(dev)                 # a copy from pageable host memory
 
     def w_of(theta):
         return theta[..., :-1, :] if has_bias else theta
@@ -91,28 +108,29 @@ def newton_linear_fit(
     def probs(logits):
         return torch.sigmoid(logits) if binary else torch.softmax(logits, -1)
 
-    # t = 0 keeps the momentum point; large t exploits the bound's slack
-    ts = torch.tensor([0.0, 0.25, 0.5, 1.0, 2.0, 4.0, 8.0, 16.0], dtype=f32,
-                      device=dev)
     theta, theta_prev = theta0, theta0
     loss = None
     for k in range(1, steps + 1):
-        mom = (k - 1.0) / (k + 2.0)
-        v = theta + mom * (theta - theta_prev)
-        logits = Z @ v
-        G = row_sum(Z.T @ ((probs(logits) - y) * sw[:, None])) / sw_sum
-        if has_bias:
-            G = torch.cat([G[:-1] + weight_decay * w_of(v), G[-1:]], dim=0)
-        else:
-            G = G + weight_decay * v
-        D = torch.cholesky_solve(G, factor)
-        ZD = Z @ D
-        tb = ts[:, None, None]
-        losses = batched_loss(logits[None] - tb * ZD[None],
-                              w_of(v)[None] - tb * w_of(D)[None])
-        best = torch.argmin(losses)
-        theta, theta_prev = v - ts[best] * D, theta
-        loss = losses[best]
+        with span("head.step", dev):
+            mom = (k - 1.0) / (k + 2.0)
+            v = theta + mom * (theta - theta_prev)
+            logits = Z @ v
+            G = row_sum(Z.T @ ((probs(logits) - y) * sw[:, None])) / sw_sum
+            if has_bias:
+                G = torch.cat([G[:-1] + weight_decay * w_of(v), G[-1:]],
+                              dim=0)
+            else:
+                G = G + weight_decay * v
+            D = torch.cholesky_solve(G, factor)
+            ZD = Z @ D
+            with span("head.search", dev):
+                tb = ts[:, None, None]
+                losses = batched_loss(logits[None] - tb * ZD[None],
+                                      w_of(v)[None] - tb * w_of(D)[None])
+                best = torch.argmin(losses)
+                theta, theta_prev = v - ts[best] * D, theta
+                loss = losses[best]
+                host_sync(dev, 2)           # ts[best] and losses[best]
     w = w_of(theta)
     b = theta[-1] if has_bias else None
     return w, b, loss

@@ -14,10 +14,30 @@ sgc_tpu/utils/profiling.py).
 * ``effective_bandwidth_gbs``; ``stack_sampler``, a daemon-thread sampler
   of the main thread's stack for attributing host spans.
 * ``ScalarWriter`` logs scalar curves (``train_regression(writer=)``).
+* The recorder of spans and counters:
+
+  - ``span(name, device)`` marks a layer's work. Tracing is on exactly
+    while a ``torch.profiler`` session is active; off, a span is one
+    check of the profiler's flag and a shared do-nothing object. On, it
+    opens a ``record_function`` range of its name (so the profiler's
+    Chrome trace shows it beside its kernels) and keeps its parent (the
+    span open on this thread), its host start and end
+    (``perf_counter_ns``) and, on a CUDA device, a pair of CUDA events
+    on the current stream. Nothing synchronizes until the summary is
+    read.
+  - ``count(name, n)`` adds to an always-on total, and while tracing is
+    on to a windowed total too. Every hand-kernel launch is counted
+    once as ``launch.<C entry>``; sub-counts of launches counted there
+    take ``within.<...>`` (:class:`within`); ``host_sync`` counts the
+    host's blocks on a CUDA device (:func:`host_sync`, :func:`sync`).
+  - ``read_counts`` / ``zero_counts`` read and clear the always-on
+    totals; ``trace_summary`` / ``reset_trace`` read and clear what was
+    recorded while tracing was on.
 """
 
 from __future__ import annotations
 
+import collections
 import contextlib
 import json
 import threading
@@ -26,15 +46,198 @@ from dataclasses import dataclass, field
 from pathlib import Path
 
 import torch
+import torch.autograd.profiler as _autograd_profiler
+
+# the recorder's state: counters always on and in the traced window,
+# the spans closed while tracing was on, and each thread's open spans
+_COUNTS: collections.Counter = collections.Counter()
+_WINDOW: collections.Counter = collections.Counter()
+_SPANS: list = []
+_OPEN = threading.local()
+# counter name -> the sub-counts open on it (class within)
+_WITHIN: dict = {}
+
+
+class _Off:
+    """The span while tracing is off: one shared object that does
+    nothing."""
+
+    __slots__ = ()
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        return False
+
+
+_OFF = _Off()
+
+
+class _Span:
+    """One span recorded while tracing is on (see :func:`span`)."""
+
+    __slots__ = ("name", "parent", "t0", "t1", "events", "_range")
+
+    def __init__(self, name: str, device):
+        self.name = name
+        self.parent = None
+        self.t0 = self.t1 = 0
+        self.events = None
+        if device is not None and torch.device(device).type == "cuda":
+            self.events = (torch.cuda.Event(enable_timing=True),
+                           torch.cuda.Event(enable_timing=True),
+                           torch.cuda.current_stream(device))
+        self._range = torch.profiler.record_function(name)
+
+    def __enter__(self):
+        stack = getattr(_OPEN, "stack", None)
+        if stack is None:
+            stack = _OPEN.stack = []
+        self.parent = stack[-1] if stack else None
+        stack.append(self)
+        self._range.__enter__()
+        if self.events is not None:
+            self.events[0].record(self.events[2])
+        self.t0 = time.perf_counter_ns()
+        return self
+
+    def __exit__(self, exc_type=None, exc=None, tb=None):
+        self.t1 = time.perf_counter_ns()
+        if self.events is not None:
+            self.events[1].record(self.events[2])
+        self._range.__exit__(exc_type, exc, tb)
+        _OPEN.stack.pop()
+        _SPANS.append(self)
+        return False
+
+    def device_ms(self) -> float | None:
+        """The span's device time from its event pair (waits for the
+        end event); None off a CUDA device."""
+        if self.events is None:
+            return None
+        self.events[1].synchronize()
+        return self.events[0].elapsed_time(self.events[1])
+
+    @property
+    def host_ms(self) -> float:
+        return (self.t1 - self.t0) * 1e-6
+
+
+def span(name: str, device=None):
+    """A context manager that marks a layer's work on ``device`` (CUDA
+    events are recorded only on a CUDA device). While tracing is off it
+    costs one check of the profiler's flag and returns a shared object
+    that does nothing."""
+    if not _autograd_profiler._is_profiler_enabled:
+        return _OFF
+    return _Span(name, device)
+
+
+def count(name: str, n: int = 1) -> None:
+    """Add ``n`` to counter ``name``: to its always-on total, and while
+    tracing is on to its windowed total; likewise to every sub-count
+    that an open :class:`within` adds to ``name``."""
+    _COUNTS[name] += n
+    if _autograd_profiler._is_profiler_enabled:
+        _WINDOW[name] += n
+    if _WITHIN:
+        for sub in _WITHIN.get(name, ()):
+            _COUNTS[sub] += n
+            if _autograd_profiler._is_profiler_enabled:
+                _WINDOW[sub] += n
+
+
+class within:
+    """While open, each count of a counter that ``subs`` names counts
+    also as its sub-count: ``within({"launch.csr_spmm":
+    "within.csr_spmm_transposed"})`` around the products over a
+    transpose."""
+
+    __slots__ = ("subs",)
+
+    def __init__(self, subs: dict):
+        self.subs = subs
+
+    def __enter__(self):
+        for name, sub in self.subs.items():
+            _WITHIN.setdefault(name, []).append(sub)
+        return self
+
+    def __exit__(self, *exc):
+        for name, sub in self.subs.items():
+            open_subs = _WITHIN[name]
+            open_subs.remove(sub)
+            if not open_subs:
+                del _WITHIN[name]
+        return False
+
+
+def host_sync(device, n: int = 1) -> None:
+    """Count ``n`` blocks of the host on ``device`` under ``host_sync``:
+    a read of a device value (``float()``, ``.item()``, indexing with a
+    0-d device tensor), a library call that reads an error flag back, a
+    copy from pageable host memory, a synchronize. Counts only on a
+    CUDA device, where the host waits."""
+    if torch.device(device).type == "cuda":
+        count("host_sync", n)
+
+
+def read_counts(names=None) -> dict:
+    """The always-on totals: every counter, or those ``names`` gives (a
+    list of counter names, or a mapping of labels to counter names,
+    keyed then by label); a counter never counted reads 0."""
+    if names is None:
+        return dict(_COUNTS)
+    if isinstance(names, dict):
+        return {label: _COUNTS[c] for label, c in names.items()}
+    return {c: _COUNTS[c] for c in names}
+
+
+def zero_counts() -> None:
+    """Clear the always-on totals (the windowed ones stay)."""
+    _COUNTS.clear()
+
+
+def recorded_spans() -> list:
+    """The spans closed while tracing was on, in the order they closed
+    (each with ``name``, ``parent`` span, ``t0`` / ``t1`` in host ns,
+    ``host_ms`` and ``device_ms()``)."""
+    return list(_SPANS)
+
+
+def trace_summary() -> dict:
+    """What was recorded while tracing was on: ``spans``, per name the
+    number of spans, their device ms (the sum of their event pairs; None
+    where none ran on a CUDA device) and host ms; ``counts``, per
+    counter the windowed total. Waits for the spans' end events."""
+    spans: dict = {}
+    for s in _SPANS:
+        e = spans.setdefault(s.name, {"count": 0, "device_ms": None,
+                                      "host_ms": 0.0})
+        e["count"] += 1
+        e["host_ms"] += s.host_ms
+        ms = s.device_ms()
+        if ms is not None:
+            e["device_ms"] = (e["device_ms"] or 0.0) + ms
+    return {"spans": spans, "counts": dict(_WINDOW)}
+
+
+def reset_trace() -> None:
+    """Clear the spans and the windowed counts."""
+    _SPANS.clear()
+    _WINDOW.clear()
 
 
 def sync(device=None) -> None:
     """Wait for every queued kernel on ``device`` (a no-op on the CPU),
-    so a host clock read after it closes the timed work."""
+    so a host clock read after it closes the timed work; counted as a
+    ``host_sync`` on a card."""
     dev = torch.device(device) if device is not None else None
     if dev is None or dev.type == "cuda":
         if torch.cuda.is_available():
             torch.cuda.synchronize(dev)
+            count("host_sync")
 
 
 def _tensors(tree):

@@ -27,6 +27,7 @@ import torch
 from sgc_tpu_torch.graph.sparse import SparseGraph as PortGraph
 from sgc_tpu_torch.ops import spmm as port_spmm
 from sgc_tpu_torch.ops import spmm_blockdense as port_bd
+from sgc_tpu_torch.utils.profiling import read_counts
 
 TOL = 1e-5
 
@@ -53,6 +54,16 @@ def community_coo(seed, n, block, n_dense_blocks, per_block, n_sparse):
     return rows, cols, vals
 
 
+# kernel D's launches and kernel B's over a transpose
+D_AND_TRANSPOSED = ("launch.sddmm", "within.csr_spmm_transposed")
+
+
+def counted(*names) -> int:
+    """The registry's always-on total of the counters ``names`` (a kernel's
+    launches are ``launch.<C entry>``)."""
+    return sum(read_counts(names).values())
+
+
 @pytest.fixture
 def cuda():
     if not torch.cuda.is_available():
@@ -77,10 +88,10 @@ def test_cuda_dense_term_matches_plain(cuda, super_rows):
     split, x = _main_path_like_split(super_rows)
     args = port_bd.blockdense_device_args(split, cuda)
     xd = x.to(cuda)
-    before = port_bd.LAUNCHES
+    before = counted("launch.blockdense_cells")
     got = port_bd.apply_cells(split, args, xd)
     again = port_bd.apply_cells(split, args, xd)
-    assert port_bd.LAUNCHES == before + 2
+    assert counted("launch.blockdense_cells") == before + 2
     want = port_bd.apply_cells_plain(split, args, xd)
     torch.cuda.synchronize()
     assert torch.equal(got, again)          # deterministic
@@ -105,10 +116,10 @@ def test_cuda_dense_term_precision_matches_plain(cuda, precision, super_rows,
         assert split.n_slots > split.n_cells         # holes in the index
     args = port_bd.blockdense_device_args(split, cuda)
     xd = x.to(cuda)
-    before = port_bd.LAUNCHES
+    before = counted("launch.blockdense_cells")
     got = port_bd.apply_cells(split, args, xd, precision)
     again = port_bd.apply_cells(split, args, xd, precision)
-    assert port_bd.LAUNCHES == before + 2
+    assert counted("launch.blockdense_cells") == before + 2
     want = port_bd.apply_cells_plain(split, args, xd, precision)
     torch.cuda.synchronize()
     assert torch.equal(got, again)
@@ -129,10 +140,10 @@ def test_cuda_remainder_matches_plain(cuda):
     args = port_bd.blockdense_device_args(split, cuda)
     xd = x.to(cuda)
     dense = torch.randn(split.n_rows, x.shape[1], device=cuda)
-    before = port_spmm.LAUNCHES
+    before = counted("launch.csr_spmm")
     got = port_spmm.spmm_segment(args.rest, xd, dense)
     again = port_spmm.spmm_segment(args.rest, xd, dense)
-    assert port_spmm.LAUNCHES == before + 2
+    assert counted("launch.csr_spmm") == before + 2
     want = port_spmm.spmm_segment_plain(args.rest, xd, dense)
     torch.cuda.synchronize()
     assert torch.equal(got, again)
@@ -206,10 +217,10 @@ def test_cuda_tiled_spmm_matches_plain(cuda, entry, n_rows, n_cols, f, R,
     xd = x.to(cuda)
     fn = (port_tiled.spmm_tiled_flat if entry == "flat"
           else port_tiled.spmm_tiled_stripes)
-    before = port_tiled.LAUNCHES
+    before = counted("launch.tiled_spmm")
     got = fn(tiled, xd, args)
     again = fn(tiled, xd, args)
-    assert port_tiled.LAUNCHES == before + 2
+    assert counted("launch.tiled_spmm") == before + 2
     want = port_tiled.spmm_tiled_plain(tiled, xd)
     torch.cuda.synchronize()
     assert torch.equal(got, again)          # deterministic
@@ -249,9 +260,9 @@ def test_cuda_tiled_spmm_empty_graph_and_row_blocks(cuda):
                                np.zeros(0, np.float32), 700, 700)
     tiled = port_tiled.tile_graph(empty, 512, 512, 1024)
     x = torch.randn(700, 40, device=cuda)
-    before = port_tiled.LAUNCHES
+    before = counted("launch.tiled_spmm")
     out = port_tiled.spmm_tiled_flat(tiled, x)
-    assert port_tiled.LAUNCHES == before       # no launch for no edges
+    assert counted("launch.tiled_spmm") == before   # no launch, no edges
     assert out.shape == (700, 40) and not out.any()
     # edges only in the first row block: the others come back zero
     rng = np.random.default_rng(3)
@@ -268,17 +279,19 @@ def test_cuda_tiled_spmm_empty_graph_and_row_blocks(cuda):
 @pytest.mark.parametrize("min_fill", [0.5, 2.0])   # 2.0: no dense part
 def test_cuda_hybrid_split_matches_segment(cuda, min_fill):
     from sgc_tpu_torch.ops import spmm_hybrid as port_hybrid
-    from sgc_tpu_torch.ops import spmm_tiled as port_tiled
 
     g, _, x = _tiled_case(1300, 1300, 602, 512, 512, 1024, seed=11)
     split = port_hybrid.split_dense_cells(g, 602, 512, 512, 1024,
                                           min_fill=min_fill)
     assert (split.tiled is None) == (min_fill > 1)
     xd = x.to(cuda)
-    before = (port_tiled.LAUNCHES, port_spmm.LAUNCHES)
+    names = ("launch.tiled_spmm", "launch.csr_spmm")
+    before = read_counts(names)
     got = port_hybrid.spmm_hybrid_split(split, xd)
-    assert port_spmm.LAUNCHES == before[1] + 1
-    assert port_tiled.LAUNCHES == before[0] + (split.tiled is not None)
+    after = read_counts(names)
+    assert after["launch.csr_spmm"] == before["launch.csr_spmm"] + 1
+    assert after["launch.tiled_spmm"] == (before["launch.tiled_spmm"]
+                                          + (split.tiled is not None))
     want = port_spmm.spmm_segment(g.to(cuda), xd)
     assert_close_rel(got.cpu().numpy(), want.cpu().numpy())
 
@@ -300,10 +313,10 @@ def test_cuda_sddmm_matches_plain(cuda, n_rows, n_cols, f):
         rng.standard_normal((n_rows, f)).astype(np.float32)).to(cuda)
     b = torch.from_numpy(
         rng.standard_normal((n_cols, f)).astype(np.float32)).to(cuda)
-    before = port_spmm.SDDMM_LAUNCHES
+    before = counted("launch.sddmm")
     got = port_spmm.sddmm(g, a, b)
     again = port_spmm.sddmm(g, a, b)
-    assert port_spmm.SDDMM_LAUNCHES == before + 2
+    assert counted("launch.sddmm") == before + 2
     want = port_spmm.sddmm_plain(g, a, b)
     torch.cuda.synchronize()
     assert torch.equal(got, again)
@@ -328,10 +341,10 @@ def test_cuda_tiled_spmm_bf16_matches_plain(cuda, entry, f):
     xd = x.to(cuda)
     fn = (port_tiled.spmm_tiled_flat if entry == "flat"
           else port_tiled.spmm_tiled_stripes)
-    before = port_tiled.LAUNCHES
+    before = counted("launch.tiled_spmm")
     got = fn(tiled, xd, args, "bf16")
     again = fn(tiled, xd, args, "bf16")
-    assert port_tiled.LAUNCHES == before + 2
+    assert counted("launch.tiled_spmm") == before + 2
     want = port_tiled.spmm_tiled_plain(tiled, xd, "bf16")
     torch.cuda.synchronize()
     assert torch.equal(got, again)
@@ -402,10 +415,10 @@ def test_cuda_sddmm_precisions_match_plain(cuda, precision, kind, n_rows,
     g, a, b = _sddmm_case(kind, n_rows, n_cols, f, seed=n_rows + f)
     g = g.to(cuda)
     a, b = a.to(cuda), b.to(cuda)
-    before = port_spmm.SDDMM_LAUNCHES
+    before = counted("launch.sddmm")
     got = port_spmm.sddmm(g, a, b, precision)
     again = port_spmm.sddmm(g, a, b, precision)
-    assert port_spmm.SDDMM_LAUNCHES == before + 2
+    assert counted("launch.sddmm") == before + 2
     _check_sddmm(g, got, again, port_spmm.sddmm_plain(g, a, b, precision))
 
 
@@ -467,18 +480,18 @@ def test_cuda_sgc_precompute_impl_matches_segment(cuda, impl, out_rows):
     ``tiled`` and ``hybrid``, at 1e-2 for ``blockdense`` (bf16 cells and,
     at its default precision, bf16 x); one ``blockdense`` hop is also held
     against its plain version on the CPU at 1e-5."""
-    from sgc_tpu_torch.ops import spmm_tiled as port_tiled
     from sgc_tpu_torch.ops.propagate import sgc_precompute
 
     g, x, idx = _precompute_case()
     gd, xd = g.to(cuda), x.to(cuda)
     rows = idx if out_rows else None
     want, _ = sgc_precompute(xd, gd, 2, impl="segment", out_rows=rows)
-    mods = {"blockdense": port_bd, "tiled": port_tiled, "segment": port_spmm}
-    before = {k: m.LAUNCHES for k, m in mods.items()}
+    mods = {"blockdense": "launch.blockdense_cells",
+            "tiled": "launch.tiled_spmm", "segment": "launch.csr_spmm"}
+    before = read_counts(mods)
     got, seconds = sgc_precompute(xd, gd, 2, impl=impl, out_rows=rows)
     torch.cuda.synchronize()
-    launched = {k: m.LAUNCHES - before[k] for k, m in mods.items()}
+    launched = {k: n - before[k] for k, n in read_counts(mods).items()}
     expect = {"tiled": ("tiled",), "hybrid": ("tiled", "segment"),
               "blockdense": ("blockdense", "segment")}[impl]
     assert all(launched[k] >= 1 for k in expect), launched
@@ -552,14 +565,14 @@ def test_cuda_spmm_segment_fn_backward_matches_cpu(cuda, f):
         xd = x.to(dev).requires_grad_(True)
         runs = []
         for _ in range(2):
-            before = (port_spmm.SDDMM_LAUNCHES, port_ag.TRANSPOSED_LAUNCHES)
+            before = read_counts(D_AND_TRANSPOSED)
             out = port_ag.SpmmSegmentFn.apply(gd, vals, xd)
             dv, dx = torch.autograd.grad((out * w.to(dev)).sum(), (vals, xd))
             runs.append((dv, dx))
         if dev != "cpu":
             torch.cuda.synchronize()
-            assert (port_spmm.SDDMM_LAUNCHES - before[0],
-                    port_ag.TRANSPOSED_LAUNCHES - before[1]) == (1, 1)
+            assert read_counts(D_AND_TRANSPOSED) == {
+                k: n + 1 for k, n in before.items()}
             for a, b in zip(*runs):
                 assert torch.equal(a, b)
         outs[str(dev)] = [t.cpu().numpy() for t in runs[0]]
@@ -576,13 +589,14 @@ def test_cuda_transposed_launches_count_launches_only(cuda, f):
 
     g, _ = _grad_case()
     gd = g.to(cuda)
-    before = (port_spmm.LAUNCHES, port_ag.TRANSPOSED_LAUNCHES)
+    names = ("launch.csr_spmm", "within.csr_spmm_transposed")
+    before = read_counts(names)
     out = port_ag.spmm_transposed(gd, gd.vals,
                                   torch.ones((g.n_rows, f), device=cuda))
     torch.cuda.synchronize()
     assert out.shape == (g.n_cols, f)
-    assert (port_spmm.LAUNCHES - before[0],
-            port_ag.TRANSPOSED_LAUNCHES - before[1]) == (int(f > 0),) * 2
+    assert read_counts(names) == {k: n + int(f > 0)
+                                  for k, n in before.items()}
 
 
 @pytest.mark.cuda
@@ -635,7 +649,6 @@ def test_cuda_gat_grads_match_cpu(cuda):
     the same bits; the backward launched kernel D and the transposed
     kernel B."""
     from sgc_tpu_torch.models import gat
-    from sgc_tpu_torch.ops import autograd as port_ag
 
     g, x = _grad_case(f=24)
     y = torch.from_numpy(np.random.default_rng(23).integers(0, 3, g.n_rows))
@@ -654,12 +667,14 @@ def test_cuda_gat_grads_match_cpu(cuda):
                 gat.multi_head_gat(l2, h, gd, concat=False, activation=None),
                 yd)
 
-        before = (port_spmm.SDDMM_LAUNCHES, port_ag.TRANSPOSED_LAUNCHES)
+        before = read_counts(D_AND_TRANSPOSED)
         results[str(dev)] = _grads(loss, params)
         if dev != "cpu":
             torch.cuda.synchronize()
-            assert port_spmm.SDDMM_LAUNCHES - before[0] == 6     # a head
-            assert port_ag.TRANSPOSED_LAUNCHES - before[1] >= 12
+            after = read_counts(D_AND_TRANSPOSED)
+            assert after["launch.sddmm"] - before["launch.sddmm"] == 6
+            assert (after["within.csr_spmm_transposed"]
+                    - before["within.csr_spmm_transposed"]) >= 12
             for a, b in zip(results[str(dev)], _grads(loss, params)):
                 assert torch.equal(a, b)
     for a, b in zip(results[str(cuda)], results["cpu"]):
@@ -670,9 +685,9 @@ def test_cuda_gat_grads_match_cpu(cuda):
 def test_cuda_degrees_match_cpu(cuda):
     """``degrees`` / ``binary_degrees``: kernel B with F = 1."""
     g, _ = _grad_case()
-    before = port_spmm.LAUNCHES
+    before = counted("launch.csr_spmm")
     got = (g.to(cuda).degrees(), g.to(cuda).binary_degrees())
-    assert port_spmm.LAUNCHES == before + 2
+    assert counted("launch.csr_spmm") == before + 2
     assert_close_rel(got[0].cpu().numpy(), g.degrees().numpy())
     assert torch.equal(got[1].cpu(), g.binary_degrees())
 
@@ -722,10 +737,10 @@ def test_cuda_kernel_b_width_classes(cuda, width_graph, f, offset,
     x = buf[offset:].view(g.n_cols, f)
     dense = (torch.randn(g.n_rows, f, device=cuda, generator=gen)
              if with_dense else None)
-    before = port_spmm.LAUNCHES
+    before = counted("launch.csr_spmm")
     got = port_spmm.spmm_segment(g, x, dense)
     again = port_spmm.spmm_segment(g, x, dense)
-    assert port_spmm.LAUNCHES == before + 2
+    assert counted("launch.csr_spmm") == before + 2
     want = port_spmm.spmm_segment_plain(g, x, dense)
     torch.cuda.synchronize()
     assert torch.equal(got, again)
@@ -815,10 +830,10 @@ def test_cuda_kernel_b_text_widths(cuda, width_graph, f, with_dense):
              if with_dense else None)
     plan = port_spmm.csr_plan(f, False, port_spmm.operand_align(x, dense))
     assert plan.passes == TEXT_WIDTHS[f]
-    before = port_spmm.LAUNCHES
+    before = counted("launch.csr_spmm")
     got = port_spmm.spmm_segment(g, x, dense)
     again = port_spmm.spmm_segment(g, x, dense)
-    assert port_spmm.LAUNCHES == before + 2
+    assert counted("launch.csr_spmm") == before + 2
     want = port_spmm.spmm_segment_plain(g, x, dense)
     torch.cuda.synchronize()
     assert torch.equal(got, again)
@@ -854,9 +869,11 @@ def test_cuda_text_structural_features(cuda, text_corpus_graph):
     idx = data.index_dict
     feats, counts = {}, {}
     for impl in ("sparse", "blockdense", "dense"):
-        b0, a0 = port_spmm.LAUNCHES, port_bd.LAUNCHES
+        names = ("launch.csr_spmm", "launch.blockdense_cells")
+        before = read_counts(names)
         feats[impl], _ = text_structural_features(data.graph, idx, 2, impl)
-        counts[impl] = (port_spmm.LAUNCHES - b0, port_bd.LAUNCHES - a0)
+        counts[impl] = tuple(n - before[k]
+                             for k, n in read_counts(names).items())
     clear_placed()
     assert counts["sparse"] == (3, 0)         # train 1,080, val, test
     assert counts["blockdense"][1] == 3 and counts["dense"] == (0, 0)
@@ -1012,11 +1029,11 @@ def test_cuda_scatter_update_matches_plain(cuda, f):
     table = torch.from_numpy(rng.standard_normal((n_words, f)).astype(
         np.float32)).to(cuda)
     g = port_spmm.scatter_graph(ids, n_words, -0.025)
-    before = port_spmm.LAUNCHES
+    before = counted("launch.csr_spmm")
     got = port_spmm.spmm_segment(g, rows, dense=table)
     again = port_spmm.spmm_segment(g, rows, dense=table)
     torch.cuda.synchronize()
-    assert port_spmm.LAUNCHES - before == 2
+    assert counted("launch.csr_spmm") - before == 2
     assert torch.equal(got, again)
     want = port_spmm.spmm_segment_plain(g, rows, table)
     assert_close_rel(got.cpu(), want.cpu())
@@ -1139,12 +1156,13 @@ def test_cuda_plan_under_ordering_matches_cpu(cuda, ordering, monkeypatch):
     assert card.formulation == "blockdense_kernel"
     np.testing.assert_array_equal(card.order, host.order)
     assert card.split_main.n_cells == host.split_main.n_cells
-    before = (port_bd.LAUNCHES, port_spmm.LAUNCHES)
+    before = (counted("launch.blockdense_cells"), counted("launch.csr_spmm"))
     got = card.propagate_train(2)
     torch.cuda.synchronize()
     splits = (card.split_main, card.split_final)
-    assert (port_bd.LAUNCHES > before[0]) == any(s.n_cells for s in splits)
-    assert (port_spmm.LAUNCHES > before[1]) == any(
+    assert (counted("launch.blockdense_cells") > before[0]) == any(
+        s.n_cells for s in splits)
+    assert (counted("launch.csr_spmm") > before[1]) == any(
         s.rest is not None for s in splits)
     assert_close_rel(got.cpu().numpy(), host.propagate_train(2).numpy())
 
@@ -1328,13 +1346,14 @@ def test_cuda_probe_copy_entries_match_plain(cuda):
     from sgc_tpu_torch.ops import probe_copy as e
 
     x = torch.randn(1000, 37, generator=torch.Generator().manual_seed(3))
-    before = e.LAUNCHES
+    entries = ("launch.probe_scale2", "launch.probe_select_blocks")
+    before = counted(*entries)
     assert torch.equal(e.scale2(x.to(cuda)).cpu(), e.scale2_plain(x))
     sel = torch.tensor([4, 0, 3, 3, 1], dtype=torch.int32)
     xb = x[:800]
     got = e.select_blocks(xb.to(cuda), sel.to(cuda), 160)
     assert torch.equal(got.cpu(), e.select_blocks_plain(xb, sel, 160))
-    assert e.LAUNCHES == before + 2
+    assert counted(*entries) == before + 2
 
 
 @pytest.mark.cuda
@@ -1347,12 +1366,14 @@ def test_cuda_row_gather_entries_match_plain(cuda, F):
     idx = torch.randint(0, 2048, (5000,), generator=g, dtype=torch.int32)
     want = rg.row_gather_plain(x, idx)
     xd, idd = x.to(cuda), idx.to(cuda)
-    before = dict(rg.BY_ENTRY)
+    by_entry = {e: f"launch.row_gather_{e}" for e in rg.ENTRIES}
+    before = read_counts(by_entry)
     assert torch.equal(rg.row_gather(xd, idd, "load").cpu(), want)
     for n in rg.IN_FLIGHT:
         assert torch.equal(rg.row_gather(xd, idd, "async", n).cpu(), want)
-    assert rg.BY_ENTRY["load"] == before["load"] + 1
-    assert rg.BY_ENTRY["async"] == before["async"] + len(rg.IN_FLIGHT)
+    after = read_counts(by_entry)
+    assert after["load"] == before["load"] + 1
+    assert after["async"] == before["async"] + len(rg.IN_FLIGHT)
 
 
 @pytest.mark.cuda
@@ -1493,10 +1514,11 @@ def test_cuda_edge_accumulate_hub_row_matches_plain(cuda, mode):
 
     host, R = _hub_edges()
     dev = [t.to(cuda) for t in host]
-    before, by_mode = ea.LAUNCHES, ea.BY_MODE[mode]
+    names = ("launch.edge_accumulate", f"within.edge_accumulate.{mode}")
+    before = read_counts(names)
     got = ea.edge_accumulate(*dev, R, mode)
     again = ea.edge_accumulate(*dev, R, mode)
-    assert ea.LAUNCHES == before + 2 and ea.BY_MODE[mode] == by_mode + 2
+    assert read_counts(names) == {k: n + 2 for k, n in before.items()}
     want = ea.edge_accumulate_plain(*dev, R, mode)
     assert torch.equal(got, again)
     assert torch.equal(got, want)
@@ -1525,7 +1547,9 @@ def test_cuda_edge_buckets_match_their_definition(cuda, mode, shape):
     rows, cols, vals, x = host
     want = ea.bucket_edges_plain(rows, cols, vals, R, mode)
     dev = [t.to(cuda) for t in host]
-    before = dict(ea.PASSES)
+    passes = {"bucket": "launch.edge_buckets",
+              "accumulate": "launch.edge_accumulate_bucketed"}
+    before = read_counts(passes)
     b = ea.bucket_edges(*dev, R, mode)
     assert torch.equal(b.row_ptr.cpu(), want.row_ptr)
     assert torch.equal(b.perm.cpu(), want.perm)
@@ -1535,8 +1559,8 @@ def test_cuda_edge_buckets_match_their_definition(cuda, mode, shape):
     assert n_heavy == int(want.n_heavy)
     assert torch.equal(b.heavy[:n_heavy].cpu(), want.heavy[:n_heavy])
     out = ea.accumulate_buckets(b, dev[3], R, mode)
-    assert ea.PASSES == {"bucket": before["bucket"] + 1,
-                         "accumulate": before["accumulate"] + 1}
+    assert read_counts(passes) == {"bucket": before["bucket"] + 1,
+                                   "accumulate": before["accumulate"] + 1}
     assert torch.equal(out, ea.edge_accumulate(*dev, R, mode))
 
 
@@ -1575,10 +1599,10 @@ def test_cuda_int8_dense_term_ragged_matches_plain(cuda, order, f_pad):
     from sgc_tpu_torch.ops import blockdense_int8 as h
 
     c, xp = _int8_cells_ragged(order, f_pad, cuda)
-    before = h.LAUNCHES
+    before = counted("launch.blockdense_int8_cells")
     got = h.apply_cells_int8(c, xp)
     again = h.apply_cells_int8(c, xp)
-    assert h.LAUNCHES == before + 2
+    assert counted("launch.blockdense_int8_cells") == before + 2
     assert torch.equal(got, again)
     want = h.apply_cells_int8_plain(c, xp)
     assert_close_rel(got.cpu(), want.cpu())
@@ -1599,10 +1623,10 @@ def test_cuda_int8_dense_term_matches_plain(cuda, super_rows):
                      split.n_row_blocks, split.n_stripes)
     for ft in (256, 768):
         xp = h.pad_x_bf16(x.to(cuda), split.n_stripes * split.stripe, ft)
-        before = h.LAUNCHES
+        before = counted("launch.blockdense_int8_cells")
         got = h.apply_cells_int8(c, xp)
         again = h.apply_cells_int8(c, xp)
-        assert h.LAUNCHES == before + 2
+        assert counted("launch.blockdense_int8_cells") == before + 2
         assert torch.equal(got, again)
         assert_close_rel(got.cpu(), h.apply_cells_int8_plain(c, xp).cpu())
 
