@@ -280,8 +280,6 @@ import warnings
 TOLERANCE = 1e-5
 # relative to max|main path|: bf16 cells vs f32 edges (2^-8 per value)
 BF16_TOLERANCE = 1e-2
-# edges per warp of kernel D (csrc/sddmm.cu's SEG), to count its row runs
-SDDMM_SEG = 64
 
 
 def emit(obj: dict) -> None:
@@ -989,13 +987,15 @@ def sddmm_on(g, a, b, reps, precisions) -> dict:
     from sgc_tpu_torch.utils.profiling import read_counts, zero_counts
 
     F, nnz = int(a.shape[1]), g.nnz
+    # edges per warp of kernel D's f32 plan, to count its row runs
+    seg = spmm.sddmm_plan(F, "f32", spmm.operand_align(a, b)).seg
     rows = g.rows[:nnz]
     starts = torch.ones(nnz, dtype=torch.bool, device=a.device)
     starts[1:] = rows[1:] != rows[:-1]
-    starts[::SDDMM_SEG] = True
+    starts[::seg] = True
     runs = int(starts.sum())
     out = {"nnz": nnz, "e_pad": g.n_edges_padded, "F": F,
-           "edges_per_warp": SDDMM_SEG, "segments": -(-nnz // SDDMM_SEG),
+           "edges_per_warp": seg, "segments": -(-nnz // seg),
            "row_runs": runs}
     csr = csr_of(g)
     for precision in precisions:

@@ -43,7 +43,7 @@ _ENTRY = {
                    [_V, _V, _V, _V, _V, _V, _V, _I, _I, _I, _I, _I, _I, _I,
                     _I, _I, _V]},
     "spmm_csr": {"csr_spmm": [_V] * 6 + [_I] * 9 + [_V]},
-    "sddmm": {"sddmm": [_V, _V, _V, _V, _V, _L, _L, _I, _I, _I, _V]},
+    "sddmm": {"sddmm": [_V] * 5 + [_L, _L] + [_I] * 11 + [_V]},
     "probe_copy": {"probe_scale2": [_V, _V, _L, _V],
                    "probe_select_blocks": [_V, _V, _V, _I, _I, _L, _V],
                    "probe_launch_floor": [_I, _V]},

@@ -18,7 +18,10 @@ port's kernel C is not Pallas), ``hybrid`` and ``blockdense``.
 
 ``sddmm`` is kernel D (``csrc/sddmm.cu``) on a CUDA tensor and
 :func:`sddmm_plain` on a CPU tensor. Kernel D walks the graph's own
-row-sorted edge list, so it needs no host build.
+row-sorted edge list, so it needs no host build; it launches with the
+plan of :func:`sddmm_plan` (vector width, lanes per edge, vectors per
+lane, edges in flight, passes, edges per warp and CTA), which depends on
+F, the precision and the operands' alignment alone.
 
 ``precision`` is the reference's (``"f32"`` or ``"bf16"``, default
 ``"f32"``) wherever it takes one: ``"bf16"`` rounds the gathered operand
@@ -49,7 +52,9 @@ from sgc_tpu_torch.utils.profiling import count
 
 # launches are counted in utils/profiling.py's registry: the CUDA kernel
 # behind spmm_segment (kernel B) as launch.csr_spmm, that behind sddmm
-# (kernel D, each after a memset of the padding slots) as launch.sddmm
+# (kernel D, each after a memset of the padding slots) as launch.sddmm,
+# and those of its launches whose plan gives an edge fewer than 32 lanes
+# (several edges a warp) also as within.sddmm.shared_warp
 
 PRECISIONS = ("f32", "bf16")
 
@@ -127,6 +132,101 @@ def csr_plan(F: int, x_bf16: bool = False, align: int = 16, *,
     return CsrPlan(vec=vec, lanes=lanes, nv=nv, unroll=unroll,
                    passes=-(-n_vec // (lanes * nv)),
                    rows_per_cta=warps * 32 // lanes)
+
+
+# Kernel D's launch plan; these mirror csrc/sddmm.cu's constants, and the
+# kernel refuses a plan it does not compile.
+SDDMM_WARPS = 4             # warps per CTA
+SDDMM_LANE_BYTES = 32       # b bytes a lane holds per pass, at least,
+SDDMM_SECTOR_BYTES = 32     # and bytes of a row one load of a group reads
+SDDMM_PASS_VALUES = 20      # b values a lane holds per pass, at most
+SDDMM_NV = (1, 2, 3, 4, 5, 6, 10, 20)   # vectors per lane it compiles
+SDDMM_IN_FLIGHT_BYTES = 64  # b bytes a lane gathers per batch of edges
+SDDMM_U_MIN, SDDMM_U_MAX = 2, 8   # edges per batch and lane group
+SDDMM_SEG_EDGES = 256       # edges per warp, at least (whole batches)
+# a warp that is one lane group (32 lanes an edge): edges per batch, and
+# edges per warp at least
+SDDMM_HOLD_UNROLL, SDDMM_HOLD_SEG_EDGES = 4, 64
+
+
+@dataclasses.dataclass(frozen=True)
+class SddmmPlan:
+    """One launch of kernel D: each edge gets ``lanes`` lanes (a warp
+    holds ``32 // lanes`` lane groups, each on its own edge); a lane loads
+    ``vec`` elements of b (``a_vec`` f32 values of a) at a time and holds
+    ``nv`` such vectors of its edge's features per pass, so a pass covers
+    ``lanes * nv * vec`` features; each group has ``unroll`` edges in
+    flight, gathered before any is summed; a warp takes ``seg``
+    consecutive edges (whole batches of ``32 // lanes * unroll``) and a
+    CTA ``edges_per_cta``. At 32 lanes (the warp one group) the kernel
+    holds a's row per run of equal rows; narrower groups read it once an
+    edge."""
+
+    vec: int
+    a_vec: int
+    lanes: int
+    nv: int
+    unroll: int
+    passes: int
+    seg: int
+    edges_per_cta: int
+
+    def args(self) -> tuple[int, ...]:
+        """The plan as the C entry takes it, after ``bf16``."""
+        return (self.vec, self.a_vec, self.lanes, self.nv, self.unroll,
+                self.passes, self.seg, self.edges_per_cta)
+
+
+def sddmm_plan(F: int, precision: str = "f32", align: int = 16, *,
+               lanes: int | None = None, lane_bytes: int = SDDMM_LANE_BYTES,
+               seg_edges: int = SDDMM_SEG_EDGES,
+               hold_unroll: int = SDDMM_HOLD_UNROLL,
+               hold_seg_edges: int = SDDMM_HOLD_SEG_EDGES) -> SddmmPlan:
+    """Kernel D's plan at width ``F`` and ``precision``, when a and b
+    (at ``"bf16"``: a and the kernel's bf16 copy of b) start at a multiple
+    of ``align`` bytes. ``a_vec`` is the widest of 4, 2, 1 f32 values that
+    divides F and that ``align`` allows; ``vec`` is ``a_vec`` at
+    ``"f32"`` (a and b are loaded alike) and 4 at ``"bf16"`` (one 8-byte
+    load of the copy, whose rows are zero-padded to a multiple of 4);
+    ``lanes`` the least power of two covering the ``ceil(F / vec)``
+    vectors when a lane holds ``lane_bytes`` of them (two 16-byte vectors,
+    four 8-byte or eight 4-byte ones), but enough that one load of the
+    group reads ``SDDMM_SECTOR_BYTES`` of a row where the row has them
+    (two lanes of 16-byte vectors), at most 32; ``nv`` the fewest
+    compiled vectors per lane that cover the rest, capped so that a pass
+    covers up to 640 features. A lane group has ``unroll`` edges in
+    flight: enough that a lane gathers ``SDDMM_IN_FLIGHT_BYTES`` of b,
+    within ``[SDDMM_U_MIN, SDDMM_U_MAX]``, or ``hold_unroll`` at 32 lanes;
+    ``seg`` is the fewest whole batches that reach ``seg_edges``
+    (``hold_seg_edges`` at 32 lanes), and a CTA has ``SDDMM_WARPS`` warps.
+    The keywords override the defaults for variants of the kernel that
+    compile other constants."""
+    if F < 1:
+        raise ValueError(f"F must be >= 1, got {F}")
+    check_precision(precision)
+    a_vec = next(v for v in (4, 2, 1)
+                 if v == 1 or (F % v == 0 and align % (4 * v) == 0))
+    bf16 = precision == "bf16"
+    vec = 4 if bf16 else a_vec
+    elem = 2 if bf16 else 4
+    n_vec = -(-F // vec)
+    if lanes is None:
+        per_lane = max(1, lane_bytes // (vec * elem))
+        sector = min(n_vec, max(1, SDDMM_SECTOR_BYTES // (vec * elem)))
+        lanes = min(32, 1 << (max(-(-n_vec // per_lane), sector)
+                              - 1).bit_length())
+    cap = SDDMM_PASS_VALUES // vec
+    need = min(-(-n_vec // lanes), cap)
+    nv = min(n for n in SDDMM_NV if need <= n <= cap)
+    hold = lanes == 32
+    gathered = nv * vec * elem
+    unroll = hold_unroll if hold else max(
+        SDDMM_U_MIN, min(SDDMM_U_MAX, SDDMM_IN_FLIGHT_BYTES // gathered))
+    batch = 32 // lanes * unroll
+    seg = -(-(hold_seg_edges if hold else seg_edges) // batch) * batch
+    return SddmmPlan(vec=vec, a_vec=a_vec, lanes=lanes, nv=nv,
+                     unroll=unroll, passes=-(-n_vec // (lanes * nv)),
+                     seg=seg, edges_per_cta=SDDMM_WARPS * seg)
 
 
 def operand_align(*tensors: torch.Tensor | None) -> int:
@@ -423,9 +523,11 @@ def _kernel_copy(t: torch.Tensor, precision: str) -> tuple[torch.Tensor,
 
 
 def _sddmm_cuda(graph: SparseGraph, a: torch.Tensor, b: torch.Tensor,
-                precision: str, lib=None) -> torch.Tensor:
-    """Kernel D on CUDA operands; ``lib`` is another build of the kernel's
-    C entry (the A/B tool's variants), default the package's."""
+                precision: str, lib=None,
+                plan: SddmmPlan | None = None) -> torch.Tensor:
+    """Kernel D on CUDA operands, with the plan of :func:`sddmm_plan`
+    unless ``plan`` is given; ``lib`` is another build of the kernel's C
+    entry (the A/B tool's variants), default the package's."""
     kernels.require_cuda_f32(a, "a")
     kernels.require_cuda_f32(b, "b")
     for name, t in (("rows", graph.rows), ("cols", graph.cols)):
@@ -438,10 +540,14 @@ def _sddmm_cuda(graph: SparseGraph, a: torch.Tensor, b: torch.Tensor,
         return out.zero_()
     # the kernel rounds a's rows to bf16 itself; only b is copied
     bk, ld = _kernel_copy(b, precision)
+    if plan is None:
+        plan = sddmm_plan(F, precision, operand_align(a, bk))
     rc = (lib or kernels.entry("sddmm"))(
         graph.rows.data_ptr(), graph.cols.data_ptr(), a.data_ptr(),
         bk.data_ptr(), out.data_ptr(), graph.nnz, graph.n_edges_padded, F,
-        ld, int(precision == "bf16"), kernels.stream_of(a))
+        ld, int(precision == "bf16"), *plan.args(), kernels.stream_of(a))
     kernels.check_launch(rc, "sddmm")
     count("launch.sddmm")
+    if plan.lanes < 32:
+        count("within.sddmm.shared_warp")
     return out

@@ -86,15 +86,25 @@ plain product on bf16(x), and variants of the kernel made by rewriting
 its source (``A_VARIANTS``), among them a third bf16 term of x at
 ``"f32"``.
 
-Kernel D: ``sddmm`` on the main operator in its LPA order and in its
-shuffled order (a = the features, b = one hop of them) at both
-precisions, the wrapper's bf16 copy of b alone, and variants of the
-kernel made by rewriting one constant each (``D_VARIANTS``: edges per
-warp, edges in flight, warps per CTA, register bound), each with its
-error against the plain version. With ``--baseline-d`` (the warp-per-edge
-kernel D of an earlier commit, whose C entry ``sddmm`` takes ``rows,
-cols, a, b, out, nnz, e_pad, F, stream``) it also times that kernel on
-both orders in the same call.
+Kernel D (``csrc/sddmm.cu``) at the widths its callers use
+(``d_cases``): GAT's per-head backward at F = 8 and 41 on the shuffled
+Reddit-shape graph (a = a contiguous gradient, b = one head's slice of a
+stacked ``(H, n, F)`` tensor: at F = 41 an odd head's rows are 4 bytes
+off, as in ``models/gat.py::multi_head_gat``), and F = 602 on the main
+operator in its LPA order and in its shuffled order (a = the features,
+b = one hop of them), each at both precisions. Each case prints the
+kernel's plan, its error against the plain version, whether two
+launches give the same bits, its time, the byte bound, the library call
+(``torch.sparse.sampled_addmm``; at ``"bf16"`` on copies rounded to
+bf16 outside the timed call) and the wrapper's bf16 copy of b alone.
+Variants (``D_VARIANTS``: source rewrites and the plan's overrides:
+lanes per edge, edges per warp, and for a warp that is one lane group
+its edges in flight and edges per warp) are each held to the plain
+version.
+With ``--baseline-d`` (the kernel of an earlier commit, whose C entry
+``sddmm`` takes ``rows, cols, a, b, out, nnz, e_pad, F, ld, bf16,
+stream``) it also times that kernel on every case, before and after the
+current one, in the same call.
 
 Kernel G (``csrc/edge_accumulate.cu``) on the gather probe's edges
 (65,536 into 2,048 x 768) in every mode: the whole call, the bucket pass
@@ -238,22 +248,28 @@ CSR_ARGS = [V] * 6 + [I] * 9 + [V]
 BASELINE_B_ARGS = [V] * 6 + [I] * 3 + [V]
 A_ARGS = [V] * 7 + [I] * 9 + [V]
 BASELINE_C_ARGS = [V] * 8 + [I] * 7 + [V]
-D_ARGS = [V] * 5 + [L, L, I, I, I, V]
-BASELINE_D_ARGS = [V] * 5 + [L, L, I, V]
+D_ARGS = [V] * 5 + [L, L] + [I] * 11 + [V]
+BASELINE_D_ARGS = [V] * 5 + [L, L, I, I, I, V]
 
-# variants of kernel D: edges per warp (the segment that cuts long rows),
-# edges in flight, warps per CTA and the register bound
+# variants of kernel D: (source rewrites, the plan's overrides) — lanes
+# per edge (a lane holding 16 bytes of b a pass; half and twice the
+# plan's lanes); 64 edges a warp for lane groups; for the warp that is
+# one lane group (32 lanes an edge): 2 or 8 edges a batch, 32 or 128
+# edges a warp
 D_VARIANTS = {
-    "base": [],
-    "seg32": [(r"SEG = 64;", "SEG = 32;")],
-    "seg128": [(r"SEG = 64;", "SEG = 128;")],
-    "seg256": [(r"SEG = 64;", "SEG = 256;")],
-    "eif2": [(r"EIF = 4;", "EIF = 2;")],
-    "warps8": [(r"WARPS = 4;", "WARPS = 8;")],
-    "one_cta_bound": [(r"__launch_bounds__\(WARPS \* 32, 2\)",
-                       "__launch_bounds__(WARPS * 32)")],
-    "min_ctas4": [(r"__launch_bounds__\(WARPS \* 32, 2\)",
-                   "__launch_bounds__(WARPS * 32, 4)")],
+    "base": ([], {}),
+    "lane_bytes16": ([], {"lane_bytes": 16}),
+    "lanes_half": ([], {"lanes": "half"}),
+    "lanes_twice": ([], {"lanes": "twice"}),
+    "seg64": ([(r"SEG_EDGES = 256;", "SEG_EDGES = 64;")], {"seg_edges": 64}),
+    "hold_unroll2": ([(r"HOLD_UNROLL = 4;", "HOLD_UNROLL = 2;")],
+                     {"hold_unroll": 2}),
+    "hold_unroll8": ([(r"HOLD_UNROLL = 4;", "HOLD_UNROLL = 8;")],
+                     {"hold_unroll": 8}),
+    "hold_seg32": ([(r"HOLD_SEG_EDGES = 64;", "HOLD_SEG_EDGES = 32;")],
+                   {"hold_seg_edges": 32}),
+    "hold_seg128": ([(r"HOLD_SEG_EDGES = 64;", "HOLD_SEG_EDGES = 128;")],
+                    {"hold_seg_edges": 128}),
 }
 
 
@@ -623,56 +639,136 @@ def kernel_a(data, device, reps: int) -> None:
             del xs
 
 
-def kernel_d(data, device, reps: int, baseline: Path | None) -> None:
+def d_cases(data, device, seed: int):
+    """Kernel D's operands at the widths its callers use: ``(name, graph,
+    a, b)`` on the card."""
     import torch
 
     from sgc_tpu_torch.graph.locality import LocalityPlan
-    from sgc_tpu_torch.ops import kernels
     from sgc_tpu_torch.ops import spmm as sp
 
+    gen = torch.Generator(device=device).manual_seed(seed)
+    g = data[0].to(device)
+    for F in (8, 41):
+        # one head's slice of the stacked (H, n, F) projection: head 1, so
+        # at F = 41 its rows start 4 bytes off (n is odd)
+        hs = torch.randn((8, g.n_cols, F), device=device, generator=gen)
+        a = torch.randn((g.n_rows, F), device=device, generator=gen)
+        yield f"gat_shuffled_f{F}", g, a, hs[1]
+        del hs, a
+    x = torch.as_tensor(data[1], device=device)
+    yield "shuffled_f602", g, x, sp.spmm_segment(g, x)
+    del g, x
     plan = LocalityPlan.build(*data, formulation="onehot", device=device)
-    orders = {"lpa": (plan.graph, plan.features),
-              "shuffled": (data[0], data[1])}
+    g = plan.graph.to(device)
+    x = torch.as_tensor(plan.features, device=device)
     del plan
+    yield "lpa_f602", g, x, sp.spmm_segment(g, x)
+
+
+def d_variant_plan(F: int, precision: str, align: int, overrides: dict):
+    from sgc_tpu_torch.ops.spmm import sddmm_plan
+
+    kw = dict(overrides)
+    base = sddmm_plan(F, precision, align).lanes
+    if kw.get("lanes") == "half":
+        kw["lanes"] = max(1, base // 2)
+    elif kw.get("lanes") == "twice":
+        kw["lanes"] = min(32, base * 2)
+    return sddmm_plan(F, precision, align, **kw)
+
+
+def kernel_d(data, device, reps: int, seed: int,
+             baseline: Path | None) -> None:
+    import torch
+
+    from sgc_tpu_torch.ops import kernels
+    from sgc_tpu_torch.ops import roofline as rf
+    from sgc_tpu_torch.ops import spmm as sp
+
     out_dir = ROOT / "build" / "sgc_tpu_torch" / "ab"
-    fns = build_variants(ROOT / "sgc_tpu_torch" / "csrc" / "sddmm.cu",
-                         D_VARIANTS, D_ARGS, out_dir, "sddmm")
+    built = {k: v[0] for k, v in D_VARIANTS.items() if k == "base" or v[0]}
+    fns = build_variants(ROOT / "sgc_tpu_torch" / "csrc" / "sddmm.cu", built,
+                         D_ARGS, out_dir, "sddmm")
     base_fn = None
     if baseline is not None:
-        base_fn = build_variants(baseline, {"base": []}, BASELINE_D_ARGS,
-                                 out_dir / "baseline", "sddmm")["base"][0]
-    for order, (graph, feats) in orders.items():
-        g = graph.to(device)
-        x = torch.as_tensor(feats, device=device)
-        b = sp.spmm_segment(g, x)
-        want = {p: sp.sddmm_plain(g, x, b, p) for p in sp.PRECISIONS}
-        emit({"kernel": "D", "order": order, "variant": "bf16_copy_b",
-              "ms": time_ms(lambda: sp._kernel_copy(b, "bf16"), reps)})
-        for name, (fn, regs) in fns.items():
-            for p in sp.PRECISIONS:
-                got = sp._sddmm_cuda(g, x, b, p, fn)
-                emit({"kernel": "D", "order": order, "variant": name,
-                      "precision": p, "registers": regs,
-                      "ms": time_ms(lambda: sp._sddmm_cuda(g, x, b, p, fn),
-                                    reps),
-                      "rel_err": rel_err(got, want[p])})
-                del got
-        if base_fn is not None:
-            out = torch.empty(g.n_edges_padded, device=device)
+        base_fn = build_variants(baseline, {"baseline": []}, BASELINE_D_ARGS,
+                                 out_dir / "baseline", "sddmm")["baseline"][0]
+    mismatched = []
+    for name, g, a, b in d_cases(data, device, seed):
+        F = int(a.shape[1])
+        with warnings.catch_warnings():
+            warnings.filterwarnings("ignore", message=".*[Ss]parse")
+            csr = torch.sparse_csr_tensor(
+                g.row_ptr, g.cols[:g.nnz], g.vals[:g.nnz],
+                size=(g.n_rows, g.n_cols), check_invariants=False)
+        for p in sp.PRECISIONS:
+            want = sp.sddmm_plain(g, a, b, p)
+            bk, ld = sp._kernel_copy(b, p)
+            align = sp.operand_align(a, bk)
 
-            def run():
+            def run_baseline():   # with the wrapper's copy, as run()
+                bc, _ = sp._kernel_copy(b, p)
+                out = torch.empty(g.n_edges_padded, device=device)
                 rc = base_fn(g.rows.data_ptr(), g.cols.data_ptr(),
-                             x.data_ptr(), b.data_ptr(), out.data_ptr(),
-                             g.nnz, g.n_edges_padded, int(x.shape[1]),
-                             kernels.stream_of(x))
+                             a.data_ptr(), bc.data_ptr(), out.data_ptr(),
+                             g.nnz, g.n_edges_padded, F, ld,
+                             int(p == "bf16"), kernels.stream_of(a))
                 kernels.check_launch(rc, "baseline sddmm")
-            run()
-            torch.cuda.synchronize()
-            emit({"kernel": "D", "order": order, "variant": "baseline",
-                  "precision": "f32", "ms": time_ms(run, reps),
-                  "rel_err": rel_err(out, want["f32"])})
-        del g, x, b, want
+                return out
+
+            def emit_baseline(when):
+                got = run_baseline()
+                emit({"kernel": "D", "case": name, "variant": "baseline",
+                      "when": when, "precision": p, "F": F,
+                      "ms": time_ms(run_baseline, reps),
+                      "rel_err": rel_err(got, want)})
+
+            if base_fn is not None:
+                emit_baseline("before")
+            b_ms, b_by, _, nbytes = rf.sddmm_bound(g, F, 2 if p == "bf16"
+                                                   else 4)
+            for variant, (_, over) in D_VARIANTS.items():
+                fn = fns[variant if variant in fns else "base"]
+                plan = d_variant_plan(F, p, align, over)
+
+                def run(fn=fn[0], plan=plan):
+                    return sp._sddmm_cuda(g, a, b, p, fn, plan)
+                got, again = run(), run()
+                torch.cuda.synchronize()
+                row = {"kernel": "D", "case": name, "variant": variant,
+                       "precision": p, "F": F, "plan": plan.args(),
+                       "registers": fn[1], "ms": time_ms(run, reps),
+                       "rel_err": rel_err(got, want),
+                       "same_bits_twice": bool(torch.equal(got, again)),
+                       "padding_zero": not bool(got[g.nnz:].any())}
+                if variant == "base":
+                    row.update({"nnz": g.nnz, "bound_ms": b_ms,
+                                "bound_by": b_by,
+                                "achieved_gbps": nbytes / row["ms"] / 1e6})
+                emit(row)
+                if not (row["rel_err"] <= 1e-5 and row["same_bits_twice"]
+                        and row["padding_zero"]):
+                    mismatched.append((name, p, variant))
+                del got, again
+            if base_fn is not None:
+                emit_baseline("after")
+            if p == "bf16":
+                ac, bct = sp.bf16_round(a), sp.bf16_round(b).t()
+                emit({"kernel": "D", "case": name, "variant": "bf16_copy_b",
+                      "F": F, "ms": time_ms(lambda: sp._kernel_copy(b, p),
+                                            reps)})
+            else:
+                ac, bct = a, b.t()
+            emit({"kernel": "D", "case": name, "variant": "library",
+                  "precision": p, "F": F, "ms": time_ms(
+                      lambda: torch.sparse.sampled_addmm(csr, ac, bct,
+                                                         beta=0.0), reps)})
+            del want, bk, ac, bct
+        del csr, g, a, b
         torch.cuda.empty_cache()
+    if mismatched:
+        raise AssertionError(f"kernel D off its plain version: {mismatched}")
 
 
 def _profiled(fn, calls: int) -> list:
@@ -1287,7 +1383,7 @@ def main() -> int:
     if "c" in chosen:
         kernel_c(data, device, args.reps, args.baseline_c)
     if "d" in chosen:
-        kernel_d(data, device, args.reps, args.baseline_d)
+        kernel_d(data, device, args.reps, args.seed, args.baseline_d)
     if "g" in chosen:
         kernel_g(device, args.reps, args.baseline_g)
     if "h" in chosen:

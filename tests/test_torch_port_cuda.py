@@ -399,6 +399,32 @@ def _check_sddmm(g, got, again, want):
     assert_close_rel(got.cpu().numpy(), want.cpu().numpy())
 
 
+# kernel D's launches, and those whose plan shares a warp among edges
+D_SHARED = ("launch.sddmm", "within.sddmm.shared_warp")
+
+
+def _d_plan(a, b, precision):
+    """The plan ``sddmm`` launches for these operands."""
+    bk, _ = port_spmm._kernel_copy(b, precision)
+    return port_spmm.sddmm_plan(int(a.shape[1]), precision,
+                                port_spmm.operand_align(a, bk))
+
+
+def _sddmm_counted(g, a, b, precision):
+    """Two calls of ``sddmm``: both results, after checking that each
+    counted one launch, and a shared warp exactly when its plan gives an
+    edge fewer than 32 lanes."""
+    shared = int(_d_plan(a, b, precision).lanes < 32)
+    before = read_counts(D_SHARED)
+    got = port_spmm.sddmm(g, a, b, precision)
+    again = port_spmm.sddmm(g, a, b, precision)
+    assert read_counts(D_SHARED) == {
+        "launch.sddmm": before["launch.sddmm"] + 2,
+        "within.sddmm.shared_warp":
+            before["within.sddmm.shared_warp"] + 2 * shared}
+    return got, again
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("precision", ["f32", "bf16"])
 @pytest.mark.parametrize("kind,n_rows,n_cols,f", [
@@ -407,49 +433,113 @@ def _check_sddmm(g, got, again, want):
     ("both", 1300, 1100, 64),
     ("both", 1300, 1300, 33),      # odd F: scalar loads of a (and b at f32)
     ("both", 1100, 1600, 7),       # F under one lane's vector
-    ("both", 1300, 1300, 1300),    # two passes over the features
+    ("both", 1300, 1300, 1300),    # three passes over the features
+    # every lane-group width of the plan: 1, 2, 4, 8, 16 and 32 lanes an
+    # edge, whole and partial vectors, GAT's head widths 8 and 41
+    ("both", 1300, 1200, 1), ("both", 1300, 1200, 2),
+    ("both", 1300, 1200, 3), ("both", 1300, 1200, 4),
+    ("both", 1300, 1200, 5), ("both", 1300, 1200, 8),
+    ("both", 1300, 1200, 9), ("both", 1300, 1200, 16),
+    ("both", 1300, 1200, 31), ("both", 1300, 1200, 41),
+    ("short", 3000, 2000, 41), ("hubs", 1300, 1300, 8),
+    ("both", 1300, 1200, 65),
 ])
 def test_cuda_sddmm_precisions_match_plain(cuda, precision, kind, n_rows,
                                            n_cols, f):
-    """Kernel D at both precisions through the entry point ``sddmm``."""
+    """Kernel D at both precisions through the entry point ``sddmm``: the
+    plain version at 1e-5, identical bits over two launches, padding 0,
+    zero-weight edges alive, and each launch counted (as a shared warp
+    where the plan gives an edge fewer than 32 lanes)."""
     g, a, b = _sddmm_case(kind, n_rows, n_cols, f, seed=n_rows + f)
     g = g.to(cuda)
     a, b = a.to(cuda), b.to(cuda)
-    before = counted("launch.sddmm")
-    got = port_spmm.sddmm(g, a, b, precision)
-    again = port_spmm.sddmm(g, a, b, precision)
-    assert counted("launch.sddmm") == before + 2
+    got, again = _sddmm_counted(g, a, b, precision)
     _check_sddmm(g, got, again, port_spmm.sddmm_plain(g, a, b, precision))
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("precision", ["f32", "bf16"])
-def test_cuda_sddmm_misaligned_a_matches_plain(cuda, precision):
-    """An f32 ``a`` whose rows are only 4-byte aligned takes the scalar
-    loads of a."""
-    g, _, b = _sddmm_case("both", 1300, 1100, 46, seed=3)
-    buf = torch.randn(1300 * 46 + 1, device=cuda)
-    a = buf[1:].view(1300, 46)
-    g, b = g.to(cuda), b.to(cuda)
-    got = port_spmm.sddmm(g, a, b, precision)
-    again = port_spmm.sddmm(g, a, b, precision)
+@pytest.mark.parametrize("f,off_a,off_b", [
+    (46, 1, 0),     # a 4 bytes off: scalar loads of a
+    (41, 0, 1),     # an odd head's slice at F = 41, as GAT's backward
+    (41, 1, 1),
+    (8, 0, 1),      # b 4 bytes off at a width that would take float4s
+    (602, 2, 2),    # 8 bytes off: float2, not float4
+])
+def test_cuda_sddmm_misaligned_a_matches_plain(cuda, precision, f, off_a,
+                                               off_b):
+    """Operands whose rows start only 4 (or 8) bytes aligned take the
+    narrower loads the plan picks for them."""
+    g, _, _ = _sddmm_case("both", 1300, 1100, f, seed=3)
+    gen = torch.Generator(device=cuda).manual_seed(f)
+    a = torch.randn(1300 * f + off_a, device=cuda, generator=gen)
+    b = torch.randn(1100 * f + off_b, device=cuda, generator=gen)
+    a, b = a[off_a:].view(1300, f), b[off_b:].view(1100, f)
+    g = g.to(cuda)
+    got, again = _sddmm_counted(g, a, b, precision)
     _check_sddmm(g, got, again, port_spmm.sddmm_plain(g, a, b, precision))
 
 
 @pytest.mark.cuda
-def test_cuda_sddmm_any_edge_order_matches_plain(cuda):
-    """The kernel finds each run of one row itself, so an edge list out of
-    row order gives the same sums (it only reloads a's rows more often)."""
-    g, a, b = _sddmm_case("both", 1300, 1300, 602, seed=4)
+@pytest.mark.parametrize("precision", ["f32", "bf16"])
+@pytest.mark.parametrize("f", [8, 41, 602])
+def test_cuda_sddmm_any_edge_order_matches_plain(cuda, f, precision):
+    """Any edge order gives the same sums: a warp's edges need not share
+    rows (an unsorted list only reads a's rows from farther away)."""
+    g, a, b = _sddmm_case("both", 1300, 1300, f, seed=4)
     perm = np.random.default_rng(5).permutation(g.nnz)
     pad = np.arange(g.nnz, g.n_edges_padded)
     order = np.concatenate([perm, pad])
     shuffled = dataclasses.replace(g, rows=g.rows[order],
                                    cols=g.cols[order], vals=g.vals[order])
     shuffled, a, b = shuffled.to(cuda), a.to(cuda), b.to(cuda)
-    got = port_spmm.sddmm(shuffled, a, b)
-    want = port_spmm.sddmm(g.to(cuda), a, b)[torch.from_numpy(order).to(cuda)]
-    assert_close_rel(got.cpu().numpy(), want.cpu().numpy())
+    got, again = _sddmm_counted(shuffled, a, b, precision)
+    _check_sddmm(shuffled, got, again,
+                 port_spmm.sddmm_plain(shuffled, a, b, precision))
+    want = port_spmm.sddmm(g.to(cuda), a, b, precision)
+    assert_close_rel(got.cpu().numpy(),
+                     want[torch.from_numpy(order).to(cuda)].cpu().numpy())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("precision", ["f32", "bf16"])
+@pytest.mark.parametrize("f", [3, 8, 41, 602])
+def test_cuda_kernel_d_any_lanes_matches_plain(cuda, f, precision):
+    """Every lanes per edge from 1 to 32 (the plan's own and the forced
+    ones) changes which lanes share a warp and the order of the group's
+    sum, not the function: each plan holds the plain version, repeats its
+    bits over two launches, leaves padding 0 and zero-weight edges
+    alive."""
+    g, a, b = _sddmm_case("both", 1300, 1100, f, seed=f)
+    g, a, b = g.to(cuda), a.to(cuda), b.to(cuda)
+    want = port_spmm.sddmm_plain(g, a, b, precision)
+    bk, _ = port_spmm._kernel_copy(b, precision)
+    align = port_spmm.operand_align(a, bk)
+    for lanes in (1, 2, 4, 8, 16, 32):
+        plan = port_spmm.sddmm_plan(f, precision, align, lanes=lanes)
+        got = port_spmm._sddmm_cuda(g, a, b, precision, plan=plan)
+        again = port_spmm._sddmm_cuda(g, a, b, precision, plan=plan)
+        _check_sddmm(g, got, again, want)
+
+
+@pytest.mark.cuda
+def test_cuda_kernel_d_refuses_a_plan_it_does_not_compile(cuda):
+    g, a, b = _sddmm_case("both", 300, 200, 8, seed=1)
+    g, a, b = g.to(cuda), a.to(cuda), b.to(cuda)
+    plan = port_spmm.sddmm_plan(8)
+    for bad in (dataclasses.replace(plan, unroll=plan.unroll + 1),
+                dataclasses.replace(plan, nv=7),
+                dataclasses.replace(plan, lanes=3),
+                dataclasses.replace(plan, seg=plan.seg + 1),
+                dataclasses.replace(plan, edges_per_cta=plan.seg),
+                dataclasses.replace(plan, passes=2),
+                dataclasses.replace(plan, vec=2)):
+        with pytest.raises(RuntimeError, match="failed to launch"):
+            port_spmm._sddmm_cuda(g, a, b, "f32", plan=bad)
+    # a float4 plan on rows 4 bytes off
+    a_off = torch.randn(300 * 8 + 1, device=cuda)[1:].view(300, 8)
+    with pytest.raises(RuntimeError, match="failed to launch"):
+        port_spmm._sddmm_cuda(g, a_off, b, "f32", plan=plan)
 
 
 # ------------------------------------------- sgc_precompute, the new caller
@@ -578,6 +668,51 @@ def test_cuda_spmm_segment_fn_backward_matches_cpu(cuda, f):
         outs[str(dev)] = [t.cpu().numpy() for t in runs[0]]
     for a, b in zip(outs[str(cuda)], outs["cpu"]):
         assert_close_rel(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("f", [8, 41])
+def test_cuda_gat_head_slices_dvals(cuda, f):
+    """GAT's backward as ``multi_head_gat`` runs it: ``SpmmSegmentFn``
+    on each head's slice of a stacked ``(H, n, F)`` projection (at F = 41
+    odd heads start 4 bytes off). Each head's ``dvals`` (kernel D) holds
+    the CPU's and repeats its bits; every one of its launches counts as a
+    shared warp, and an F = 602 call does not."""
+    from sgc_tpu_torch.ops import autograd as port_ag
+
+    g, _ = _grad_case(n=1299, f=f)     # n odd: odd heads 4 bytes off at 41
+    heads = 4
+    rng = np.random.default_rng(f)
+    hs = torch.from_numpy(rng.standard_normal(
+        (heads, g.n_cols, f)).astype(np.float32))
+    w = torch.from_numpy(rng.standard_normal(
+        (g.n_rows, f)).astype(np.float32))
+
+    def dvals(dev):
+        gd, hd, wd = g.to(dev), hs.to(dev), w.to(dev)
+        out = []
+        for i in range(heads):
+            vals = gd.vals.clone().requires_grad_(True)
+            y = port_ag.SpmmSegmentFn.apply(gd, vals, hd[i])
+            out.append(torch.autograd.grad((y * wd).sum(), vals)[0])
+        return out
+
+    before = read_counts(D_SHARED)
+    got, again = dvals(cuda), dvals(cuda)
+    torch.cuda.synchronize()
+    assert read_counts(D_SHARED) == {k: n + 2 * heads
+                                     for k, n in before.items()}
+    for x, y, want in zip(got, again, dvals("cpu")):
+        assert torch.equal(x, y)
+        assert_close_rel(x.cpu().numpy(), want.numpy())
+    g602 = _grad_case(f=602)[0].to(cuda)
+    before = read_counts(D_SHARED)
+    port_spmm.sddmm(g602, torch.randn(g602.n_rows, 602, device=cuda),
+                    torch.randn(g602.n_cols, 602, device=cuda))
+    after = read_counts(D_SHARED)
+    assert after["launch.sddmm"] == before["launch.sddmm"] + 1
+    assert (after["within.sddmm.shared_warp"]
+            == before["within.sddmm.shared_warp"])
 
 
 @pytest.mark.cuda
