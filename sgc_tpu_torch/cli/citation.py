@@ -5,13 +5,18 @@ sgc_tpu/cli/citation.py), on the card by default:
     python -m sgc_tpu_torch.cli.citation --dataset citeseer --tuned --epochs 150
     python -m sgc_tpu_torch.cli.citation --propagator appnp --degree 16
     python -m sgc_tpu_torch.cli.citation --dataset pubmed --model GCN --tuned
+    python -m sgc_tpu_torch.cli.citation --dataset cora --model GCNII
 
 Load (``data/planetoid.py``); for SGC propagate ``S^K X`` once (``sgc``:
 ``sgc_precompute``; ``appnp`` / ``ssgc``: their propagators, timed the
 same way), train the head with Adam on the train rows
 (``train_regression``); for GCN train through the graph (``train_gcn``,
-no precompute) and apply the model to the whole graph. Report val/test
-accuracy.
+no precompute) and apply the model to the whole graph; likewise for
+GCNII (``train_gcnii``), whose flags default to the authors' Cora
+settings (github.com/chennnM/GCNII, ``train.py``: 64 layers of 64, alpha
+0.1, lamda 0.5, lr 0.01, L2 0.01 on the conv weights and 5e-4 on the
+dense layers, dropout 0.6; it has no tuned table and no sharded path).
+Report val/test accuracy.
 
 ``--sharded`` trains over a world of ranks the CLI launches
 (``parallel.distributed.cli_world``: one rank per card over NCCL, or with
@@ -32,10 +37,12 @@ from time import perf_counter
 import torch
 
 from sgc_tpu_torch.data.planetoid import load_citation
+from sgc_tpu_torch.models.gcnii import scaled_operator
 from sgc_tpu_torch.models.registry import get_model
 from sgc_tpu_torch.ops import kernels
 from sgc_tpu_torch.ops.propagate import fetch_propagator, sgc_precompute
-from sgc_tpu_torch.train.loops import train_gcn, train_regression
+from sgc_tpu_torch.train.loops import (train_gcn, train_gcnii,
+                                       train_regression)
 from sgc_tpu_torch.train.metrics import accuracy
 from sgc_tpu_torch.utils.config import CitationConfig
 from sgc_tpu_torch.utils.device import resolve_device
@@ -45,15 +52,28 @@ from sgc_tpu_torch.utils.seeding import set_seed
 # seconds a sharded world may take before every rank is stopped
 SHARDED_TIMEOUT_S = 3600.0
 
+# GCNII's defaults (the authors' Cora settings): those of the shared
+# flags, where not given, and those of its own
+GCNII_FLAGS = {"lr": 0.01, "weight_decay": 0.01, "hidden": 64,
+               "dropout": 0.6}
+GCNII_DEFAULTS = {"layers": 64, "alpha": 0.1, "lamda": 0.5,
+                  "wd_dense": 5e-4}
+
 
 def run(cfg: CitationConfig, data_path: str | None = None,
         propagator: str = "sgc", sharded: bool = False,
-        trainer: str = "adam", device=None) -> dict:
+        trainer: str = "adam", device=None,
+        gcnii: dict | None = None) -> dict:
     """One citation run; ``device=None`` means the card (raises without
     one). ``trainer`` picks the sharded SGC head's trainer and is unused
-    without ``sharded``, as in the reference."""
+    without ``sharded``, as in the reference. ``gcnii`` overrides
+    :data:`GCNII_DEFAULTS` (``layers``, ``alpha``, ``lamda``,
+    ``wd_dense``) for ``cfg.model == "GCNII"``, whose ``weight_decay`` is
+    the conv weights' L2."""
     if sharded and propagator != "sgc":
         raise ValueError("--sharded supports the sgc propagator only")
+    if cfg.model == "GCNII" and (sharded or cfg.tuned):
+        raise ValueError("GCNII has no sharded path and no tuned table")
     dev = resolve_device(device)
     cfg = cfg.resolve()
     init_fn, apply_fn = get_model(cfg.model)
@@ -64,6 +84,9 @@ def run(cfg: CitationConfig, data_path: str | None = None,
         return _run_sharded(cfg, data, dev, trainer)
     if cfg.model == "GCN":
         return _run_gcn(cfg, data, init_fn, apply_fn, generator, dev)
+    if cfg.model == "GCNII":
+        return _run_gcnii(cfg, data, init_fn, apply_fn, generator, dev,
+                          {**GCNII_DEFAULTS, **(gcnii or {})})
 
     model = init_fn(generator, data.features.shape[1], data.n_classes,
                     device=dev)
@@ -98,6 +121,25 @@ def _run_gcn(cfg, data, init_fn, apply_fn, generator, dev) -> dict:
         seed=cfg.seed)
     with torch.no_grad():
         logits = apply_fn(model, data.features, data.graph)
+    return _result(data, logits[data.idx_val], logits[data.idx_test], 0.0,
+                   train_time)
+
+
+def _run_gcnii(cfg, data, init_fn, apply_fn, generator, dev,
+               opts: dict) -> dict:
+    """GCNII: as GCN, no precompute; the model is applied to the whole
+    graph through the prescaled operator."""
+    alpha, lamda = opts["alpha"], opts["lamda"]
+    model = init_fn(generator, data.features.shape[1], cfg.hidden or 64,
+                    data.n_classes, opts["layers"], device=dev)
+    model, train_time = train_gcnii(
+        model, data.features, data.graph, data.idx_train,
+        data.labels[data.idx_train], epochs=cfg.epochs, lr=cfg.lr,
+        wd_conv=cfg.weight_decay, wd_dense=opts["wd_dense"], alpha=alpha,
+        lamda=lamda, dropout=cfg.dropout, seed=cfg.seed)
+    with torch.no_grad():
+        logits = apply_fn(model, data.features,
+                          scaled_operator(data.graph, alpha), alpha, lamda)
     return _result(data, logits[data.idx_val], logits[data.idx_test], 0.0,
                    train_time)
 
@@ -172,11 +214,28 @@ def main() -> None:
     parser.add_argument("--dataset", default="cora")
     parser.add_argument("--seed", type=int, default=42)
     parser.add_argument("--epochs", type=int, default=100)
-    parser.add_argument("--lr", type=float, default=0.2)
-    parser.add_argument("--weight_decay", type=float, default=5e-6)
-    parser.add_argument("--hidden", type=int, default=0)
-    parser.add_argument("--dropout", type=float, default=0.0)
-    parser.add_argument("--model", default="SGC", choices=["SGC", "GCN"])
+    parser.add_argument("--lr", type=float, default=None,
+                        help="default 0.2; GCNII 0.01")
+    parser.add_argument("--weight_decay", type=float, default=None,
+                        help="default 5e-6; GCNII 0.01 (its conv weights)")
+    parser.add_argument("--hidden", type=int, default=None,
+                        help="default 16 for GCN; GCNII 64")
+    parser.add_argument("--dropout", type=float, default=None,
+                        help="default 0.0; GCNII 0.6")
+    parser.add_argument("--model", default="SGC",
+                        choices=["SGC", "GCN", "GCNII"])
+    parser.add_argument("--layers", type=int,
+                        default=GCNII_DEFAULTS["layers"],
+                        help="GCNII: number of GCNII layers")
+    parser.add_argument("--alpha", type=float,
+                        default=GCNII_DEFAULTS["alpha"],
+                        help="GCNII: initial residual share")
+    parser.add_argument("--lamda", type=float,
+                        default=GCNII_DEFAULTS["lamda"],
+                        help="GCNII: identity mapping's lambda")
+    parser.add_argument("--wd_dense", type=float,
+                        default=GCNII_DEFAULTS["wd_dense"],
+                        help="GCNII: L2 on the two dense layers")
     parser.add_argument("--propagator", default="sgc",
                         choices=["sgc", "appnp", "ssgc"],
                         help="propagation scheme for the SGC path")
@@ -195,18 +254,20 @@ def main() -> None:
                         help="torch device (default: the CUDA card)")
     args = parser.parse_args()
 
+    shared = {**(GCNII_FLAGS if args.model == "GCNII" else {}),
+              **{k: getattr(args, k) for k in GCNII_FLAGS
+                 if getattr(args, k) is not None}}
     cfg = CitationConfig(
         dataset=args.dataset, seed=args.seed, epochs=args.epochs,
-        lr=args.lr, weight_decay=args.weight_decay, hidden=args.hidden,
-        dropout=args.dropout, model=args.model,
-        normalization=args.normalization, degree=args.degree,
-        tuned=args.tuned)
+        model=args.model, normalization=args.normalization,
+        degree=args.degree, tuned=args.tuned, **shared)
     if cfg.tuned:
         cfg.resolve()
         print(f"using tuned weight decay: {cfg.weight_decay}")
     res = run(cfg, args.data_path, propagator=args.propagator,
               sharded=args.sharded, trainer=args.trainer,
-              device=args.device)
+              device=args.device,
+              gcnii={k: getattr(args, k) for k in GCNII_DEFAULTS})
     print("Validation Accuracy: {:.4f} Test Accuracy: {:.4f}".format(
         res["val_accuracy"], res["test_accuracy"]))
     print("Pre-compute time: {:.4f}s, train time: {:.4f}s, total: "

@@ -52,6 +52,12 @@
 //   values into shared memory by cp.async, all lanes at once, so a row's
 //   chain reads shared memory only and a hub's 1,300 edges cost a few
 //   chunk round trips instead of 1,300 / U.
+// * The CTAs' order: `cta_order` (optional) lists which rows each CTA
+//   in launch order takes. From a graph's second launch on, the host
+//   puts first the CTAs that hold a hub row (ops/spmm.py::heavy_first,
+//   cta_order): the GPU starts CTAs in index order,
+//   so a hub's chain begun in the last wave set the launch's end, by as
+//   much as a hub row's walk, wherever the graph's ids placed it.
 // * Registers are bounded per instance (min_ctas): for 3 CTAs an SM
 //   where a lane gathers at most NARROW_BYTES an edge, 2 where it
 //   issues MANY_LOADS loads an edge, else unbounded.
@@ -300,12 +306,15 @@ csr_spmm_kernel(const int32_t* __restrict__ row_ptr,   // [n_rows + 1]
                 const typename Vec<VEC, BX>::E* __restrict__ x,  // [n_cols, F]
                 const float* __restrict__ dense,       // [n_rows, F] or null
                 float* __restrict__ out,               // [n_rows, F]
+                const int32_t* __restrict__ cta_order,  // [grid] or null
                 int n_rows, int F, int lg_lanes) {
   using S = typename Vec<VEC, false>::T;   // out's vector type
   const int lanes = 1 << lg_lanes;
   const int lane = threadIdx.x & 31;
   const int sub = lane & (lanes - 1);
-  const int warp_row0 = (blockIdx.x * WARPS + (threadIdx.x >> 5))
+  const int cta = cta_order ? __ldg(cta_order + blockIdx.x)
+                            : static_cast<int>(blockIdx.x);
+  const int warp_row0 = (cta * WARPS + (threadIdx.x >> 5))
                         << (5 - lg_lanes);
   const int r = warp_row0 + (lane >> lg_lanes);
   const int pass = lanes * NV * VEC;
@@ -410,6 +419,7 @@ csr_spmm_kernel(const int32_t* __restrict__ row_ptr,   // [n_rows + 1]
 struct Args {
   const void *row_ptr, *cols, *vals, *x, *dense;
   void* out;
+  const void* cta_order;
   int n_rows, F, lg_lanes, rows_per_cta;
   cudaStream_t stream;
 };
@@ -422,7 +432,7 @@ void launch_kernel(const Args& a) {
       static_cast<const int32_t*>(a.cols), static_cast<const float*>(a.vals),
       static_cast<const typename Vec<VEC, BX>::E*>(a.x),
       static_cast<const float*>(a.dense), static_cast<float*>(a.out),
-      a.n_rows, a.F, a.lg_lanes);
+      static_cast<const int32_t*>(a.cta_order), a.n_rows, a.F, a.lg_lanes);
 }
 
 template <int VEC, bool BX, int NV>
@@ -468,12 +478,15 @@ extern "C" {
 // to bf16 (kernel C's precision="bf16"). (vec, lanes, nv, unroll, passes,
 // rows_per_cta) is the plan of ops/spmm.py::csr_plan, checked against
 // what this file compiles. Pointers are device pointers; `stream` is a
-// cudaStream_t. Returns cudaGetLastError() after the launch, or
-// cudaErrorInvalidValue for shapes or plans the kernel does not take.
+// cudaStream_t; `cta_order` (null: index order) is a permutation of the
+// ceil(n_rows / rows_per_cta) CTAs, int32, the k-th launched CTA taking
+// the rows of CTA cta_order[k]. Returns cudaGetLastError() after the
+// launch, or cudaErrorInvalidValue for shapes or plans the kernel does
+// not take.
 int csr_spmm(const void* row_ptr, const void* cols, const void* vals,
              const void* x, const void* dense, void* out, int n_rows, int F,
              int x_bf16, int vec, int lanes, int nv, int unroll, int passes,
-             int rows_per_cta, void* stream) {
+             int rows_per_cta, void* stream, const void* cta_order) {
   auto aligned = [](const void* p, int n) {
     return reinterpret_cast<uintptr_t>(p) % n == 0;
   };
@@ -487,7 +500,7 @@ int csr_spmm(const void* row_ptr, const void* cols, const void* vals,
       nv * vec <= PASS_VALUES && unroll == unroll_for(nv * vec * x_bytes) &&
       passes == (F / vec + lanes * nv - 1) / (lanes * nv);
   if (!ok) return static_cast<int>(cudaErrorInvalidValue);
-  const Args a{row_ptr, cols, vals, x, dense, out, n_rows, F,
+  const Args a{row_ptr, cols, vals, x, dense, out, cta_order, n_rows, F,
                __builtin_ctz(static_cast<unsigned>(lanes)), rows_per_cta,
                static_cast<cudaStream_t>(stream)};
   const bool launched = x_bf16 ? launch<true>(vec, nv, a)

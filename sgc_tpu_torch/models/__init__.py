@@ -1,5 +1,5 @@
-"""Models: the SGC head, the two-layer GCN, the deep GCN stack, the GAT
-layers and the transformer sequence classifier (the reference's
+"""Models: the SGC head, the two-layer GCN, the deep GCN stack, GCNII, the
+GAT layers and the transformer sequence classifier (the reference's
 ``models`` exports)."""
 
 from sgc_tpu_torch.models.deep_gcn import (  # noqa: F401
@@ -16,6 +16,12 @@ from sgc_tpu_torch.models.gat import (  # noqa: F401
     multi_head_gat,
 )
 from sgc_tpu_torch.models.gcn import GCN, gcn_apply, init_gcn  # noqa: F401
+from sgc_tpu_torch.models.gcnii import (  # noqa: F401
+    GCNII,
+    gcnii_apply,
+    init_gcnii,
+    scaled_operator,
+)
 from sgc_tpu_torch.models.registry import (  # noqa: F401
     get_model,
     register_model,
@@ -31,6 +37,7 @@ from sgc_tpu_torch.models.transformer import (  # noqa: F401
 __all__ = [
     "SGC", "init_sgc", "sgc_apply",
     "GCN", "init_gcn", "gcn_apply",
+    "GCNII", "init_gcnii", "gcnii_apply", "scaled_operator",
     "get_model", "register_model",
     "DeepGCN", "deep_gcn_apply", "init_deep_gcn", "stage_layers",
     "GATLayer", "gat_layer_apply", "init_gat_layer", "init_multi_head",

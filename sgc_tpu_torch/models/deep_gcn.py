@@ -2,7 +2,7 @@
 an input projection, ``L - 2`` homogeneous hidden layers with optional
 residuals, an output projection; every layer ``relu(S @ (h W + b))``
 through ``spmm``'s differentiable path (kernel B, and kernel B over the
-transpose backward).
+transpose backward), recorded under GCN's span ``gcn.spmm``.
 
 The hidden layers' parameters stay stacked, ``w_hidden [L-2, H, H]`` and
 ``b_hidden [L-2, H]``, as single parameters, so the reference's arrays
@@ -28,6 +28,7 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from sgc_tpu_torch.graph.sparse import SparseGraph
+from sgc_tpu_torch.models.gcn import SPAN
 from sgc_tpu_torch.ops.spmm import spmm
 from sgc_tpu_torch.utils.device import resolve_device
 
@@ -81,7 +82,7 @@ def params_from_jax(params, device=None) -> DeepGCN:
 
 
 def _hidden_layer(h, w, b, graph, residual, impl):
-    out = torch.relu(spmm(graph, h @ w + b, impl=impl))
+    out = torch.relu(spmm(graph, h @ w + b, impl=impl, span_name=SPAN))
     return out + h if residual else out
 
 
@@ -90,7 +91,8 @@ def deep_gcn_apply(model: DeepGCN, x: torch.Tensor, graph: SparseGraph, *,
                    impl: str = "auto") -> torch.Tensor:
     """Logits ``[n, C]``: in-projection, the hidden layers ``h <-
     relu(S @ (h W + b)) (+ h)``, out-projection (deep_gcn.py:77-104)."""
-    h = torch.relu(spmm(graph, x @ model.w_in + model.b_in, impl=impl))
+    h = torch.relu(spmm(graph, x @ model.w_in + model.b_in, impl=impl,
+                        span_name=SPAN))
     for i in range(int(model.w_hidden.shape[0])):
         w, b = model.w_hidden[i], model.b_hidden[i]
         if remat:
@@ -98,7 +100,8 @@ def deep_gcn_apply(model: DeepGCN, x: torch.Tensor, graph: SparseGraph, *,
                            use_reentrant=False)
         else:
             h = _hidden_layer(h, w, b, graph, residual, impl)
-    return spmm(graph, h @ model.w_out + model.b_out, impl=impl)
+    return spmm(graph, h @ model.w_out + model.b_out, impl=impl,
+                span_name=SPAN)
 
 
 def stage_layers(model: DeepGCN, n_stages: int):

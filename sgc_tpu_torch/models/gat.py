@@ -114,7 +114,8 @@ def _attend(h, a_src, a_dst, bias, graph, live, negative_slope,
                           negative_slope)
     alpha = segment_softmax(logits, graph, live)
     vals = torch.where(live, alpha, 0.0)
-    out = spmm(graph.with_vals(vals), h, impl=impl) + bias
+    out = spmm(graph.with_vals(vals), h, impl=impl,
+               span_name="gat.spmm") + bias
     return activation(out) if activation is not None else out
 
 

@@ -5,7 +5,8 @@ normalized adjacency, so the bias is added before the propagation, as in
 the reference (gcn.py:67,74); ReLU and dropout sit between the layers.
 The propagation runs inside every training step, so both SpMMs go
 through ``spmm``'s differentiable path (``ops/autograd.py``): kernel B
-forward and kernel B over the transpose backward.
+forward and kernel B over the transpose backward, each recorded under
+the span ``gcn.spmm``.
 
 The parameters keep the reference's layout, ``w1 [F, H]``, ``b1 [H]``,
 ``w2 [H, C]``, ``b2 [C]``, so they carry across unchanged
@@ -23,6 +24,9 @@ from torch import nn
 from sgc_tpu_torch.graph.sparse import SparseGraph
 from sgc_tpu_torch.ops.spmm import spmm
 from sgc_tpu_torch.utils.device import resolve_device
+
+# the span of both differentiable products (and the deep stack's)
+SPAN = "gcn.spmm"
 
 
 class GCN(nn.Module):
@@ -75,7 +79,8 @@ def gcn_apply(model: GCN, x: torch.Tensor, graph: SparseGraph, *,
     passes the reference's ``jax.random.bernoulli`` mask); kept entries
     are scaled by ``1 / (1 - dropout_rate)``.
     """
-    h = spmm(graph, x @ model.w1 + model.b1, impl=impl)
+    h = spmm(graph, x @ model.w1 + model.b1, impl=impl,
+             span_name=SPAN)
     if use_relu:
         h = torch.relu(h)
     if dropout_rate > 0.0 and (keep_mask is not None
@@ -85,4 +90,5 @@ def gcn_apply(model: GCN, x: torch.Tensor, graph: SparseGraph, *,
             keep_mask = torch.rand(h.shape, generator=generator,
                                    device=h.device) < keep
         h = torch.where(keep_mask, h / keep, 0.0)
-    return spmm(graph, h @ model.w2 + model.b2, impl=impl)
+    return spmm(graph, h @ model.w2 + model.b2, impl=impl,
+                span_name=SPAN)

@@ -9,14 +9,16 @@ backward is made of the port's kernels again. One set of Functions serves
 both devices: on the CPU the wrappers run their plain versions, so the
 CPU tests exercise the card's backward formulas.
 
-* :class:`SpmmSegmentFn` ``(graph, vals, x) -> A @ x`` for ``A`` the
-  graph's pattern with edge values ``vals``. Forward: kernel B. Backward:
-  ``dx = A^T @ G`` is kernel B over the cached transpose, with
-  ``vals[perm]`` gathered each call unless ``vals`` is the very tensor
-  the transpose was built from (a graph with fixed values, as GCN's);
-  ``dvals[e] = <G[rows[e]],
-  x[cols[e]]>`` is an SDDMM, kernel D at ``"f32"``, computed only when
-  ``vals`` needs a gradient.
+* :class:`SpmmSegmentFn` ``(graph, vals, x, dense=None, name) -> A @ x
+  + dense`` for ``A`` the graph's pattern with edge values ``vals``.
+  Forward: one launch of kernel B, which adds ``dense`` in its epilogue.
+  Backward: ``ddense = G``; ``dx = A^T @ G`` is kernel B over the cached
+  transpose, with ``vals[perm]`` gathered each call unless ``vals`` is
+  the very tensor the transpose was built from (a graph with fixed
+  values, as GCN's) or one whose transposed values
+  :func:`fix_transpose_vals` cached (GCNII's prescaled operator);
+  ``dvals[e] = <G[rows[e]], x[cols[e]]>`` is an SDDMM, kernel D at
+  ``"f32"``, computed only when ``vals`` needs a gradient.
 * :class:`EdgeScoresFn` ``(graph, dst, src) -> dst[rows] + src[cols]``:
   the backward is a row sum of ``g`` (kernel B, F = 1, on the graph) and
   a column sum (kernel B, F = 1, over the transpose with ``g[perm]``).
@@ -32,8 +34,9 @@ CPU tests exercise the card's backward formulas.
   the reference's sequential scatter-add does.
 
 Each Function's forward and backward is a span of the recorder
-(utils/profiling.py), the name one per Function: ``gat.spmm``
-(``SpmmSegmentFn``), ``gat.scores`` (``EdgeScoresFn``) and
+(utils/profiling.py): ``SpmmSegmentFn``'s under the name its caller
+gives (``gat.spmm`` from GAT, ``gcn.spmm`` from GCN and the deep stack,
+``gcnii.prop`` from GCNII), ``gat.scores`` (``EdgeScoresFn``) and
 ``gat.softmax`` (``SegmentSoftmaxFn``); kernel B's launches over a
 transpose count also as ``within.csr_spmm_transposed``.
 
@@ -66,13 +69,15 @@ _TRANSPOSED = {"launch.csr_spmm": "within.csr_spmm_transposed"}
 
 
 def _transpose_entry(graph: SparseGraph):
-    """``(transpose, perm, source vals)``: the transpose is built on the
-    host once for ``graph``'s pattern and cached by the pattern's arrays
-    (``utils.buildcache.placed``), so every reweighting of one graph
-    shares it; it carries the values of the first graph that asked,
-    held (and pinned) as the third item."""
+    """``(transpose, perm, source vals, fixed)``: the transpose is built
+    on the host once for ``graph``'s pattern and cached by the pattern's
+    arrays (``utils.buildcache.placed``), so every reweighting of one
+    graph shares it; it carries the values of the first graph that asked,
+    held (and pinned) as the third item. ``fixed`` lists ``(vals,
+    transpose carrying them)`` for the values :func:`fix_transpose_vals`
+    registered."""
     return placed(graph, ("transpose",), graph.device,
-                  lambda: (*graph.transpose_perm(), graph.vals),
+                  lambda: (*graph.transpose_perm(), graph.vals, []),
                   lambda t, _dev: t, by_vals=False)[1]
 
 
@@ -90,13 +95,31 @@ def on_transpose(graph: SparseGraph, vals: torch.Tensor) -> SparseGraph:
     """The transpose of ``graph`` carrying edge values ``vals`` (one per
     edge of ``graph``): ``vals[perm]`` on the live edges, 0 on padding.
     The cached transpose itself when ``vals`` is the tensor it was built
-    from."""
-    gt, perm, source = _transpose_entry(graph)
+    from, or the one :func:`fix_transpose_vals` cached for ``vals``."""
+    gt, perm, source, fixed = _transpose_entry(graph)
     if vals is source:
         return gt
+    for held, gt_held in fixed:
+        if vals is held:
+            return gt_held
     out = vals.new_zeros(gt.n_edges_padded)
     out[: graph.nnz] = vals.index_select(0, perm)
     return gt.with_vals(out)
+
+
+def fix_transpose_vals(graph: SparseGraph) -> SparseGraph:
+    """Cache the transpose of ``graph`` carrying ``graph.vals``, so that
+    every backward product with these values (a reweighting of the
+    pattern that stays fixed, as GCNII's prescaled operator) reads them
+    without gathering ``vals[perm]``; returns ``graph``. The values are
+    held (pinned) while the pattern's transpose is cached."""
+    vals = _edge_vals(graph.vals)
+    if vals is not graph.vals:
+        graph = graph.with_vals(vals)
+    entry = _transpose_entry(graph)
+    if vals is not entry[2] and all(vals is not v for v, _ in entry[3]):
+        entry[3].append((vals, on_transpose(graph, vals)))
+    return graph
 
 
 def spmm_transposed(graph: SparseGraph, vals: torch.Tensor,
@@ -123,33 +146,39 @@ def col_sums(graph: SparseGraph, vals: torch.Tensor) -> torch.Tensor:
 
 
 class SpmmSegmentFn(torch.autograd.Function):
-    """``A @ x`` with ``A`` = ``graph``'s pattern carrying ``vals``;
-    differentiable in ``vals`` and ``x``. Every graph with ``graph``'s
-    edge arrays shares one cached transpose."""
+    """``A @ x + dense`` with ``A`` = ``graph``'s pattern carrying
+    ``vals`` (``dense`` optional); differentiable in ``vals``, ``x`` and
+    ``dense``; forward and backward are spans named ``name``. Every graph
+    with ``graph``'s edge arrays shares one cached transpose."""
 
     @staticmethod
     def forward(ctx, graph: SparseGraph, vals: torch.Tensor,
-                x: torch.Tensor) -> torch.Tensor:
-        with span("gat.spmm", x.device):
+                x: torch.Tensor, dense: torch.Tensor | None = None,
+                name: str = "spmm") -> torch.Tensor:
+        with span(name, x.device):
             # the graph keeps vals itself, so that on_transpose can tell
             # the tensor the cached transpose was built from
             graph, x = graph.with_vals(_edge_vals(vals)), x.contiguous()
-            ctx.graph = graph
+            ctx.graph, ctx.name = graph, name
             # x feeds dvals alone
             ctx.save_for_backward(x if ctx.needs_input_grad[1] else None)
-            return spmm_segment(graph, x)
+            if dense is not None:
+                dense = dense.contiguous()
+            return spmm_segment(graph, x, dense)
 
     @staticmethod
     def backward(ctx, g: torch.Tensor):
-        with span("gat.spmm", g.device):
+        with span(ctx.name, g.device):
             (x,) = ctx.saved_tensors
             graph, g = ctx.graph, g.contiguous()
+            needs = ctx.needs_input_grad
             dvals = dx = None
-            if ctx.needs_input_grad[1]:
+            if needs[1]:
                 dvals = sddmm(graph, g, x)
-            if ctx.needs_input_grad[2]:
+            if needs[2]:
                 dx = spmm_transposed(graph, graph.vals, g)
-            return None, dvals, dx
+            ddense = g if len(needs) > 3 and needs[3] else None
+            return None, dvals, dx, ddense, None
 
 
 class EdgeScoresFn(torch.autograd.Function):

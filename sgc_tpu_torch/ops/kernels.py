@@ -42,7 +42,7 @@ _ENTRY = {
     "blockdense": {"blockdense_cells":
                    [_V, _V, _V, _V, _V, _V, _V, _I, _I, _I, _I, _I, _I, _I,
                     _I, _I, _V]},
-    "spmm_csr": {"csr_spmm": [_V] * 6 + [_I] * 9 + [_V]},
+    "spmm_csr": {"csr_spmm": [_V] * 6 + [_I] * 9 + [_V, _V]},
     "sddmm": {"sddmm": [_V] * 5 + [_L, _L] + [_I] * 11 + [_V]},
     "probe_copy": {"probe_scale2": [_V, _V, _L, _V],
                    "probe_select_blocks": [_V, _V, _V, _I, _I, _L, _V],
@@ -86,8 +86,15 @@ def load_all(device) -> None:
     """On a CUDA ``device``, build every stale library of the package's
     paths at once and load each entry, so that no build or load falls
     inside a timed span; on any other device nothing launches a kernel,
-    so nothing to do."""
+    so nothing to do. Once every entry is loaded a call returns at once:
+    :func:`entry` keeps the functions it loaded, so a library rebuilt
+    later would not be loaded again anyway, and the staleness checks (a
+    few file-system calls a library, 2.4 ms a call on the H100's host)
+    stay out of callers that run every step, as ``sgc_precompute``."""
     if torch.device(device).type != "cuda":
+        return
+    if all((name, symbol) in _loaded for name in KERNEL_SOURCES
+           for symbol in _ENTRY[name]):
         return
     build_all(KERNEL_SOURCES)
     for name in KERNEL_SOURCES:

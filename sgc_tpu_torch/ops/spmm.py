@@ -7,7 +7,10 @@ deterministic CSR SpMM that can also add a dense term in its epilogue
 launches the same CUDA kernel as kernel C. Both launch it through
 :func:`launch_csr`, with the plan of :func:`csr_plan` (vector width,
 lanes per row, vectors per lane, edges in flight, passes, rows per CTA),
-which depends on F, the precision and the operands' alignment alone. On
+which depends on F, the precision and the operands' alignment alone;
+kernel B launches the CTAs that hold hub rows first (:func:`cta_order`,
+built at a graph's second launch, kept per graph and plan), which
+changes no bit of the result. On
 a CUDA tensor it launches the kernel or raises; on a CPU tensor it runs
 :func:`spmm_segment_plain`, the plain PyTorch version, a sequential
 ``index_add_`` in sorted edge order.
@@ -33,7 +36,8 @@ identical bits; ``segment`` and ``chunked`` agree bit for bit.
 
 Gradients: ``spmm`` under ``auto``, ``segment`` and ``chunked`` goes
 through ``ops/autograd.py::SpmmSegmentFn`` (kernels B and D in the
-backward) whenever x or the graph's values need a gradient; ``tiled``,
+backward) whenever x, the graph's values or the dense operand need a
+gradient; ``tiled``,
 ``hybrid`` and ``blockdense`` raise there, as the reference cannot
 differentiate its ``pallas_call``s either. ``spmm_segment`` and ``sddmm``
 are the kernels themselves and raise on such inputs rather than return
@@ -48,13 +52,15 @@ import torch
 
 from sgc_tpu_torch.graph.sparse import SparseGraph
 from sgc_tpu_torch.ops import kernels
+from sgc_tpu_torch.utils.buildcache import HostBuildCache
 from sgc_tpu_torch.utils.profiling import count
 
 # launches are counted in utils/profiling.py's registry: the CUDA kernel
 # behind spmm_segment (kernel B) as launch.csr_spmm, that behind sddmm
 # (kernel D, each after a memset of the padding slots) as launch.sddmm,
 # and those of its launches whose plan gives an edge fewer than 32 lanes
-# (several edges a warp) also as within.sddmm.shared_warp
+# (several edges a warp) also as within.sddmm.shared_warp; kernel B's
+# launches that add a dense operand also as within.csr_spmm_dense
 
 PRECISIONS = ("f32", "bf16")
 
@@ -79,6 +85,9 @@ CSR_PASS_VALUES = 20        # x values a lane holds per pass
 CSR_NV = (1, 2, 3, 5, 10, 20)   # vectors per lane the kernel compiles
 CSR_IN_FLIGHT_BYTES = 160   # x bytes a lane gathers per batch of edges
 CSR_U_MIN, CSR_U_MAX = 2, 16    # edges per batch
+# A CTA whose busiest warp walks more than this many times the mean
+# warp's edges is launched before the others (heavy_first)
+CSR_HEAVY_WARP = 4.0
 
 
 @dataclasses.dataclass(frozen=True)
@@ -244,20 +253,72 @@ def launch_csr(row_ptr: torch.Tensor, cols: torch.Tensor,
                vals: torch.Tensor, x: torch.Tensor,
                dense: torch.Tensor | None, out: torch.Tensor,
                x_bf16: bool = False, lib=None, plan: CsrPlan | None = None,
-               ) -> None:
+               cta_order: torch.Tensor | None = None) -> None:
     """One launch of the CSR kernel into ``out`` ``[n_rows, F]`` (kernel
     B, or kernel C on its re-sorted layout), with the plan of
-    :func:`csr_plan` unless ``plan`` is given; ``lib`` is another build of
-    the kernel's C entry (the A/B tool's variants), default the
-    package's. Raises when the launch fails."""
+    :func:`csr_plan` unless ``plan`` is given, its CTAs in the order
+    ``cta_order`` gives (:func:`heavy_first`; None: index order); ``lib``
+    is another build of the kernel's C entry (the A/B tool's variants),
+    default the package's. Raises when the launch fails."""
     n_rows, F = out.shape
     if plan is None:
         plan = csr_plan(F, x_bf16, operand_align(x, dense, out))
     rc = (lib or kernels.entry("spmm_csr"))(
         row_ptr.data_ptr(), cols.data_ptr(), vals.data_ptr(), x.data_ptr(),
         dense.data_ptr() if dense is not None else None, out.data_ptr(),
-        n_rows, F, int(x_bf16), *plan.args(), kernels.stream_of(x))
+        n_rows, F, int(x_bf16), *plan.args(), kernels.stream_of(x),
+        cta_order.data_ptr() if cta_order is not None else None)
     kernels.check_launch(rc, "csr_spmm")
+
+
+def heavy_first(row_ptr: torch.Tensor, n_rows: int,
+                rows_per_cta: int) -> torch.Tensor:
+    """Kernel B's CTAs (``rows_per_cta`` consecutive rows each) in the
+    order to launch them, int32 on ``row_ptr``'s device: first the CTAs
+    whose busiest warp walks more than ``CSR_HEAVY_WARP`` times the mean
+    warp's edges, busiest first, then the others in index order. The GPU
+    starts CTAs in launch order, so a hub row's walk begun in the last
+    wave would set the launch's end; the rest keep the rows' order and
+    whatever locality it has. Device operations only: no host sync."""
+    dev = row_ptr.device
+    rows_per_warp = rows_per_cta // CSR_WARPS
+    starts = torch.arange(0, n_rows, rows_per_warp, device=dev)
+    ends = (starts + rows_per_warp).clamp_max(n_rows)
+    ptr = row_ptr.long()
+    work = (ptr[ends] - ptr[starts]).float()
+    n_ctas = -(-n_rows // rows_per_cta)
+    busiest = torch.nn.functional.pad(
+        work, (0, n_ctas * CSR_WARPS - work.numel())).view(
+            n_ctas, CSR_WARPS).amax(dim=1)
+    key = torch.where(busiest > CSR_HEAVY_WARP * work.mean(), -busiest, 0.0)
+    return torch.argsort(key, stable=True).to(torch.int32)
+
+
+# heavy_first per graph and plan, keyed by the row pointers' identity;
+# and the row pointers launched on once so far, apart, so that graphs
+# built for one launch do not evict the orders of those launched again
+_CTA_ORDERS = HostBuildCache(16)
+_LAUNCHED_ONCE = HostBuildCache(16)
+
+
+def cta_order(graph: SparseGraph, rows_per_cta: int
+              ) -> torch.Tensor | None:
+    """Kernel B's CTA order for ``graph``: None (index order) at the
+    first launch on its row pointers and ``rows_per_cta``;
+    :func:`heavy_first`'s from the second on, built then and kept. A
+    graph built for one launch (``scatter_graph``'s, as word2vec's
+    updates and the embedding gradient build one a step) costs a lookup
+    and no device work; one launched again (a fit's hops, a training
+    step's layers) pays heavy_first's few small operations once."""
+    pins, extra = (graph.row_ptr,), (graph.n_rows, rows_per_cta)
+    order = _CTA_ORDERS.find(pins, extra)
+    if order is not None:
+        return order
+    if _LAUNCHED_ONCE.find(pins, extra) is None:
+        _LAUNCHED_ONCE.get(pins, extra, lambda: True)
+        return None
+    return _CTA_ORDERS.get(pins, extra, lambda: heavy_first(
+        graph.row_ptr, graph.n_rows, rows_per_cta))
 
 
 def check_precision(precision: str) -> None:
@@ -336,8 +397,12 @@ def _spmm_segment_cuda(graph, x, dense):
                       device=x.device)
     if graph.n_rows == 0 or F == 0:
         return out
-    launch_csr(graph.row_ptr, graph.cols, graph.vals, x, dense, out)
+    plan = csr_plan(F, False, operand_align(x, dense, out))
+    launch_csr(graph.row_ptr, graph.cols, graph.vals, x, dense, out,
+               plan=plan, cta_order=cta_order(graph, plan.rows_per_cta))
     count("launch.csr_spmm")
+    if dense is not None:
+        count("within.csr_spmm_dense")
     return out
 
 
@@ -390,8 +455,11 @@ def spmm_chunked(graph: SparseGraph, x: torch.Tensor,
 
 
 def spmm(graph: SparseGraph, x: torch.Tensor, impl: str = "auto",
-         chunk: int = _DEFAULT_CHUNK) -> torch.Tensor:
-    """Sparse x dense product, f32 ``[n_rows, F]``, by ``impl``:
+         chunk: int = _DEFAULT_CHUNK, *, dense: torch.Tensor | None = None,
+         span_name: str = "spmm") -> torch.Tensor:
+    """Sparse x dense product, f32 ``[n_rows, F]``, plus ``dense``
+    (``[n_rows, F]``, optional) in the same launch of kernel B; by
+    ``impl``:
 
     * ``auto``: ``segment`` on CUDA; on the CPU ``chunked`` when the
       ``(E, F)`` intermediate would exceed ``_SEGMENT_ELEM_BUDGET``
@@ -412,21 +480,30 @@ def spmm(graph: SparseGraph, x: torch.Tensor, impl: str = "auto",
     (``utils.buildcache.placed``; ``clear_placed()`` frees the device
     memory). ``graph`` must live on x's device (:meth:`SparseGraph.to`).
 
-    When x or ``graph.vals`` needs a gradient, ``auto``, ``segment`` and
-    ``chunked`` run ``SpmmSegmentFn`` (kernel B forward; kernel B over
-    the transpose and kernel D backward) and the other impls raise.
+    ``dense`` is taken by ``auto`` and ``segment`` alone (kernel B's
+    epilogue add); the other impls raise with it.
+
+    When x, ``graph.vals`` or ``dense`` needs a gradient, ``auto``,
+    ``segment`` and ``chunked`` run ``SpmmSegmentFn`` (kernel B forward;
+    kernel B over the transpose and kernel D backward), recorded under the
+    span ``span_name``, and the other impls raise.
     """
     if impl not in IMPLS:
         raise ValueError(f"unknown spmm impl {impl!r}; one of {IMPLS}")
     _check_operand(graph, x)
-    if _needs_grad(x, graph.vals):
+    if dense is not None and impl not in ("auto", "segment"):
+        raise ValueError(f"spmm(impl={impl!r}) takes no dense operand; "
+                         "use 'auto' or 'segment'")
+    if _needs_grad(x, graph.vals, dense):
         if impl not in ("auto", "segment", "chunked"):
             raise ValueError(f"spmm(impl={impl!r}) is not differentiable; "
                              "use 'auto', 'segment' or 'chunked' for "
                              "inputs that need a gradient")
         from sgc_tpu_torch.ops.autograd import SpmmSegmentFn
 
-        return SpmmSegmentFn.apply(graph, graph.vals, x)
+        return SpmmSegmentFn.apply(graph, graph.vals, x, dense, span_name)
+    if dense is not None:
+        return spmm_segment(graph, x, dense)
     if impl == "auto":
         if x.device.type == "cpu" and (
                 graph.n_edges_padded * x.shape[1] > _SEGMENT_ELEM_BUDGET):

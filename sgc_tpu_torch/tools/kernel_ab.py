@@ -244,7 +244,7 @@ BASELINE_VARIANTS = {
 
 V, I, L = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
 # C entries' argument types
-CSR_ARGS = [V] * 6 + [I] * 9 + [V]
+CSR_ARGS = [V] * 6 + [I] * 9 + [V, V]
 BASELINE_B_ARGS = [V] * 6 + [I] * 3 + [V]
 A_ARGS = [V] * 7 + [I] * 9 + [V]
 BASELINE_C_ARGS = [V] * 8 + [I] * 7 + [V]

@@ -21,6 +21,9 @@ consume propagated features only.
 * :func:`train_gcn` — the GCN trainer (the reference's ``train_gcn`` /
   ``_gcn_fit``): Adam on the cross-entropy of the train rows, the graph
   propagation inside every step, a fresh dropout mask each epoch.
+* :func:`train_gcnii` — the GCNII trainer, as :func:`train_gcn` with the
+  authors' two Adam parameter groups (L2 on the conv weights and on the
+  dense layers apart).
 
 Each trainer returns the seconds its work took on the device: a host
 clock closed by a sync. The input model is never modified. Before the
@@ -40,6 +43,7 @@ import torch
 import torch.nn.functional as F
 
 from sgc_tpu_torch.models.gcn import GCN, gcn_apply
+from sgc_tpu_torch.models.gcnii import GCNII, gcnii_apply, scaled_operator
 from sgc_tpu_torch.models.sgc import SGC
 from sgc_tpu_torch.ops import kernels
 from sgc_tpu_torch.ops.autograd import transposed
@@ -301,6 +305,54 @@ def train_gcn(model: GCN, features: torch.Tensor, graph, train_idx,
 
     run(_gcn_copy(model), 1)                # warm step, thrown away
     fit = _gcn_copy(model)
+    t = perf_counter()
+    run(fit, epochs)
+    sync(dev)
+    return fit.requires_grad_(False), perf_counter() - t
+
+
+def _gcnii_copy(model: GCNII) -> GCNII:
+    return GCNII(*(p.detach().clone() for p in (
+        model.w_in, model.b_in, model.w_conv, model.w_out, model.b_out)))
+
+
+def train_gcnii(model: GCNII, features: torch.Tensor, graph, train_idx,
+                train_labels: torch.Tensor, epochs: int = 100,
+                lr: float = 0.01, wd_conv: float = 0.01,
+                wd_dense: float = 5e-4, alpha: float = 0.1,
+                lamda: float = 0.5, dropout: float = 0.6, seed: int = 42):
+    """Full-batch GCNII training (the authors' ``train.py`` step without
+    its early stopping): ``torch.optim.Adam(lr)`` with two parameter
+    groups, the conv weights at weight decay ``wd_conv`` and the dense
+    layers at ``wd_dense``, on the cross-entropy of the train rows, with a
+    fresh dropout mask each epoch drawn from a ``torch.Generator`` on the
+    features' device seeded with ``seed``. ``graph`` is ``S``; the
+    prescaled operator ``(1 - alpha) S`` is built here, once. Returns
+    ``(fitted GCNII, seconds)``.
+
+    Per epoch: one kernel-B launch a layer forward (the initial residual
+    added in it) and one over the transpose backward. The kernel
+    libraries, the operator, its transpose and one warm step on a
+    throwaway copy are done before the timer, so the seconds span the
+    epochs alone.
+    """
+    dev = features.device
+    kernels.load_all(dev)
+    scaled = scaled_operator(graph, alpha)
+    labels, weights = train_target(graph.n_rows, train_idx, train_labels)
+
+    def run(fit, n_epochs):
+        generator = torch.Generator(device=dev).manual_seed(seed)
+        _adam_steps([{"params": fit.conv_params(), "weight_decay": wd_conv},
+                     {"params": fit.dense_params(),
+                      "weight_decay": wd_dense}], lr,
+                    lambda: node_cross_entropy(
+                        gcnii_apply(fit, features, scaled, alpha, lamda,
+                                    dropout, generator), labels, weights),
+                    n_epochs)
+
+    run(_gcnii_copy(model), 1)              # warm step, thrown away
+    fit = _gcnii_copy(model)
     t = perf_counter()
     run(fit, epochs)
     sync(dev)

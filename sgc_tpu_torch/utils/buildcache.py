@@ -21,7 +21,8 @@ class HostBuildCache:
     ``get(pins, extra, build)``: ``pins`` are the large source objects
     whose identity keys the entry (kept alive while the entry is);
     ``extra`` is a hashable tuple of build parameters. ``build`` runs on
-    a miss.
+    a miss. ``find(pins, extra)`` is the cached value or None, and builds
+    nothing.
     """
 
     def __init__(self, max_entries: int = 8):
@@ -38,6 +39,10 @@ class HostBuildCache:
             self._store.pop(next(iter(self._store)))
         self._store[key] = (pins, value)
         return value
+
+    def find(self, pins: tuple, extra: tuple):
+        hit = self._store.get(tuple(id(p) for p in pins) + tuple(extra))
+        return None if hit is None else hit[1]
 
     def __len__(self) -> int:
         return len(self._store)

@@ -893,7 +893,9 @@ def test_cuda_kernel_b_width_classes(cuda, width_graph, f, offset,
 def test_cuda_kernel_b_same_bits_for_any_plan(cuda, width_graph, f):
     """Any lanes per row changes which lane holds a feature, how many
     rows share a warp and CTA, the vectors per lane and the edges per
-    batch, not the sum: every such plan gives the default plan's bits."""
+    batch, not the sum: every such plan gives the default plan's bits,
+    in any order of the CTAs (``spmm_segment`` launches the hub CTAs
+    first, ``launch_csr`` alone in index order)."""
     g = width_graph.to(cuda)
     x = torch.randn(g.n_cols, f, device=cuda,
                     generator=torch.Generator(device=cuda).manual_seed(3))
@@ -901,11 +903,15 @@ def test_cuda_kernel_b_same_bits_for_any_plan(cuda, width_graph, f):
     align = port_spmm.operand_align(x, None, want)
     for lanes in (1, 2, 4, 8, 16, 32):
         plan = port_spmm.csr_plan(f, False, align, lanes=lanes)
-        out = torch.empty_like(want)
-        port_spmm.launch_csr(g.row_ptr, g.cols, g.vals, x, None, out,
-                             plan=plan)
-        torch.cuda.synchronize()
-        assert torch.equal(out, want), plan
+        n_ctas = -(-g.n_rows // plan.rows_per_cta)
+        # index order, and the CTAs launched last to first
+        for order in (None, torch.arange(n_ctas - 1, -1, -1, device=cuda,
+                                         dtype=torch.int32)):
+            out = torch.empty_like(want)
+            port_spmm.launch_csr(g.row_ptr, g.cols, g.vals, x, None, out,
+                                 plan=plan, cta_order=order)
+            torch.cuda.synchronize()
+            assert torch.equal(out, want), plan
 
 
 @pytest.mark.cuda

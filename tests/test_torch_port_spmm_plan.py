@@ -189,3 +189,94 @@ def test_every_plan_adds_each_rows_edges_in_order(F):
                 for r in range(len(deg)):
                     assert order[r] == list(range(row_ptr[r],
                                                   row_ptr[r + 1])), r
+
+
+def _row_ptr(degrees):
+    return torch.tensor(np.concatenate([[0], np.cumsum(degrees)]),
+                        dtype=torch.int32)
+
+
+@pytest.mark.parametrize("F", [1, 8, 41, 64, 602])
+def test_heavy_first_launches_the_hub_ctas_first(F):
+    """Kernel B's CTA order: a permutation of the CTAs, those whose
+    busiest warp walks over CSR_HEAVY_WARP times the mean warp's edges
+    first (busiest first), the others in index order."""
+    rng = np.random.default_rng(F)
+    n = 5000
+    degrees = rng.integers(1, 60, n)
+    hubs = rng.choice(n, 6, replace=False)
+    degrees[hubs] = rng.integers(3000, 9000, 6)
+    rpc = sp.csr_plan(F).rows_per_cta
+    order = sp.heavy_first(_row_ptr(degrees), n, rpc).numpy()
+    n_ctas = -(-n // rpc)
+    assert order.dtype == np.int32
+    assert sorted(order.tolist()) == list(range(n_ctas))
+    rpw = rpc // sp.CSR_WARPS
+    warp = np.add.reduceat(degrees, np.arange(0, n, rpw))
+    busiest = np.zeros(n_ctas * sp.CSR_WARPS)
+    busiest[:warp.size] = warp
+    busiest = busiest.reshape(n_ctas, sp.CSR_WARPS).max(axis=1)
+    heavy = busiest > sp.CSR_HEAVY_WARP * warp.mean()
+    k = int(heavy.sum())
+    assert k == len(set(hubs // rpc)) or F == 1    # a warp of 32 rows
+    assert set(order[:k]) == set(np.nonzero(heavy)[0])
+    assert list(busiest[order[:k]]) == sorted(busiest[heavy], reverse=True)
+    assert list(order[k:]) == sorted(order[k:])
+
+
+def test_heavy_first_keeps_index_order_without_hubs():
+    degrees = np.full(3000, 20)
+    for F in (1, 41, 602):
+        rpc = sp.csr_plan(F).rows_per_cta
+        order = sp.heavy_first(_row_ptr(degrees), 3000, rpc)
+        assert torch.equal(order, torch.arange(-(-3000 // rpc),
+                                               dtype=torch.int32))
+
+
+
+def _hub_graph(n=5000, seed=0):
+    rng = np.random.default_rng(seed)
+    degrees = rng.integers(1, 60, n)
+    degrees[rng.choice(n, 6, replace=False)] = 5000
+    row_ptr = _row_ptr(degrees)
+    nnz = int(row_ptr[-1])
+    return SparseGraph(rows=torch.zeros(nnz, dtype=torch.int32),
+                       cols=torch.zeros(nnz, dtype=torch.int32),
+                       vals=torch.ones(nnz), row_ptr=row_ptr, n_rows=n,
+                       n_cols=n, nnz=nnz)
+
+
+def test_cta_order_is_built_at_a_graphs_second_launch():
+    """The first launch on a graph's row pointers gets no order (index
+    order, no device work); the second gets heavy_first's, built then,
+    and every later launch the same tensor."""
+    sp._CTA_ORDERS.clear()
+    sp._LAUNCHED_ONCE.clear()
+    g = _hub_graph()
+    rpc = sp.csr_plan(64).rows_per_cta
+    assert sp.cta_order(g, rpc) is None
+    order = sp.cta_order(g, rpc)
+    assert torch.equal(order, sp.heavy_first(g.row_ptr, g.n_rows, rpc))
+    assert sp.cta_order(g, rpc) is order
+    # another plan of the same graph is another first launch
+    other = sp.csr_plan(602).rows_per_cta
+    assert other != rpc
+    assert sp.cta_order(g, other) is None
+    assert sp.cta_order(g, other) is not None
+
+
+def test_graphs_built_per_launch_keep_the_orders_of_reused_ones():
+    """Graphs launched once each (a scatter a step) build no order and
+    do not evict the order of a graph launched again."""
+    sp._CTA_ORDERS.clear()
+    sp._LAUNCHED_ONCE.clear()
+    g = _hub_graph()
+    rpc = sp.csr_plan(100).rows_per_cta
+    sp.cta_order(g, rpc)
+    order = sp.cta_order(g, rpc)
+    for step in range(40):
+        ids = torch.randint(0, 3000, (4096,),
+                            generator=torch.Generator().manual_seed(step))
+        assert sp.cta_order(sp.scatter_graph(ids, 3000), rpc) is None
+    assert len(sp._CTA_ORDERS) == 1
+    assert sp.cta_order(g, rpc) is order
