@@ -58,6 +58,19 @@
 //   cta_order): the GPU starts CTAs in index order,
 //   so a hub's chain begun in the last wave set the launch's end, by as
 //   much as a hub row's walk, wherever the graph's ids placed it.
+// * The rows' order: `row_map` (optional) lets the kernel walk a copy of
+//   the CSR whose rows are permuted (row_ptr, cols, vals reordered by
+//   row, column ids and x untouched): walked row r is the product's row
+//   row_map[r], read from dense and written to out there. The host gives
+//   it LPA's community order (ops/spmm.py::row_walk) where x outgrows
+//   the L2 on a square graph whose ids scatter its communities (the
+//   shuffled Reddit shape at F = 64: x 60 MB against 50 MB), so that the
+//   CTAs in flight gather from a few communities' rows instead of the
+//   whole table (F = 64, GCNII's operator, H100 80GB HBM3: 0.584 -> 0.402
+//   ms, relabelling x as well 0.388). Tables within the L2 and graphs
+//   already in a local order keep index order; the order is built only
+//   at a run of launches on one graph long enough to repay LPA's run
+//   (a deep stack such as GCNII's, not a K-hop precompute).
 // * Registers are bounded per instance (min_ctas): for 3 CTAs an SM
 //   where a lane gathers at most NARROW_BYTES an edge, 2 where it
 //   issues MANY_LOADS loads an edge, else unbounded.
@@ -74,7 +87,8 @@
 // feature, a row's result is one fmaf chain over its edges in row_ptr
 // order from 0, then dense + acc. That order depends on the row's edges,
 // F and the precision alone: not on n_rows, nnz, the row's position, the
-// other rows or the plan (which lane holds a feature, how edges are
+// other rows, the CTAs' or the rows' order (a walked row keeps its edges
+// in their order) or the plan (which lane holds a feature, how edges are
 // batched or staged change nothing in the chain). No atomics; no row is
 // split. Precision: FP32 products and sums on the CUDA cores. Kernel C
 // also has the reference's precision="bf16" (x_bf16 = 1): x is a bf16
@@ -295,8 +309,12 @@ __device__ __forceinline__ void walk(float (&acc)[NV][VEC], Edge edge,
 // VEC > 1 needs F % VEC == 0 and x, dense and out aligned to their
 // vectors (checked by the host). XS: F = 1 (GAT's segment sums), where
 // the staged path also stages each chunk's x values (its own instance, so
-// the generic path's registers do not set its occupancy).
-template <int VEC, bool BX, int NV, bool XS>
+// the generic path's registers do not set its occupancy). MAP: the rows
+// are walked through row_map, in an instance of its own, so a launch in
+// index order runs the code it ran before the row order existed (with the
+// map tested at run time, F = 41 ran 4-5% slower a launch in index order
+// on an H100).
+template <int VEC, bool BX, int NV, bool XS, bool MAP>
 __global__ void __launch_bounds__(
     WARPS * 32,
     min_ctas(NV * static_cast<int>(sizeof(typename Vec<VEC, BX>::T)), NV))
@@ -307,6 +325,7 @@ csr_spmm_kernel(const int32_t* __restrict__ row_ptr,   // [n_rows + 1]
                 const float* __restrict__ dense,       // [n_rows, F] or null
                 float* __restrict__ out,               // [n_rows, F]
                 const int32_t* __restrict__ cta_order,  // [grid] or null
+                const int32_t* __restrict__ row_map,    // [n_rows] or null
                 int n_rows, int F, int lg_lanes) {
   using S = typename Vec<VEC, false>::T;   // out's vector type
   const int lanes = 1 << lg_lanes;
@@ -316,10 +335,18 @@ csr_spmm_kernel(const int32_t* __restrict__ row_ptr,   // [n_rows + 1]
                             : static_cast<int>(blockIdx.x);
   const int warp_row0 = (cta * WARPS + (threadIdx.x >> 5))
                         << (5 - lg_lanes);
-  const int r = warp_row0 + (lane >> lg_lanes);
+  const int r = warp_row0 + (lane >> lg_lanes);   // the walked row
   const int pass = lanes * NV * VEC;
-  auto finish = [&](float (&acc)[NV][VEC], int f0) {
-    const size_t o = static_cast<size_t>(r) * F + f0;
+  // the row of dense and out that walked row r stands for (a live r only)
+  auto out_row = [&]() {
+    if constexpr (MAP) {
+      return __ldg(row_map + r);
+    } else {
+      return r;
+    }
+  };
+  auto finish = [&](float (&acc)[NV][VEC], int f0, int orow) {
+    const size_t o = static_cast<size_t>(orow) * F + f0;
 #pragma unroll
     for (int i = 0; i < NV; ++i) {
       const int f = (sub + lanes * i) * VEC;
@@ -337,10 +364,11 @@ csr_spmm_kernel(const int32_t* __restrict__ row_ptr,   // [n_rows + 1]
       c = __ldg(cols + e);
       v = __ldg(vals + e);
     };
+    const int orow = out_row();
     for (int f0 = 0; f0 < F; f0 += pass) {
       float acc[NV][VEC] = {};
       walk<VEC, BX, NV>(acc, edge, e_begin, e_end, x, F, f0, sub, lanes);
-      finish(acc, f0);
+      finish(acc, f0, orow);
     }
   } else {
     // The warp's span of edges, [row_ptr[warp_row0], row_ptr[last + 1]),
@@ -360,6 +388,7 @@ csr_spmm_kernel(const int32_t* __restrict__ row_ptr,   // [n_rows + 1]
     const bool live = r < n_rows;
     const int e_begin = live ? __ldg(row_ptr + r) : s0;
     const int e_end = live ? __ldg(row_ptr + r + 1) : s0;
+    const int orow = live ? out_row() : 0;
     auto stage = [&](int c0, int b) {
 #pragma unroll
       for (int k0 = 0; k0 < SE; k0 += 32) {
@@ -411,7 +440,7 @@ csr_spmm_kernel(const int32_t* __restrict__ row_ptr,   // [n_rows + 1]
         }
         __syncwarp();   // buffer b is staged again two chunks on
       }
-      if (live) finish(acc, f0);
+      if (live) finish(acc, f0, orow);
     }
   }
 }
@@ -419,20 +448,37 @@ csr_spmm_kernel(const int32_t* __restrict__ row_ptr,   // [n_rows + 1]
 struct Args {
   const void *row_ptr, *cols, *vals, *x, *dense;
   void* out;
-  const void* cta_order;
+  const void *cta_order, *row_map;
   int n_rows, F, lg_lanes, rows_per_cta;
   cudaStream_t stream;
 };
 
-template <int VEC, bool BX, int NV, bool XS>
+template <int VEC, bool BX, int NV, bool XS, bool MAP>
 void launch_kernel(const Args& a) {
   const int blocks = (a.n_rows + a.rows_per_cta - 1) / a.rows_per_cta;
-  csr_spmm_kernel<VEC, BX, NV, XS><<<blocks, WARPS * 32, 0, a.stream>>>(
+  csr_spmm_kernel<VEC, BX, NV, XS, MAP><<<blocks, WARPS * 32, 0, a.stream>>>(
       static_cast<const int32_t*>(a.row_ptr),
       static_cast<const int32_t*>(a.cols), static_cast<const float*>(a.vals),
       static_cast<const typename Vec<VEC, BX>::E*>(a.x),
       static_cast<const float*>(a.dense), static_cast<float*>(a.out),
-      static_cast<const int32_t*>(a.cta_order), a.n_rows, a.F, a.lg_lanes);
+      static_cast<const int32_t*>(a.cta_order),
+      static_cast<const int32_t*>(a.row_map), a.n_rows, a.F, a.lg_lanes);
+}
+
+// a row map is taken with f32 x only (kernel B's; kernel C's bf16 x keeps
+// its rows' order)
+template <int VEC, bool BX, int NV, bool XS>
+bool launch_map(const Args& a) {
+  if (a.row_map == nullptr) {
+    launch_kernel<VEC, BX, NV, XS, false>(a);
+    return true;
+  }
+  if constexpr (BX) {
+    return false;
+  } else {
+    launch_kernel<VEC, BX, NV, XS, true>(a);
+    return true;
+  }
 }
 
 template <int VEC, bool BX, int NV>
@@ -440,13 +486,9 @@ bool launch_nv(int nv, const Args& a) {
   if constexpr (NV * VEC <= PASS_VALUES) {
     if (nv != NV) return false;
     if constexpr (VEC == 1 && NV == 1 && !BX && STAGE_EDGES > 0) {
-      if (a.F == 1) {
-        launch_kernel<1, false, 1, true>(a);
-        return true;
-      }
+      if (a.F == 1) return launch_map<1, false, 1, true>(a);
     }
-    launch_kernel<VEC, BX, NV, false>(a);
-    return true;
+    return launch_map<VEC, BX, NV, false>(a);
   }
   return false;
 }
@@ -480,13 +522,17 @@ extern "C" {
 // what this file compiles. Pointers are device pointers; `stream` is a
 // cudaStream_t; `cta_order` (null: index order) is a permutation of the
 // ceil(n_rows / rows_per_cta) CTAs, int32, the k-th launched CTA taking
-// the rows of CTA cta_order[k]. Returns cudaGetLastError() after the
-// launch, or cudaErrorInvalidValue for shapes or plans the kernel does
-// not take.
+// the rows of CTA cta_order[k]; `row_map` (null: identity; f32 x only)
+// is a permutation of the n_rows rows, int32: the CSR's row r is the
+// matrix's row row_map[r], read from dense and written to out there (the
+// CSR is then the matrix with its rows walked in row_map's order, columns
+// unchanged). Returns cudaGetLastError() after the launch, or
+// cudaErrorInvalidValue for shapes or plans the kernel does not take.
 int csr_spmm(const void* row_ptr, const void* cols, const void* vals,
              const void* x, const void* dense, void* out, int n_rows, int F,
              int x_bf16, int vec, int lanes, int nv, int unroll, int passes,
-             int rows_per_cta, void* stream, const void* cta_order) {
+             int rows_per_cta, void* stream, const void* cta_order,
+             const void* row_map) {
   auto aligned = [](const void* p, int n) {
     return reinterpret_cast<uintptr_t>(p) % n == 0;
   };
@@ -500,7 +546,8 @@ int csr_spmm(const void* row_ptr, const void* cols, const void* vals,
       nv * vec <= PASS_VALUES && unroll == unroll_for(nv * vec * x_bytes) &&
       passes == (F / vec + lanes * nv - 1) / (lanes * nv);
   if (!ok) return static_cast<int>(cudaErrorInvalidValue);
-  const Args a{row_ptr, cols, vals, x, dense, out, cta_order, n_rows, F,
+  const Args a{row_ptr, cols, vals, x, dense, out, cta_order, row_map,
+               n_rows, F,
                __builtin_ctz(static_cast<unsigned>(lanes)), rows_per_cta,
                static_cast<cudaStream_t>(stream)};
   const bool launched = x_bf16 ? launch<true>(vec, nv, a)

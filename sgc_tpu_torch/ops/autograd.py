@@ -125,10 +125,12 @@ def fix_transpose_vals(graph: SparseGraph) -> SparseGraph:
 def spmm_transposed(graph: SparseGraph, vals: torch.Tensor,
                     x: torch.Tensor) -> torch.Tensor:
     """``A^T @ x`` for the pattern of ``graph`` with edge values
-    ``vals``: kernel B over the cached transpose, each launch counted
-    also as ``within.csr_spmm_transposed``."""
+    ``vals``: kernel B over the cached transpose, in ``graph``'s row
+    order where it takes one (``ops.spmm.row_walk``), each launch
+    counted also as ``within.csr_spmm_transposed``."""
     with within(_TRANSPOSED):
-        return spmm_segment(on_transpose(graph, _edge_vals(vals)), x)
+        return spmm_segment(on_transpose(graph, _edge_vals(vals)), x,
+                            order_of=graph)
 
 
 def row_sums(graph: SparseGraph, vals: torch.Tensor) -> torch.Tensor:

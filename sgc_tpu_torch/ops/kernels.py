@@ -42,7 +42,7 @@ _ENTRY = {
     "blockdense": {"blockdense_cells":
                    [_V, _V, _V, _V, _V, _V, _V, _I, _I, _I, _I, _I, _I, _I,
                     _I, _I, _V]},
-    "spmm_csr": {"csr_spmm": [_V] * 6 + [_I] * 9 + [_V, _V]},
+    "spmm_csr": {"csr_spmm": [_V] * 6 + [_I] * 9 + [_V] * 3},
     "sddmm": {"sddmm": [_V] * 5 + [_L, _L] + [_I] * 11 + [_V]},
     "probe_copy": {"probe_scale2": [_V, _V, _L, _V],
                    "probe_select_blocks": [_V, _V, _V, _I, _I, _L, _V],

@@ -9,8 +9,11 @@ launches the same CUDA kernel as kernel C. Both launch it through
 lanes per row, vectors per lane, edges in flight, passes, rows per CTA),
 which depends on F, the precision and the operands' alignment alone;
 kernel B launches the CTAs that hold hub rows first (:func:`cta_order`,
-built at a graph's second launch, kept per graph and plan), which
-changes no bit of the result. On
+built at a graph's second launch, kept per graph and plan), and where x
+outgrows the card's L2 on a graph whose ids scatter its communities it
+walks the rows in LPA's community order (:func:`row_walk`, built at a
+run of launches long enough to repay it, kept per graph); neither
+changes a bit of the result. On
 a CUDA tensor it launches the kernel or raises; on a CPU tensor it runs
 :func:`spmm_segment_plain`, the plain PyTorch version, a sequential
 ``index_add_`` in sorted edge order.
@@ -60,7 +63,9 @@ from sgc_tpu_torch.utils.profiling import count
 # (kernel D, each after a memset of the padding slots) as launch.sddmm,
 # and those of its launches whose plan gives an edge fewer than 32 lanes
 # (several edges a warp) also as within.sddmm.shared_warp; kernel B's
-# launches that add a dense operand also as within.csr_spmm_dense
+# launches that add a dense operand also as within.csr_spmm_dense, and
+# those that walk the rows in a row order (row_walk) as
+# within.csr_spmm_ordered
 
 PRECISIONS = ("f32", "bf16")
 
@@ -88,6 +93,26 @@ CSR_U_MIN, CSR_U_MAX = 2, 16    # edges per batch
 # A CTA whose busiest warp walks more than this many times the mean
 # warp's edges is launched before the others (heavy_first)
 CSR_HEAVY_WARP = 4.0
+# Kernel B's row order (row_walk): the locality measure (block_share) is
+# the share of edges whose row and column fall in one block of
+# ORDER_BLOCK consecutive ids; an order is local where it reaches
+# ORDER_LOCAL_SHARE. Readings at a block of 4096 on the Reddit-shape
+# graphs (233K nodes, 11.7M edges, seed 42): the clustered graph with
+# shuffled ids 0.0370, in LPA's order 0.5206; the uniform draw 0.0370 in
+# its ids and in LPA's order alike (blocks of 1024-16384 read 0.024-0.088
+# shuffled, 0.183-0.779 in LPA's order).
+ORDER_BLOCK = 4096
+ORDER_LOCAL_SHARE = 0.25
+# The order is built at the ORDER_RUN-th launch in a row on one pattern.
+# On an H100 the build (LPA 0.36-0.62 s, the walked copy 0.10-0.23 s)
+# costs what ~4,000 launches at F = 64 save (0.584 -> 0.402 ms on the
+# Reddit-shape graph), so only a graph launched thousands of times
+# repays it. A run this long is a deep stack, which its caller runs
+# again each step with its transpose: a run of R repays the build after
+# ~2,200 / R steps (GCNII's 64 layers: ~35). A K-hop precompute (K = 2
+# for SGC, 10-16 for APPNP and SSGC) and GCN's one or two launches a
+# step never reach it.
+ORDER_RUN = 32
 
 
 @dataclasses.dataclass(frozen=True)
@@ -253,13 +278,17 @@ def launch_csr(row_ptr: torch.Tensor, cols: torch.Tensor,
                vals: torch.Tensor, x: torch.Tensor,
                dense: torch.Tensor | None, out: torch.Tensor,
                x_bf16: bool = False, lib=None, plan: CsrPlan | None = None,
-               cta_order: torch.Tensor | None = None) -> None:
+               cta_order: torch.Tensor | None = None,
+               row_map: torch.Tensor | None = None) -> None:
     """One launch of the CSR kernel into ``out`` ``[n_rows, F]`` (kernel
     B, or kernel C on its re-sorted layout), with the plan of
     :func:`csr_plan` unless ``plan`` is given, its CTAs in the order
-    ``cta_order`` gives (:func:`heavy_first`; None: index order); ``lib``
-    is another build of the kernel's C entry (the A/B tool's variants),
-    default the package's. Raises when the launch fails."""
+    ``cta_order`` gives (:func:`heavy_first`; None: index order); with
+    ``row_map`` (int32 ``[n_rows]``, a :class:`RowWalk`'s; f32 x only)
+    the CSR's row r is the product's row ``row_map[r]``, read from
+    ``dense`` and written to ``out`` there; ``lib`` is another build of the kernel's C
+    entry (the A/B tool's variants), default the package's. Raises when
+    the launch fails."""
     n_rows, F = out.shape
     if plan is None:
         plan = csr_plan(F, x_bf16, operand_align(x, dense, out))
@@ -267,7 +296,8 @@ def launch_csr(row_ptr: torch.Tensor, cols: torch.Tensor,
         row_ptr.data_ptr(), cols.data_ptr(), vals.data_ptr(), x.data_ptr(),
         dense.data_ptr() if dense is not None else None, out.data_ptr(),
         n_rows, F, int(x_bf16), *plan.args(), kernels.stream_of(x),
-        cta_order.data_ptr() if cta_order is not None else None)
+        cta_order.data_ptr() if cta_order is not None else None,
+        row_map.data_ptr() if row_map is not None else None)
     kernels.check_launch(rc, "csr_spmm")
 
 
@@ -310,7 +340,12 @@ def cta_order(graph: SparseGraph, rows_per_cta: int
     updates and the embedding gradient build one a step) costs a lookup
     and no device work; one launched again (a fit's hops, a training
     step's layers) pays heavy_first's few small operations once."""
-    pins, extra = (graph.row_ptr,), (graph.n_rows, rows_per_cta)
+    return _cta_order(graph.row_ptr, graph.n_rows, rows_per_cta)
+
+
+def _cta_order(row_ptr: torch.Tensor, n_rows: int,
+               rows_per_cta: int) -> torch.Tensor | None:
+    pins, extra = (row_ptr,), (n_rows, rows_per_cta)
     order = _CTA_ORDERS.find(pins, extra)
     if order is not None:
         return order
@@ -318,7 +353,148 @@ def cta_order(graph: SparseGraph, rows_per_cta: int
         _LAUNCHED_ONCE.get(pins, extra, lambda: True)
         return None
     return _CTA_ORDERS.get(pins, extra, lambda: heavy_first(
-        graph.row_ptr, graph.n_rows, rows_per_cta))
+        row_ptr, n_rows, rows_per_cta))
+
+
+@dataclasses.dataclass(frozen=True)
+class RowWalk:
+    """A graph's rows in another order for kernel B: ``row_ptr``,
+    ``cols`` and ``vals`` are the graph's CSR with its rows permuted
+    (each row's edges in their own order, column ids unchanged), and
+    row r of it is the graph's row ``row_map[r]`` (int32)."""
+
+    row_ptr: torch.Tensor
+    cols: torch.Tensor
+    vals: torch.Tensor
+    row_map: torch.Tensor
+
+
+def block_share(rows: torch.Tensor, cols: torch.Tensor,
+                pos: torch.Tensor | None = None) -> float:
+    """The locality measure: the share of the edges ``(rows[e],
+    cols[e])`` whose two ends fall in one block of ``ORDER_BLOCK``
+    consecutive positions, a node's position its id, or ``pos[id]`` when
+    ``pos`` is given. One pass on the edges' device and one read of the
+    result."""
+    r, c = rows.long(), cols.long()
+    if pos is not None:
+        r, c = pos[r], pos[c]
+    if r.numel() == 0:
+        return 0.0
+    return float(torch.eq(r // ORDER_BLOCK,
+                          c // ORDER_BLOCK).float().mean())
+
+
+def walk_rows(graph: SparseGraph, row_map: torch.Tensor) -> tuple:
+    """``(row_ptr, cols, edge_perm, row_map)``: ``graph``'s CSR pattern
+    with its rows in the order ``row_map`` (``row_map[r]`` the graph's
+    row that comes r-th), each row's edges in their ``row_ptr`` order;
+    ``edge_perm`` (int32) picks each walked edge's graph edge, for the
+    values. Device operations on the graph's device, no host sync."""
+    n, nnz = graph.n_rows, graph.nnz
+    dev = graph.row_ptr.device
+    row_map = row_map.to(device=dev, dtype=torch.long)
+    ptr = graph.row_ptr.long()
+    starts = ptr[row_map]
+    deg = ptr[1:][row_map] - starts
+    ptr_w = torch.cat((deg.new_zeros(1), torch.cumsum(deg, 0)))
+    walked = torch.repeat_interleave(torch.arange(n, device=dev), deg,
+                                     output_size=nnz)
+    edge_perm = (starts - ptr_w[:-1])[walked] + torch.arange(nnz,
+                                                             device=dev)
+    return (ptr_w.to(torch.int32), graph.cols.index_select(0, edge_perm),
+            edge_perm.to(torch.int32), row_map.to(torch.int32))
+
+
+def _walked_pattern(graph: SparseGraph,
+                    order_of: SparseGraph | None = None) -> tuple:
+    """:func:`walk_rows` of a square graph in LPA's order
+    (graph/reorder.py::lpa_order, the native solver), or ``()`` (index
+    order) where its ids are already local (:func:`block_share` at least
+    ``ORDER_LOCAL_SHARE``), where LPA's order is not (a graph with no
+    communities) or where the native library cannot be built. With
+    ``order_of`` (a graph over the same nodes: a transpose's forward
+    graph) the rows take that graph's order, decided and kept for it
+    too, so LPA runs once for both (the measure is symmetric in an
+    edge's ends, so a transpose reads what its source reads)."""
+    if order_of is not None:
+        source = _ROW_ORDERS.get((order_of.row_ptr, order_of.cols), (),
+                                 lambda: _walked_pattern(order_of))
+        return walk_rows(graph, source[3]) if source else ()
+    import numpy as np
+    import scipy.sparse as sp
+
+    from sgc_tpu_torch import native
+    from sgc_tpu_torch.graph.reorder import lpa_order
+    from sgc_tpu_torch.graph.sparse import host
+
+    nnz = graph.nnz
+    rows, cols = graph.rows[:nnz], graph.cols[:nnz]
+    if (block_share(rows, cols) >= ORDER_LOCAL_SHARE
+            or not native.available()):
+        return ()
+    adj = sp.csr_matrix((np.ones(nnz, np.float32), host(cols),
+                         host(graph.row_ptr)), shape=graph.shape)
+    order = torch.as_tensor(lpa_order(adj), device=graph.row_ptr.device)
+    pos = torch.empty_like(order)
+    pos[order] = torch.arange(order.numel(), device=order.device)
+    if block_share(rows, cols, pos) < ORDER_LOCAL_SHARE:
+        return ()
+    return walk_rows(graph, order)
+
+
+# the walked pattern per graph pattern, ``()`` where the order does not
+# engage, keyed by the row pointers' and the columns' identity (so at
+# most one LPA run a pattern while it is kept); the walked values per
+# graph, keyed by the values' identity too (a reweighting gets its own
+# copy); and the current run, [pattern's ids, launches in a row]
+_ROW_ORDERS = HostBuildCache(8)
+_ROW_WALKS = HostBuildCache(8)
+_RUN = [None, 0]
+_L2_BYTES: dict = {}
+
+
+def l2_bytes(device: torch.device) -> int:
+    """The L2 cache size of the CUDA ``device`` (a tensor's, so with its
+    index), read once."""
+    size = _L2_BYTES.get(device)
+    if size is None:
+        size = _L2_BYTES[device] = int(
+            torch.cuda.get_device_properties(device).L2_cache_size)
+    return size
+
+
+def row_walk(graph: SparseGraph, F: int,
+             order_of: SparseGraph | None = None) -> RowWalk | None:
+    """Kernel B's row order for a product of ``graph`` at width ``F``,
+    or None (index order). The order engages only where (1) the gathered
+    table, ``n_cols x F`` f32, outgrows the L2 of the graph's device
+    (:func:`l2_bytes`), so that the rows' order decides what stays in
+    it; (2) the graph is square and its ids are not local by
+    :func:`block_share`; (3) LPA's order is (:func:`_walked_pattern`;
+    ``order_of`` as there). It is built only where it is repaid: at the
+    ``ORDER_RUN``-th launch in a row on the graph's pattern, a deep
+    stack that its caller runs again each step, and kept; a K-hop
+    precompute's hops and a shallow model's launches a step never get
+    there. After that, a launch costs cache lookups on the host: no
+    device work, no host sync."""
+    ids = (id(graph.row_ptr), id(graph.cols))
+    _RUN[:] = [ids, _RUN[1] + 1 if _RUN[0] == ids else 1]
+    if (graph.n_rows != graph.n_cols or graph.nnz == 0
+            or 4 * graph.n_cols * F <= l2_bytes(graph.row_ptr.device)):
+        return None
+    pins = (graph.row_ptr, graph.cols)
+    pattern = _ROW_ORDERS.find(pins, ())
+    if pattern is None:
+        if _RUN[1] < ORDER_RUN:
+            return None
+        pattern = _ROW_ORDERS.get(pins, (), lambda: _walked_pattern(
+            graph, order_of))
+    if not pattern:
+        return None
+    ptr, cols, edge_perm, row_map = pattern
+    return _ROW_WALKS.get(pins + (graph.vals,), (), lambda: RowWalk(
+        ptr, cols, graph.vals.index_select(0, edge_perm), row_map))
 
 
 def check_precision(precision: str) -> None:
@@ -370,20 +546,24 @@ def _check_operand(graph: SparseGraph, x: torch.Tensor) -> None:
 
 
 def spmm_segment(graph: SparseGraph, x: torch.Tensor,
-                 dense: torch.Tensor | None = None) -> torch.Tensor:
+                 dense: torch.Tensor | None = None, *,
+                 order_of: SparseGraph | None = None) -> torch.Tensor:
     """``out[r] = dense[r] + sum_{e: rows[e]==r} vals[e] * x[cols[e]]``
     (``dense`` optional), f32 ``[n_rows, F]``.
 
     ``graph`` must live on x's device (:meth:`SparseGraph.to`).
+    ``order_of``: a graph over the same nodes whose row order kernel B
+    takes for ``graph`` (:func:`row_walk`; the backward's transposes
+    take their forward graph's).
     """
     _check_operand(graph, x)
     _no_grad_operands("spmm_segment", x, graph.vals, dense)
     if x.device.type == "cpu":
         return spmm_segment_plain(graph, x, dense)
-    return _spmm_segment_cuda(graph, x, dense)
+    return _spmm_segment_cuda(graph, x, dense, order_of)
 
 
-def _spmm_segment_cuda(graph, x, dense):
+def _spmm_segment_cuda(graph, x, dense, order_of=None):
     F = int(x.shape[1])
     kernels.require_cuda_f32(x, "x")
     if dense is not None:
@@ -398,11 +578,20 @@ def _spmm_segment_cuda(graph, x, dense):
     if graph.n_rows == 0 or F == 0:
         return out
     plan = csr_plan(F, False, operand_align(x, dense, out))
-    launch_csr(graph.row_ptr, graph.cols, graph.vals, x, dense, out,
-               plan=plan, cta_order=cta_order(graph, plan.rows_per_cta))
+    walk = row_walk(graph, F, order_of)
+    if walk is None:
+        launch_csr(graph.row_ptr, graph.cols, graph.vals, x, dense, out,
+                   plan=plan, cta_order=cta_order(graph, plan.rows_per_cta))
+    else:
+        launch_csr(walk.row_ptr, walk.cols, walk.vals, x, dense, out,
+                   plan=plan, cta_order=_cta_order(
+                       walk.row_ptr, graph.n_rows, plan.rows_per_cta),
+                   row_map=walk.row_map)
     count("launch.csr_spmm")
     if dense is not None:
         count("within.csr_spmm_dense")
+    if walk is not None:
+        count("within.csr_spmm_ordered")
     return out
 
 

@@ -4,7 +4,8 @@ smoke's full-scale clustered-Reddit splits (E, F and G at the probes'
 defaults).
 
     python3 -m sgc_tpu_torch.tools.kernel_ab [--scale 1.0] [--reps 5]
-        [--kernels a,b,c,d,e,f,g,h] [--baseline-b path/to/spmm_csr.cu]
+        [--kernels a,b,b_order,c,d,e,f,g,h]
+        [--baseline-b path/to/spmm_csr.cu]
         [--baseline-c path/to/tiled_spmm.cu]
         [--baseline-d path/to/sddmm.cu]
         [--baseline-e path/to/probe_copy.cu]
@@ -61,6 +62,20 @@ must give the base kernel's bits. With ``--baseline-b`` (the
 kernel of an earlier commit, whose C entry ``csr_spmm`` takes ``row_ptr,
 cols, vals, x, dense, out, n_rows, F, x_bf16, stream``) it also times
 that kernel on every case and raises unless it gives the same bits.
+
+Kernel B's row order (``b_order``, ``ops/spmm.py::row_walk``) on GCNII's
+operator (``(1 - alpha) S`` at alpha 0.1 on the shuffled graph): the
+locality measure in the graph's ids and in LPA's order, LPA's and the
+permuted copy's build times, and whether ``row_walk`` engages at F = 8,
+41 and 64; then kernel B at F = 64 with GCNII's dense operand, and at F
+= 41, 8 and 602 (a plain hop) without, in four forms, each in index
+CTA order and with
+``heavy_first``'s: (a) the graph's ids; (b) the same operator relabelled
+in LPA's order, rows and columns, x and the dense operand permuted (the
+ceiling of the order); (c) (b)'s rows with the graph's column ids and the
+row map, the product in the graph's rows (the design); (c0) as (c) with
+the output left in walked order (no row map). Each form's bits must
+equal (a)'s, row for row.
 
 Kernel C: the current kernel (``csrc/spmm_csr.cu`` on the layout's edges
 re-sorted by row) on the onehot main and last-hop splits, beside
@@ -244,7 +259,7 @@ BASELINE_VARIANTS = {
 
 V, I, L = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
 # C entries' argument types
-CSR_ARGS = [V] * 6 + [I] * 9 + [V, V]
+CSR_ARGS = [V] * 6 + [I] * 9 + [V] * 3
 BASELINE_B_ARGS = [V] * 6 + [I] * 3 + [V]
 A_ARGS = [V] * 7 + [I] * 9 + [V]
 BASELINE_C_ARGS = [V] * 8 + [I] * 7 + [V]
@@ -583,6 +598,91 @@ def kernel_b(data, device, reps: int, seed: int,
         torch.cuda.empty_cache()
     if mismatched:
         raise AssertionError(f"kernel B bits differ: {mismatched}")
+
+
+def kernel_b_orders(data, device, reps: int, seed: int) -> None:
+    import time
+
+    import numpy as np
+    import scipy.sparse as sp
+
+    import torch
+
+    from sgc_tpu_torch.graph.reorder import lpa_order
+    from sgc_tpu_torch.graph.sparse import host
+    from sgc_tpu_torch.ops import spmm as sm
+
+    g0 = data[0].to(device)
+    g = g0.with_vals(g0.vals * 0.9)
+    del g0
+    n, nnz = g.n_rows, g.nnz
+    t0 = time.perf_counter()
+    order = torch.as_tensor(lpa_order(sp.csr_matrix(
+        (np.ones(nnz, np.float32), host(g.cols)[:nnz], host(g.row_ptr)),
+        shape=g.shape)), device=device)
+    lpa_s = time.perf_counter() - t0
+    pos = torch.empty_like(order)
+    pos[order] = torch.arange(n, device=device)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ptr, cols, edge_perm, row_map = sm.walk_rows(g, order)
+    vals = g.vals.index_select(0, edge_perm)
+    torch.cuda.synchronize()
+    walk_s = time.perf_counter() - t0
+    rows, gcols = g.rows[:nnz], g.cols[:nnz]
+    engaged = {}
+    for F in (8, 41, 64):
+        for _ in range(sm.ORDER_RUN):
+            walk = sm.row_walk(g, F)
+        engaged[F] = walk is not None
+    emit({"kernel": "B", "case": "row_order", "n": n, "nnz": nnz,
+          "l2_bytes": sm.l2_bytes(device), "block": sm.ORDER_BLOCK,
+          "share_ids": sm.block_share(rows, gcols),
+          "share_lpa": sm.block_share(rows, gcols, pos), "lpa_s": lpa_s,
+          "walk_s": walk_s, "engaged": engaged})
+    cols_b = pos.index_select(0, cols.long()).to(torch.int32)
+    gen = torch.Generator(device=device).manual_seed(seed)
+    mismatched = []
+    for F in (64, 41, 8, 602):
+        x = torch.randn((n, F), device=device, generator=gen)
+        dense = (torch.randn((n, F), device=device, generator=gen)
+                 if F == 64 else None)
+        xb = x.index_select(0, order)
+        db = None if dense is None else dense.index_select(0, order)
+        want = torch.empty((n, F), device=device)
+        plan = sm.csr_plan(F, False, sm.operand_align(x, dense, want))
+        sm.launch_csr(g.row_ptr, g.cols, g.vals, x, dense, want, plan=plan)
+        walked_want = want.index_select(0, order)
+        heavy = {"a": sm.heavy_first(g.row_ptr, n, plan.rows_per_cta)}
+        heavy["b"] = heavy["c"] = heavy["c0"] = sm.heavy_first(
+            ptr, n, plan.rows_per_cta)
+        forms = {"a": (g.row_ptr, g.cols, g.vals, x, dense, None, want),
+                 "b": (ptr, cols_b, vals, xb, db, None, walked_want),
+                 "c": (ptr, cols, vals, x, dense, row_map, want),
+                 "c0": (ptr, cols, vals, x, db, None, walked_want)}
+        for form, (p_, c_, v_, x_, d_, m_, ref) in forms.items():
+            for cta in (None, heavy[form]):
+                out = torch.empty((n, F), device=device)
+
+                def run(p_=p_, c_=c_, v_=v_, x_=x_, d_=d_, m_=m_, out=out,
+                        cta=cta):
+                    sm.launch_csr(p_, c_, v_, x_, d_, out, plan=plan,
+                                  cta_order=cta, row_map=m_)
+                run()
+                torch.cuda.synchronize()
+                same = bool(torch.equal(out, ref))
+                ms = time_ms(run, reps)
+                emit({"kernel": "B", "case": f"gcnii_f{F}", "form": form,
+                      "dense": dense is not None,
+                      "cta_order": cta is not None, "ms": ms,
+                      "gathered_tbps": nnz * F * 4 / ms / 1e9,
+                      "same_bits_as_index": same})
+                if not same:
+                    mismatched.append((F, form, cta is not None))
+        del x, dense, xb, db, want, walked_want
+        torch.cuda.empty_cache()
+    if mismatched:
+        raise AssertionError(f"kernel B row order bits differ: {mismatched}")
 
 
 def kernel_a(data, device, reps: int) -> None:
@@ -1338,7 +1438,7 @@ def main() -> int:
     ap.add_argument("--scale", type=float, default=1.0)
     ap.add_argument("--seed", type=int, default=42)
     ap.add_argument("--reps", type=int, default=5)
-    ap.add_argument("--kernels", default="a,b,c,d,e,f,g,h",
+    ap.add_argument("--kernels", default="a,b,b_order,c,d,e,f,g,h",
                     help="comma-separated kernels to run")
     ap.add_argument("--baseline-b", type=Path, default=None)
     ap.add_argument("--baseline-c", type=Path, default=None)
@@ -1372,7 +1472,7 @@ def main() -> int:
         kernel_e(device, args.baseline_e)
     if "f" in chosen:
         kernel_f(device, args.baseline_f)
-    if not chosen & set("abcdh"):
+    if not chosen & {"a", "b", "b_order", "c", "d", "h"}:
         return 0
     data = synthetic_reddit_clustered(args.scale, seed=args.seed,
                                       shuffle=True)
@@ -1380,6 +1480,8 @@ def main() -> int:
         kernel_a(data, device, args.reps)
     if "b" in chosen:
         kernel_b(data, device, args.reps, args.seed, args.baseline_b)
+    if "b_order" in chosen:
+        kernel_b_orders(data, device, args.reps, args.seed)
     if "c" in chosen:
         kernel_c(data, device, args.reps, args.baseline_c)
     if "d" in chosen:
