@@ -62,15 +62,17 @@
 //   the CSR whose rows are permuted (row_ptr, cols, vals reordered by
 //   row, column ids and x untouched): walked row r is the product's row
 //   row_map[r], read from dense and written to out there. The host gives
-//   it LPA's community order (ops/spmm.py::row_walk) where x outgrows
-//   the L2 on a square graph whose ids scatter its communities (the
-//   shuffled Reddit shape at F = 64: x 60 MB against 50 MB), so that the
-//   CTAs in flight gather from a few communities' rows instead of the
-//   whole table (F = 64, GCNII's operator, H100 80GB HBM3: 0.584 -> 0.402
-//   ms, relabelling x as well 0.388). Tables within the L2 and graphs
-//   already in a local order keep index order; the order is built only
-//   at a run of launches on one graph long enough to repay LPA's run
-//   (a deep stack such as GCNII's, not a K-hop precompute).
+//   it the walk a prepared operator carries (ops/spmm.py::row_walk)
+//   where x outgrows the L2: LPA's community order, decided and built
+//   once when the operator's caller prepares it
+//   (ops/autograd.py::prepare_operator, graph/reorder.py::walk_order;
+//   a deep stack such as GCNII's) on a square graph whose ids scatter
+//   its communities (the shuffled Reddit shape at F = 64: x 60 MB
+//   against 50 MB), so that the CTAs in flight gather from a few
+//   communities' rows instead of the whole table (F = 64, GCNII's
+//   operator, H100 80GB HBM3: 0.584 -> 0.402 ms, relabelling x as well
+//   0.388). Tables within the L2, graphs already in a local order and
+//   graphs nobody prepared keep index order.
 // * Registers are bounded per instance (min_ctas): for 3 CTAs an SM
 //   where a lane gathers at most NARROW_BYTES an edge, 2 where it
 //   issues MANY_LOADS loads an edge, else unbounded.

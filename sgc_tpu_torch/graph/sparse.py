@@ -40,6 +40,19 @@ def host(a) -> np.ndarray:
 
 
 @dataclasses.dataclass(frozen=True)
+class RowWalk:
+    """A graph's rows in another order for kernel B: ``row_ptr``,
+    ``cols`` and ``vals`` are the graph's CSR with its rows permuted
+    (each row's edges in their own order, column ids unchanged), and
+    row r of it is the graph's row ``row_map[r]`` (int32)."""
+
+    row_ptr: torch.Tensor
+    cols: torch.Tensor
+    vals: torch.Tensor
+    row_map: torch.Tensor
+
+
+@dataclasses.dataclass(frozen=True)
 class SparseGraph:
     """Row-sorted COO matrix with CSR row pointers.
 
@@ -50,6 +63,11 @@ class SparseGraph:
       row_ptr: int32[n_rows + 1], offsets into the unpadded edges.
       n_rows, n_cols: the matrix shape.
       nnz:     the true edge count; padding lives in ``[nnz, E_pad)``.
+      walk, prepared_transpose: set by ``ops.autograd.prepare_operator``
+               alone, else None: the rows in kernel B's walked order
+               (:class:`RowWalk`) and the transpose carrying these values
+               (with its own walk). ``with_vals`` of the very same values
+               keeps them; every other constructor drops them.
     """
 
     rows: np.ndarray | torch.Tensor
@@ -59,6 +77,8 @@ class SparseGraph:
     n_rows: int
     n_cols: int
     nnz: int
+    walk: RowWalk | None = None
+    prepared_transpose: "SparseGraph | None" = None
 
     @property
     def n_edges_padded(self) -> int:
@@ -143,12 +163,12 @@ class SparseGraph:
         """The same graph with its arrays as tensors on ``device``
         (``None`` -> the CUDA card; raises without one)."""
         dev = resolve_device(device)
-        return dataclasses.replace(
-            self,
+        return SparseGraph(
             rows=torch.as_tensor(self.rows, device=dev),
             cols=torch.as_tensor(self.cols, device=dev),
             vals=torch.as_tensor(self.vals, device=dev),
             row_ptr=torch.as_tensor(self.row_ptr, device=dev),
+            n_rows=self.n_rows, n_cols=self.n_cols, nnz=self.nnz,
         )
 
     def to_scipy(self):
@@ -187,8 +207,15 @@ class SparseGraph:
         return gt.to(self.device), torch.as_tensor(perm, device=self.device)
 
     def with_vals(self, vals) -> "SparseGraph":
-        """Same sparsity pattern, new edge values."""
-        return dataclasses.replace(self, vals=vals)
+        """Same sparsity pattern, new edge values: the graph itself when
+        ``vals`` is the tensor it holds (a prepared operator stays
+        prepared), else a graph without the preparation, which was made
+        for the old values."""
+        if vals is self.vals:
+            return self
+        return SparseGraph(rows=self.rows, cols=self.cols, vals=vals,
+                           row_ptr=self.row_ptr, n_rows=self.n_rows,
+                           n_cols=self.n_cols, nnz=self.nnz)
 
     def row_subgraph(self, row_indices: np.ndarray) -> "SparseGraph":
         """Keep only edges whose row is in ``row_indices``; rows are

@@ -90,7 +90,14 @@ def deep_gcn_apply(model: DeepGCN, x: torch.Tensor, graph: SparseGraph, *,
                    residual: bool = True, remat: bool = True,
                    impl: str = "auto") -> torch.Tensor:
     """Logits ``[n, C]``: in-projection, the hidden layers ``h <-
-    relu(S @ (h W + b)) (+ h)``, out-projection (deep_gcn.py:77-104)."""
+    relu(S @ (h W + b)) (+ h)``, out-projection (deep_gcn.py:77-104).
+
+    Kernel B walks ``graph``'s rows in a community order only where the
+    graph is prepared (``ops.autograd.prepare_operator``, once, before
+    the steps) and a layer's table outgrows the card's L2; a graph passed
+    as it is launches in index order however deep the stack. Preparing
+    repays its LPA run only over many steps of a deep or wide stack on a
+    large graph whose ids scatter its communities."""
     h = torch.relu(spmm(graph, x @ model.w_in + model.b_in, impl=impl,
                         span_name=SPAN))
     for i in range(int(model.w_hidden.shape[0])):

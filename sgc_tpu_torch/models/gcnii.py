@@ -15,10 +15,14 @@ authors' code applies it.
 The propagation is one launch of kernel B a layer through ``spmm``'s
 differentiable path with a dense operand: ``S' h + alpha h0``, where
 ``S' = (1 - alpha) S`` is built once (:func:`scaled_operator`) and
-``alpha h0`` once a forward. The backward is kernel B over the cached
-transpose of ``S'``, whose values are cached too, so no backward product
-gathers them; ``alpha h0`` takes the output's gradient as it is. Each
-forward and backward of a layer's propagation is a span ``gcnii.prop``.
+``alpha h0`` once a forward. The backward is kernel B over the transpose
+of ``S'`` that the operator carries with its values, so no backward
+product gathers them; ``alpha h0`` takes the output's gradient as it is.
+The row order kernel B walks ``S'`` and its transpose in (LPA's, on a
+graph whose ids scatter its communities) is decided and built with the
+operator, once (ops/autograd.py::prepare_operator); a product walks it
+where its table outgrows the card's L2. Each forward and backward of a
+layer's propagation is a span ``gcnii.prop``.
 
 Departure from the authors' two-term form: the identity mapping is one
 product, ``s_l ((1 - beta_l) I + beta_l W_l)``, equal in exact
@@ -36,7 +40,7 @@ import torch
 from torch import nn
 
 from sgc_tpu_torch.graph.sparse import SparseGraph
-from sgc_tpu_torch.ops.autograd import fix_transpose_vals
+from sgc_tpu_torch.ops.autograd import prepare_operator
 from sgc_tpu_torch.ops.spmm import spmm
 from sgc_tpu_torch.utils.device import resolve_device
 
@@ -91,10 +95,11 @@ def init_gcnii(generator: torch.Generator, nfeat: int, nhid: int,
 
 
 def scaled_operator(graph: SparseGraph, alpha: float) -> SparseGraph:
-    """``S' = (1 - alpha) S`` on ``graph``'s pattern, its transposed
-    values cached for the backward (``ops.autograd.fix_transpose_vals``).
-    Build it once and pass it to every :func:`gcnii_apply`."""
-    return fix_transpose_vals(graph.with_vals(graph.vals * (1.0 - alpha)))
+    """``S' = (1 - alpha) S`` on ``graph``'s pattern, prepared
+    (``ops.autograd.prepare_operator``): its transpose with its values,
+    and the rows of both in kernel B's order. Build it once and pass it
+    to every :func:`gcnii_apply`."""
+    return prepare_operator(graph.with_vals(graph.vals * (1.0 - alpha)))
 
 
 def beta(lamda: float, layer: int) -> float:

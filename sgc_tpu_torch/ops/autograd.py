@@ -15,10 +15,13 @@ CPU tests exercise the card's backward formulas.
   Backward: ``ddense = G``; ``dx = A^T @ G`` is kernel B over the cached
   transpose, with ``vals[perm]`` gathered each call unless ``vals`` is
   the very tensor the transpose was built from (a graph with fixed
-  values, as GCN's) or one whose transposed values
-  :func:`fix_transpose_vals` cached (GCNII's prescaled operator);
+  values, as GCN's) or the graph is an operator :func:`prepare_operator`
+  made (GCNII's prescaled operator), which carries its transpose;
   ``dvals[e] = <G[rows[e]], x[cols[e]]>`` is an SDDMM, kernel D at
-  ``"f32"``, computed only when ``vals`` needs a gradient.
+  ``"f32"``, computed only when ``vals`` needs a gradient. A prepared
+  operator and its transpose carry the row order kernel B walks them in
+  (``SparseGraph.walk``), so the forward and the backward products walk
+  one order, decided at the preparation.
 * :class:`EdgeScoresFn` ``(graph, dst, src) -> dst[rows] + src[cols]``:
   the backward is a row sum of ``g`` (kernel B, F = 1, on the graph) and
   a column sum (kernel B, F = 1, over the transpose with ``g[perm]``).
@@ -56,10 +59,14 @@ nothing from the padding's ``g``; the models mask those slots with
 
 from __future__ import annotations
 
+import dataclasses
+
 import torch
 
+from sgc_tpu_torch.graph.reorder import walk_order
 from sgc_tpu_torch.graph.sparse import SparseGraph
-from sgc_tpu_torch.ops.spmm import scatter_graph, sddmm, spmm_segment
+from sgc_tpu_torch.ops.spmm import (scatter_graph, sddmm, spmm_segment,
+                                    walk_rows)
 from sgc_tpu_torch.utils.buildcache import placed
 from sgc_tpu_torch.utils.profiling import span, within
 
@@ -69,15 +76,13 @@ _TRANSPOSED = {"launch.csr_spmm": "within.csr_spmm_transposed"}
 
 
 def _transpose_entry(graph: SparseGraph):
-    """``(transpose, perm, source vals, fixed)``: the transpose is built
-    on the host once for ``graph``'s pattern and cached by the pattern's
-    arrays (``utils.buildcache.placed``), so every reweighting of one
-    graph shares it; it carries the values of the first graph that asked,
-    held (and pinned) as the third item. ``fixed`` lists ``(vals,
-    transpose carrying them)`` for the values :func:`fix_transpose_vals`
-    registered."""
+    """``(transpose, perm, source vals)``: the transpose is built on the
+    host once for ``graph``'s pattern and cached by the pattern's arrays
+    (``utils.buildcache.placed``), so every reweighting of one graph
+    shares it; it carries the values of the first graph that asked, held
+    (and pinned) as the third item."""
     return placed(graph, ("transpose",), graph.device,
-                  lambda: (*graph.transpose_perm(), graph.vals, []),
+                  lambda: (*graph.transpose_perm(), graph.vals),
                   lambda t, _dev: t, by_vals=False)[1]
 
 
@@ -94,43 +99,44 @@ def _edge_vals(t: torch.Tensor) -> torch.Tensor:
 def on_transpose(graph: SparseGraph, vals: torch.Tensor) -> SparseGraph:
     """The transpose of ``graph`` carrying edge values ``vals`` (one per
     edge of ``graph``): ``vals[perm]`` on the live edges, 0 on padding.
-    The cached transpose itself when ``vals`` is the tensor it was built
-    from, or the one :func:`fix_transpose_vals` cached for ``vals``."""
-    gt, perm, source, fixed = _transpose_entry(graph)
+    The prepared transpose a prepared operator carries when ``vals`` are
+    its values (:func:`prepare_operator`), the cached transpose itself
+    when ``vals`` is the tensor it was built from."""
+    if graph.prepared_transpose is not None and vals is graph.vals:
+        return graph.prepared_transpose
+    gt, perm, source = _transpose_entry(graph)
     if vals is source:
         return gt
-    for held, gt_held in fixed:
-        if vals is held:
-            return gt_held
     out = vals.new_zeros(gt.n_edges_padded)
     out[: graph.nnz] = vals.index_select(0, perm)
     return gt.with_vals(out)
 
 
-def fix_transpose_vals(graph: SparseGraph) -> SparseGraph:
-    """Cache the transpose of ``graph`` carrying ``graph.vals``, so that
-    every backward product with these values (a reweighting of the
-    pattern that stays fixed, as GCNII's prescaled operator) reads them
-    without gathering ``vals[perm]``; returns ``graph``. The values are
-    held (pinned) while the pattern's transpose is cached."""
-    vals = _edge_vals(graph.vals)
-    if vals is not graph.vals:
-        graph = graph.with_vals(vals)
-    entry = _transpose_entry(graph)
-    if vals is not entry[2] and all(vals is not v for v, _ in entry[3]):
-        entry[3].append((vals, on_transpose(graph, vals)))
-    return graph
+def prepare_operator(graph: SparseGraph) -> SparseGraph:
+    """``graph`` as an operator its caller builds once and launches many
+    times (a deep stack's, as GCNII's): it carries its transpose with its
+    values gathered once, and, where graph/reorder.py::walk_order finds
+    an order, the rows of both walked in it (``SparseGraph.walk``), which
+    kernel B takes where the table outgrows the L2 (ops/spmm.py::row_walk).
+    One LPA run; no edge permutation is kept. Built on the graph's
+    device; the CPU's plain product ignores the walks."""
+    graph = graph.with_vals(_edge_vals(graph.vals))
+    gt = on_transpose(graph, graph.vals)
+    order = walk_order(graph)
+    if order is not None:
+        graph = dataclasses.replace(graph, walk=walk_rows(graph, order))
+        gt = dataclasses.replace(gt, walk=walk_rows(gt, order))
+    return dataclasses.replace(graph, prepared_transpose=gt)
 
 
 def spmm_transposed(graph: SparseGraph, vals: torch.Tensor,
                     x: torch.Tensor) -> torch.Tensor:
     """``A^T @ x`` for the pattern of ``graph`` with edge values
-    ``vals``: kernel B over the cached transpose, in ``graph``'s row
-    order where it takes one (``ops.spmm.row_walk``), each launch
-    counted also as ``within.csr_spmm_transposed``."""
+    ``vals``: kernel B over the transpose :func:`on_transpose` gives (a
+    prepared operator's walks its own rows), each launch counted also as
+    ``within.csr_spmm_transposed``."""
     with within(_TRANSPOSED):
-        return spmm_segment(on_transpose(graph, _edge_vals(vals)), x,
-                            order_of=graph)
+        return spmm_segment(on_transpose(graph, _edge_vals(vals)), x)
 
 
 def row_sums(graph: SparseGraph, vals: torch.Tensor) -> torch.Tensor:
@@ -151,7 +157,10 @@ class SpmmSegmentFn(torch.autograd.Function):
     """``A @ x + dense`` with ``A`` = ``graph``'s pattern carrying
     ``vals`` (``dense`` optional); differentiable in ``vals``, ``x`` and
     ``dense``; forward and backward are spans named ``name``. Every graph
-    with ``graph``'s edge arrays shares one cached transpose."""
+    with ``graph``'s edge arrays shares one cached transpose, but an
+    operator of :func:`prepare_operator` launched with its own values
+    stays that operator: its transpose and the row order of both
+    products come with it, decided at its preparation, not here."""
 
     @staticmethod
     def forward(ctx, graph: SparseGraph, vals: torch.Tensor,
@@ -159,7 +168,8 @@ class SpmmSegmentFn(torch.autograd.Function):
                 name: str = "spmm") -> torch.Tensor:
         with span(name, x.device):
             # the graph keeps vals itself, so that on_transpose can tell
-            # the tensor the cached transpose was built from
+            # the tensor the cached transpose was built from (and a
+            # prepared operator's own values keep it prepared)
             graph, x = graph.with_vals(_edge_vals(vals)), x.contiguous()
             ctx.graph, ctx.name = graph, name
             # x feeds dvals alone

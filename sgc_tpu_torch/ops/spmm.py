@@ -10,10 +10,10 @@ lanes per row, vectors per lane, edges in flight, passes, rows per CTA),
 which depends on F, the precision and the operands' alignment alone;
 kernel B launches the CTAs that hold hub rows first (:func:`cta_order`,
 built at a graph's second launch, kept per graph and plan), and where x
-outgrows the card's L2 on a graph whose ids scatter its communities it
-walks the rows in LPA's community order (:func:`row_walk`, built at a
-run of launches long enough to repay it, kept per graph); neither
-changes a bit of the result. On
+outgrows the card's L2 on a prepared operator it walks the rows in the
+order the operator carries (:func:`row_walk`: ``graph.walk``, decided
+and built once by ops/autograd.py::prepare_operator from
+graph/reorder.py::walk_order); neither changes a bit of the result. On
 a CUDA tensor it launches the kernel or raises; on a CPU tensor it runs
 :func:`spmm_segment_plain`, the plain PyTorch version, a sequential
 ``index_add_`` in sorted edge order.
@@ -53,7 +53,7 @@ import dataclasses
 
 import torch
 
-from sgc_tpu_torch.graph.sparse import SparseGraph
+from sgc_tpu_torch.graph.sparse import RowWalk, SparseGraph
 from sgc_tpu_torch.ops import kernels
 from sgc_tpu_torch.utils.buildcache import HostBuildCache
 from sgc_tpu_torch.utils.profiling import count
@@ -64,7 +64,7 @@ from sgc_tpu_torch.utils.profiling import count
 # and those of its launches whose plan gives an edge fewer than 32 lanes
 # (several edges a warp) also as within.sddmm.shared_warp; kernel B's
 # launches that add a dense operand also as within.csr_spmm_dense, and
-# those that walk the rows in a row order (row_walk) as
+# those that walk a prepared operator's rows (row_walk) as
 # within.csr_spmm_ordered
 
 PRECISIONS = ("f32", "bf16")
@@ -93,26 +93,6 @@ CSR_U_MIN, CSR_U_MAX = 2, 16    # edges per batch
 # A CTA whose busiest warp walks more than this many times the mean
 # warp's edges is launched before the others (heavy_first)
 CSR_HEAVY_WARP = 4.0
-# Kernel B's row order (row_walk): the locality measure (block_share) is
-# the share of edges whose row and column fall in one block of
-# ORDER_BLOCK consecutive ids; an order is local where it reaches
-# ORDER_LOCAL_SHARE. Readings at a block of 4096 on the Reddit-shape
-# graphs (233K nodes, 11.7M edges, seed 42): the clustered graph with
-# shuffled ids 0.0370, in LPA's order 0.5206; the uniform draw 0.0370 in
-# its ids and in LPA's order alike (blocks of 1024-16384 read 0.024-0.088
-# shuffled, 0.183-0.779 in LPA's order).
-ORDER_BLOCK = 4096
-ORDER_LOCAL_SHARE = 0.25
-# The order is built at the ORDER_RUN-th launch in a row on one pattern.
-# On an H100 the build (LPA 0.36-0.62 s, the walked copy 0.10-0.23 s)
-# costs what ~4,000 launches at F = 64 save (0.584 -> 0.402 ms on the
-# Reddit-shape graph), so only a graph launched thousands of times
-# repays it. A run this long is a deep stack, which its caller runs
-# again each step with its transpose: a run of R repays the build after
-# ~2,200 / R steps (GCNII's 64 layers: ~35). A K-hop precompute (K = 2
-# for SGC, 10-16 for APPNP and SSGC) and GCN's one or two launches a
-# step never reach it.
-ORDER_RUN = 32
 
 
 @dataclasses.dataclass(frozen=True)
@@ -356,41 +336,11 @@ def _cta_order(row_ptr: torch.Tensor, n_rows: int,
         row_ptr, n_rows, rows_per_cta))
 
 
-@dataclasses.dataclass(frozen=True)
-class RowWalk:
-    """A graph's rows in another order for kernel B: ``row_ptr``,
-    ``cols`` and ``vals`` are the graph's CSR with its rows permuted
-    (each row's edges in their own order, column ids unchanged), and
-    row r of it is the graph's row ``row_map[r]`` (int32)."""
-
-    row_ptr: torch.Tensor
-    cols: torch.Tensor
-    vals: torch.Tensor
-    row_map: torch.Tensor
-
-
-def block_share(rows: torch.Tensor, cols: torch.Tensor,
-                pos: torch.Tensor | None = None) -> float:
-    """The locality measure: the share of the edges ``(rows[e],
-    cols[e])`` whose two ends fall in one block of ``ORDER_BLOCK``
-    consecutive positions, a node's position its id, or ``pos[id]`` when
-    ``pos`` is given. One pass on the edges' device and one read of the
-    result."""
-    r, c = rows.long(), cols.long()
-    if pos is not None:
-        r, c = pos[r], pos[c]
-    if r.numel() == 0:
-        return 0.0
-    return float(torch.eq(r // ORDER_BLOCK,
-                          c // ORDER_BLOCK).float().mean())
-
-
-def walk_rows(graph: SparseGraph, row_map: torch.Tensor) -> tuple:
-    """``(row_ptr, cols, edge_perm, row_map)``: ``graph``'s CSR pattern
-    with its rows in the order ``row_map`` (``row_map[r]`` the graph's
-    row that comes r-th), each row's edges in their ``row_ptr`` order;
-    ``edge_perm`` (int32) picks each walked edge's graph edge, for the
-    values. Device operations on the graph's device, no host sync."""
+def walk_rows(graph: SparseGraph, row_map: torch.Tensor) -> RowWalk:
+    """``graph``'s CSR with its rows in the order ``row_map``
+    (``row_map[r]`` the graph's row that comes r-th), each row's edges
+    in their ``row_ptr`` order, its values walked with them. Device
+    operations on the graph's device, no host sync."""
     n, nnz = graph.n_rows, graph.nnz
     dev = graph.row_ptr.device
     row_map = row_map.to(device=dev, dtype=torch.long)
@@ -402,55 +352,12 @@ def walk_rows(graph: SparseGraph, row_map: torch.Tensor) -> tuple:
                                      output_size=nnz)
     edge_perm = (starts - ptr_w[:-1])[walked] + torch.arange(nnz,
                                                              device=dev)
-    return (ptr_w.to(torch.int32), graph.cols.index_select(0, edge_perm),
-            edge_perm.to(torch.int32), row_map.to(torch.int32))
+    return RowWalk(ptr_w.to(torch.int32),
+                   graph.cols.index_select(0, edge_perm),
+                   graph.vals.index_select(0, edge_perm),
+                   row_map.to(torch.int32))
 
 
-def _walked_pattern(graph: SparseGraph,
-                    order_of: SparseGraph | None = None) -> tuple:
-    """:func:`walk_rows` of a square graph in LPA's order
-    (graph/reorder.py::lpa_order, the native solver), or ``()`` (index
-    order) where its ids are already local (:func:`block_share` at least
-    ``ORDER_LOCAL_SHARE``), where LPA's order is not (a graph with no
-    communities) or where the native library cannot be built. With
-    ``order_of`` (a graph over the same nodes: a transpose's forward
-    graph) the rows take that graph's order, decided and kept for it
-    too, so LPA runs once for both (the measure is symmetric in an
-    edge's ends, so a transpose reads what its source reads)."""
-    if order_of is not None:
-        source = _ROW_ORDERS.get((order_of.row_ptr, order_of.cols), (),
-                                 lambda: _walked_pattern(order_of))
-        return walk_rows(graph, source[3]) if source else ()
-    import numpy as np
-    import scipy.sparse as sp
-
-    from sgc_tpu_torch import native
-    from sgc_tpu_torch.graph.reorder import lpa_order
-    from sgc_tpu_torch.graph.sparse import host
-
-    nnz = graph.nnz
-    rows, cols = graph.rows[:nnz], graph.cols[:nnz]
-    if (block_share(rows, cols) >= ORDER_LOCAL_SHARE
-            or not native.available()):
-        return ()
-    adj = sp.csr_matrix((np.ones(nnz, np.float32), host(cols),
-                         host(graph.row_ptr)), shape=graph.shape)
-    order = torch.as_tensor(lpa_order(adj), device=graph.row_ptr.device)
-    pos = torch.empty_like(order)
-    pos[order] = torch.arange(order.numel(), device=order.device)
-    if block_share(rows, cols, pos) < ORDER_LOCAL_SHARE:
-        return ()
-    return walk_rows(graph, order)
-
-
-# the walked pattern per graph pattern, ``()`` where the order does not
-# engage, keyed by the row pointers' and the columns' identity (so at
-# most one LPA run a pattern while it is kept); the walked values per
-# graph, keyed by the values' identity too (a reweighting gets its own
-# copy); and the current run, [pattern's ids, launches in a row]
-_ROW_ORDERS = HostBuildCache(8)
-_ROW_WALKS = HostBuildCache(8)
-_RUN = [None, 0]
 _L2_BYTES: dict = {}
 
 
@@ -464,37 +371,17 @@ def l2_bytes(device: torch.device) -> int:
     return size
 
 
-def row_walk(graph: SparseGraph, F: int,
-             order_of: SparseGraph | None = None) -> RowWalk | None:
-    """Kernel B's row order for a product of ``graph`` at width ``F``,
-    or None (index order). The order engages only where (1) the gathered
-    table, ``n_cols x F`` f32, outgrows the L2 of the graph's device
-    (:func:`l2_bytes`), so that the rows' order decides what stays in
-    it; (2) the graph is square and its ids are not local by
-    :func:`block_share`; (3) LPA's order is (:func:`_walked_pattern`;
-    ``order_of`` as there). It is built only where it is repaid: at the
-    ``ORDER_RUN``-th launch in a row on the graph's pattern, a deep
-    stack that its caller runs again each step, and kept; a K-hop
-    precompute's hops and a shallow model's launches a step never get
-    there. After that, a launch costs cache lookups on the host: no
-    device work, no host sync."""
-    ids = (id(graph.row_ptr), id(graph.cols))
-    _RUN[:] = [ids, _RUN[1] + 1 if _RUN[0] == ids else 1]
-    if (graph.n_rows != graph.n_cols or graph.nnz == 0
-            or 4 * graph.n_cols * F <= l2_bytes(graph.row_ptr.device)):
+def row_walk(graph: SparseGraph, F: int) -> RowWalk | None:
+    """The walk kernel B launches for a product of ``graph`` at width
+    ``F``, or None (index order): the walk a prepared operator carries
+    (``graph.walk``), where the gathered table, ``n_cols x F`` f32,
+    outgrows the L2 of the graph's device (:func:`l2_bytes`), so that the
+    rows' order decides what stays in it. The graph alone decides: no
+    launch before this one does."""
+    if graph.walk is None or 4 * graph.n_cols * F <= l2_bytes(
+            graph.row_ptr.device):
         return None
-    pins = (graph.row_ptr, graph.cols)
-    pattern = _ROW_ORDERS.find(pins, ())
-    if pattern is None:
-        if _RUN[1] < ORDER_RUN:
-            return None
-        pattern = _ROW_ORDERS.get(pins, (), lambda: _walked_pattern(
-            graph, order_of))
-    if not pattern:
-        return None
-    ptr, cols, edge_perm, row_map = pattern
-    return _ROW_WALKS.get(pins + (graph.vals,), (), lambda: RowWalk(
-        ptr, cols, graph.vals.index_select(0, edge_perm), row_map))
+    return graph.walk
 
 
 def check_precision(precision: str) -> None:
@@ -546,24 +433,22 @@ def _check_operand(graph: SparseGraph, x: torch.Tensor) -> None:
 
 
 def spmm_segment(graph: SparseGraph, x: torch.Tensor,
-                 dense: torch.Tensor | None = None, *,
-                 order_of: SparseGraph | None = None) -> torch.Tensor:
+                 dense: torch.Tensor | None = None) -> torch.Tensor:
     """``out[r] = dense[r] + sum_{e: rows[e]==r} vals[e] * x[cols[e]]``
     (``dense`` optional), f32 ``[n_rows, F]``.
 
-    ``graph`` must live on x's device (:meth:`SparseGraph.to`).
-    ``order_of``: a graph over the same nodes whose row order kernel B
-    takes for ``graph`` (:func:`row_walk`; the backward's transposes
-    take their forward graph's).
+    ``graph`` must live on x's device (:meth:`SparseGraph.to`). On the
+    card a prepared operator's rows are walked in its order
+    (:func:`row_walk`).
     """
     _check_operand(graph, x)
     _no_grad_operands("spmm_segment", x, graph.vals, dense)
     if x.device.type == "cpu":
         return spmm_segment_plain(graph, x, dense)
-    return _spmm_segment_cuda(graph, x, dense, order_of)
+    return _spmm_segment_cuda(graph, x, dense)
 
 
-def _spmm_segment_cuda(graph, x, dense, order_of=None):
+def _spmm_segment_cuda(graph, x, dense):
     F = int(x.shape[1])
     kernels.require_cuda_f32(x, "x")
     if dense is not None:
@@ -578,7 +463,7 @@ def _spmm_segment_cuda(graph, x, dense, order_of=None):
     if graph.n_rows == 0 or F == 0:
         return out
     plan = csr_plan(F, False, operand_align(x, dense, out))
-    walk = row_walk(graph, F, order_of)
+    walk = row_walk(graph, F)
     if walk is None:
         launch_csr(graph.row_ptr, graph.cols, graph.vals, x, dense, out,
                    plan=plan, cta_order=cta_order(graph, plan.rows_per_cta))

@@ -5,13 +5,6 @@ defaults).
 
     python3 -m sgc_tpu_torch.tools.kernel_ab [--scale 1.0] [--reps 5]
         [--kernels a,b,b_order,c,d,e,f,g,h]
-        [--baseline-b path/to/spmm_csr.cu]
-        [--baseline-c path/to/tiled_spmm.cu]
-        [--baseline-d path/to/sddmm.cu]
-        [--baseline-e path/to/probe_copy.cu]
-        [--baseline-f path/to/row_gather.cu]
-        [--baseline-g path/to/edge_accumulate.cu]
-        [--baseline-h path/to/blockdense_int8.cu]
 
 Kernel E (``csrc/probe_copy.cu``) at the probes' shapes ((8, 128) and 8
 blocks of (8, 128)), launch-bound: the launch floor (an empty kernel,
@@ -21,12 +14,9 @@ into its steps (each alone over ``SPLIT_CALLS`` calls on the host clock:
 the output's allocation, the raw stream against PyTorch's ``Stream``
 object, the ctypes call with and without a launch, the checks, the
 whole wrapper, ``torch.mul``), then each entry over ``E_CALLS`` calls
-in turns with ``torch.mul(x, 2.0)`` and, with ``--baseline-e`` (an
-earlier commit's source, C entries ``probe_scale2(x, y, n, stream)``
-and ``probe_select_blocks``), that kernel behind PR 16's host path
-(``pr16_scale2``, ``pr16_select_blocks``), each with its mean device
-time a launch under ``torch.profiler`` (``profiled_launch_ms``);
-every result must equal the plain version's bits.
+in turns with ``torch.mul(x, 2.0)``, each with its mean device time a
+launch under ``torch.profiler`` (``profiled_launch_ms``); every result
+must equal the plain version's bits.
 
 Kernel F (``csrc/row_gather.cu``) at the take probe's shape (65,536 rows
 of a 2,048 x 768 table) and the DMA probe's (64 rows of 1,024 x 256):
@@ -37,12 +27,7 @@ under its ``gather_plan`` (the 4-byte load and ``cp.async`` paths forced
 on the aligned table) and variants made by rewriting the source
 (``F_LOAD_VARIANTS``, ``F_ASYNC_VARIANTS``: no L2 policies, loads at
 evict_normal, no proxy fence, other vectors a lane and CTAs an SM),
-each with its mean device time a launch and exact bits. With
-``--baseline-f`` (C entries ``row_gather_load(x, idx, out, n_out, F,
-n_x_rows, stream)`` and ``row_gather_async(..., in_flight, stream)``) it
-times that kernel before any launch of the current one and again after
-them: the current kernel's evict-last reads leave the table favoured in
-L2, which a later kernel inherits.
+each with its mean device time a launch and exact bits.
 
 Kernel B (``csrc/spmm_csr.cu``) at every width its callers use, each on
 its own operand (``b_cases``): F = 1, 8, 16, 41 and 64 on the shuffled
@@ -58,16 +43,15 @@ alone. Variants of the kernel, each made by rewriting one constant of
 the source and the plan that goes with it (``B_VARIANTS``: edges per
 batch, lanes per row, warps per CTA, register bounds, x bytes in flight,
 the edge stream staged in shared memory or not and its chunk size),
-must give the base kernel's bits. With ``--baseline-b`` (the
-kernel of an earlier commit, whose C entry ``csr_spmm`` takes ``row_ptr,
-cols, vals, x, dense, out, n_rows, F, x_bf16, stream``) it also times
-that kernel on every case and raises unless it gives the same bits.
+must give the base kernel's bits.
 
-Kernel B's row order (``b_order``, ``ops/spmm.py::row_walk``) on GCNII's
-operator (``(1 - alpha) S`` at alpha 0.1 on the shuffled graph): the
-locality measure in the graph's ids and in LPA's order, LPA's and the
-permuted copy's build times, and whether ``row_walk`` engages at F = 8,
-41 and 64; then kernel B at F = 64 with GCNII's dense operand, and at F
+Kernel B's row order (``b_order``) on GCNII's operator (``(1 - alpha) S``
+at alpha 0.1 on the shuffled graph): the locality measure in the graph's
+ids and in LPA's order (``graph/reorder.py::block_share``), LPA's and the
+permuted copy's build times, whether the operator's preparation
+(``ops/autograd.py::prepare_operator``) gives it a walk and its time, and
+whether a launch walks it at F = 8, 41 and 64 (``ops/spmm.py::row_walk``,
+the L2 rule); then kernel B at F = 64 with GCNII's dense operand, and at F
 = 41, 8 and 602 (a plain hop) without, in four forms, each in index
 CTA order and with
 ``heavy_first``'s: (a) the graph's ids; (b) the same operator relabelled
@@ -81,19 +65,6 @@ Kernel C: the current kernel (``csrc/spmm_csr.cu`` on the layout's edges
 re-sorted by row) on the onehot main and last-hop splits, beside
 ``torch.addmm`` over the main split's slots as one coalesced CSR matrix
 (its variants are kernel B's, on kernel C's operand).
-With ``--baseline-c`` (the row-ownership kernel C of an earlier commit,
-whose C entry ``tiled_spmm`` takes ``rows, cols, vals, rb_chunk_ptr,
-chunk_st, chunk_nnz, x, out, n_rb, n_rows, n_cols, F, R, W, C, stream``)
-it also times that kernel and variants of it made by rewriting its
-constants, one limit each:
-
-* ``base``: as written (32 features per CTA, 512-row CTAs, stripe staged);
-* ``unstaged``: ``W_STAGED_MAX = 0``, x read straight from L1/L2, no
-  stripe staging and no barriers;
-* ``rows256``: ``RT_MAX = 256``, 96 KB of shared memory, so two CTAs fit
-  an SM;
-* ``no_search``: each warp's slot range taken in proportion to its rows
-  instead of by the warp-wide search (timing only: the sums are wrong).
 
 Kernel A: ``apply_cells`` on the block-dense main split at both
 precisions, each with its error against the plain f32 product and the
@@ -116,10 +87,6 @@ Variants (``D_VARIANTS``: source rewrites and the plan's overrides:
 lanes per edge, edges per warp, and for a warp that is one lane group
 its edges in flight and edges per warp) are each held to the plain
 version.
-With ``--baseline-d`` (the kernel of an earlier commit, whose C entry
-``sddmm`` takes ``rows, cols, a, b, out, nnz, e_pad, F, ld, bf16,
-stream``) it also times that kernel on every case, before and after the
-current one, in the same call.
 
 Kernel G (``csrc/edge_accumulate.cu``) on the gather probe's edges
 (65,536 into 2,048 x 768) in every mode: the whole call, the bucket pass
@@ -129,10 +96,7 @@ on the same edges, and variants made by rewriting the source
 (``G_VARIANTS``: the light rows' slice width, edges read at once and CTA
 size, their x slice read from global memory, the heavy ring's depth and
 4-byte copies, ``__match_any_sync`` for the bucket pass's ranks); every
-variant must give the plain version's bits. With ``--baseline-g`` (the
-one-pass kernel of an earlier commit, whose C entry ``edge_accumulate``
-takes ``rows, cols, vals, x, out, n_edges, R, W, F, rows_per_cta, mode,
-stream``) it also times that kernel in every mode.
+variant must give the plain version's bits.
 
 Kernel H (``csrc/blockdense_int8.cu``) on the block-dense main split's
 cells quantized per cell, x padded to 768: its time, its error against
@@ -146,13 +110,7 @@ wgmmas, leaving the loads, the dequantization and the running sum;
 sum in shared memory, ``row_block_sum`` the row block's cells summed on
 the tensor cores with no running sum). Then ``base`` and
 ``row_block_sum`` again on random dense int8 cells (seeded) in the main
-split's index, where a long f32 sum shows its rounding. With
-``--baseline-h`` (the ``mma.sync`` kernel of
-an earlier commit, whose C entry ``blockdense_int8_cells`` takes
-``cells, scales, xs, out, rb_ptr, cell_of, st_ids, n_rb, n_st, F_pad,
-R, W, stream``) it also times that kernel as written and with its
-dequantization replaced by the same plain copy (``copy``), which
-measures what the dequantizing pass costs that design.
+split's index, where a long f32 sum shows its rounding.
 
 Prints one JSON line per measurement and the card's name and power
 limit; exits non-zero without a CUDA device.
@@ -244,27 +202,11 @@ A_VARIANTS = {
 A_RUNS = {"terms3": (("f32", 3),)}
 A_DEFAULT_RUNS = (("bf16", 1), ("f32", 2))
 
-BASELINE_VARIANTS = {
-    "base": [],
-    "unstaged": [(r"W_STAGED_MAX = \d+;", "W_STAGED_MAX = 0;")],
-    "rows256": [(r"RT_MAX = \d+;", "RT_MAX = 256;")],
-    "no_search": [(
-        r"const int a = warp_lower_bound\(kr, 0, nnz, key_lo, lane\);\s*"
-        r"const int b = warp_lower_bound\(kr, a, nnz, key_hi, lane\);",
-        "const int a = static_cast<int>(static_cast<int64_t>(nnz) * w_lo"
-        " / rt_rows);\n    const int b = static_cast<int>("
-        "static_cast<int64_t>(nnz) * w_hi / rt_rows);")],
-}
-
-
 V, I, L = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
 # C entries' argument types
 CSR_ARGS = [V] * 6 + [I] * 9 + [V] * 3
-BASELINE_B_ARGS = [V] * 6 + [I] * 3 + [V]
 A_ARGS = [V] * 7 + [I] * 9 + [V]
-BASELINE_C_ARGS = [V] * 8 + [I] * 7 + [V]
 D_ARGS = [V] * 5 + [L, L] + [I] * 11 + [V]
-BASELINE_D_ARGS = [V] * 5 + [L, L, I, I, I, V]
 
 # variants of kernel D: (source rewrites, the plan's overrides) — lanes
 # per edge (a lane holding 16 bytes of b a pass; half and twice the
@@ -307,7 +249,6 @@ G_VARIANTS = {
                    "    const unsigned peers = __match_any_sync(FULL, r);")],
 }
 G_ARGS = [V] * 5 + [L] + [I] * 5 + [V] * 9
-BASELINE_G_ARGS = [V] * 5 + [L] + [I] * 5 + [V]
 
 # variants of kernel H (timing only where marked in the module note)
 H_VARIANTS = {
@@ -333,13 +274,6 @@ H_VARIANTS = {
 }
 H_TIMING_ONLY = {"copy", "flush_in_registers", "no_products"}
 H_ARGS = [V] * 7 + [I] * 6 + [V]
-BASELINE_H_ARGS = [V] * 7 + [I] * 5 + [V]
-BASELINE_H_VARIANTS = {
-    "base": [],
-    "copy": [(r"(uint32_t dequant2\(int q0, int q1, float scale\) \{)",
-              r"\1\n  return (static_cast<uint32_t>(q0) & 0xffffu) | "
-              r"(static_cast<uint32_t>(q1) << 16);")],
-}
 
 
 def build_variants(source: Path, variants: dict, argtypes: list,
@@ -347,8 +281,7 @@ def build_variants(source: Path, variants: dict, argtypes: list,
     """Compile each variant (a list of source rewrites) of a kernel source
     in parallel; returns {variant: (ctypes function ``symbol`` taking
     ``argtypes``, ptxas register counts)}. A library is named by source
-    stem, symbol and variant, and a path loads once a process: an
-    earlier commit's source goes to a ``out_dir`` of its own."""
+    stem, symbol and variant, and a path loads once a process."""
     from sgc_tpu_torch.utils.buildlib import nvcc_path
 
     out_dir.mkdir(parents=True, exist_ok=True)
@@ -382,11 +315,10 @@ def build_variants(source: Path, variants: dict, argtypes: list,
     return fns
 
 
-def kernel_c(data, device, reps: int, baseline: Path | None) -> None:
+def kernel_c(data, device, reps: int) -> None:
     import torch
 
     from sgc_tpu_torch.graph.locality import LocalityPlan
-    from sgc_tpu_torch.ops import kernels
     from sgc_tpu_torch.ops import spmm_tiled as ti
 
     plan = LocalityPlan.build(*data, formulation="onehot", device=device)
@@ -417,29 +349,6 @@ def kernel_c(data, device, reps: int, baseline: Path | None) -> None:
     emit({"kernel": "C", "variant": "current_last_hop", "ms": time_ms(
         lambda: ti.spmm_tiled_flat(final, x, args_final), reps),
         "edges": int(args_final.cols.shape[0])})
-    if baseline is None:
-        return
-    out_dir = ROOT / "build" / "sgc_tpu_torch" / "ab"
-    out = torch.empty((tiled.n_rows, F), device=device)
-    fns = build_variants(baseline, BASELINE_VARIANTS, BASELINE_C_ARGS,
-                         out_dir / "baseline", "tiled_spmm")
-    ptr, chunk_st = ti.flat_index(tiled)
-    ptr = torch.from_numpy(ptr).to(device)
-    chunk_st = torch.from_numpy(chunk_st).to(device)
-    nnz = torch.from_numpy(ti.chunk_nnz(tiled)).to(device)
-
-    for name, (fn, _) in fns.items():
-        def run(fn=fn):
-            rc = fn(rows.data_ptr(), cols.data_ptr(), vals.data_ptr(),
-                    ptr.data_ptr(), chunk_st.data_ptr(), nnz.data_ptr(),
-                    x.data_ptr(), out.data_ptr(), tiled.n_row_blocks,
-                    tiled.n_rows, tiled.n_cols, F, tiled.row_block,
-                    tiled.stripe, tiled.chunk, kernels.stream_of(x))
-            kernels.check_launch(rc, f"baseline {name}")
-        run()
-        torch.cuda.synchronize()
-        emit({"kernel": "C", "variant": f"baseline_{name}",
-              "ms": time_ms(run, reps), "rel_err": rel_err(out, want)})
 
 
 def b_cases(data, device, seed: int):
@@ -501,22 +410,15 @@ def b_variant_plan(F: int, x_bf16: bool, align: int, overrides: dict):
     return csr_plan(F, x_bf16, align, **kw)
 
 
-def kernel_b(data, device, reps: int, seed: int,
-             baseline: Path | None) -> None:
+def kernel_b(data, device, reps: int, seed: int) -> None:
     import torch
 
-    from sgc_tpu_torch.ops import kernels
     from sgc_tpu_torch.ops.spmm import launch_csr, operand_align
 
     out_dir = ROOT / "build" / "sgc_tpu_torch" / "ab"
     fns = build_variants(ROOT / "sgc_tpu_torch" / "csrc" / "spmm_csr.cu",
                          {k: v[0] for k, v in B_VARIANTS.items()}, CSR_ARGS,
                          out_dir, "csr_spmm")
-    base_fn = None
-    if baseline is not None:
-        base_fn = build_variants(baseline, {"baseline": []},
-                                 BASELINE_B_ARGS, out_dir / "baseline",
-                                 "csr_spmm")["baseline"][0]
     mismatched = []
     for name, row_ptr, cols, vals, x, dense, x_bf16, plain in b_cases(
             data, device, seed):
@@ -562,26 +464,6 @@ def kernel_b(data, device, reps: int, seed: int,
             emit(row)
             if not row["same_bits_as_base"]:
                 mismatched.append((name, variant))
-        if base_fn is not None:
-            old = torch.empty_like(out)
-
-            def run_old():
-                rc = base_fn(row_ptr.data_ptr(), cols.data_ptr(),
-                             vals.data_ptr(), x.data_ptr(),
-                             dense.data_ptr() if dense is not None else None,
-                             old.data_ptr(), n_rows, F, int(x_bf16),
-                             kernels.stream_of(x))
-                kernels.check_launch(rc, "baseline csr_spmm")
-            run_old()
-            torch.cuda.synchronize()
-            same = bool(torch.equal(old, results["base"]))
-            emit({"kernel": "B", "case": name, "variant": "baseline",
-                  "F": F, "ms": time_ms(run_old, reps),
-                  "rel_err": rel_err(old, want),
-                  "same_bits_as_base": same})
-            if not same:
-                mismatched.append((name, "baseline"))
-            del old
         if not x_bf16:
             with warnings.catch_warnings():
                 warnings.filterwarnings("ignore", message=".*[Ss]parse")
@@ -608,16 +490,17 @@ def kernel_b_orders(data, device, reps: int, seed: int) -> None:
 
     import torch
 
-    from sgc_tpu_torch.graph.reorder import lpa_order
+    from sgc_tpu_torch.graph import reorder
     from sgc_tpu_torch.graph.sparse import host
     from sgc_tpu_torch.ops import spmm as sm
+    from sgc_tpu_torch.ops.autograd import prepare_operator
 
     g0 = data[0].to(device)
     g = g0.with_vals(g0.vals * 0.9)
     del g0
     n, nnz = g.n_rows, g.nnz
     t0 = time.perf_counter()
-    order = torch.as_tensor(lpa_order(sp.csr_matrix(
+    order = torch.as_tensor(reorder.lpa_order(sp.csr_matrix(
         (np.ones(nnz, np.float32), host(g.cols)[:nnz], host(g.row_ptr)),
         shape=g.shape)), device=device)
     lpa_s = time.perf_counter() - t0
@@ -625,21 +508,25 @@ def kernel_b_orders(data, device, reps: int, seed: int) -> None:
     pos[order] = torch.arange(n, device=device)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    ptr, cols, edge_perm, row_map = sm.walk_rows(g, order)
-    vals = g.vals.index_select(0, edge_perm)
+    walk = sm.walk_rows(g, order)
+    ptr, cols, vals, row_map = (walk.row_ptr, walk.cols, walk.vals,
+                                walk.row_map)
     torch.cuda.synchronize()
     walk_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    prepared = prepare_operator(g)
+    torch.cuda.synchronize()
+    prepare_s = time.perf_counter() - t0
     rows, gcols = g.rows[:nnz], g.cols[:nnz]
-    engaged = {}
-    for F in (8, 41, 64):
-        for _ in range(sm.ORDER_RUN):
-            walk = sm.row_walk(g, F)
-        engaged[F] = walk is not None
     emit({"kernel": "B", "case": "row_order", "n": n, "nnz": nnz,
-          "l2_bytes": sm.l2_bytes(device), "block": sm.ORDER_BLOCK,
-          "share_ids": sm.block_share(rows, gcols),
-          "share_lpa": sm.block_share(rows, gcols, pos), "lpa_s": lpa_s,
-          "walk_s": walk_s, "engaged": engaged})
+          "l2_bytes": sm.l2_bytes(device), "block": reorder.ORDER_BLOCK,
+          "share_ids": reorder.block_share(rows, gcols),
+          "share_lpa": reorder.block_share(rows, gcols, pos), "lpa_s": lpa_s,
+          "walk_s": walk_s, "prepare_s": prepare_s,
+          "prepared_walk": prepared.walk is not None,
+          "engaged": {F: sm.row_walk(prepared, F) is not None
+                      for F in (8, 41, 64)}})
+    del prepared
     cols_b = pos.index_select(0, cols.long()).to(torch.int32)
     gen = torch.Generator(device=device).manual_seed(seed)
     mismatched = []
@@ -778,11 +665,9 @@ def d_variant_plan(F: int, precision: str, align: int, overrides: dict):
     return sddmm_plan(F, precision, align, **kw)
 
 
-def kernel_d(data, device, reps: int, seed: int,
-             baseline: Path | None) -> None:
+def kernel_d(data, device, reps: int, seed: int) -> None:
     import torch
 
-    from sgc_tpu_torch.ops import kernels
     from sgc_tpu_torch.ops import roofline as rf
     from sgc_tpu_torch.ops import spmm as sp
 
@@ -790,10 +675,6 @@ def kernel_d(data, device, reps: int, seed: int,
     built = {k: v[0] for k, v in D_VARIANTS.items() if k == "base" or v[0]}
     fns = build_variants(ROOT / "sgc_tpu_torch" / "csrc" / "sddmm.cu", built,
                          D_ARGS, out_dir, "sddmm")
-    base_fn = None
-    if baseline is not None:
-        base_fn = build_variants(baseline, {"baseline": []}, BASELINE_D_ARGS,
-                                 out_dir / "baseline", "sddmm")["baseline"][0]
     mismatched = []
     for name, g, a, b in d_cases(data, device, seed):
         F = int(a.shape[1])
@@ -804,28 +685,8 @@ def kernel_d(data, device, reps: int, seed: int,
                 size=(g.n_rows, g.n_cols), check_invariants=False)
         for p in sp.PRECISIONS:
             want = sp.sddmm_plain(g, a, b, p)
-            bk, ld = sp._kernel_copy(b, p)
+            bk, _ = sp._kernel_copy(b, p)
             align = sp.operand_align(a, bk)
-
-            def run_baseline():   # with the wrapper's copy, as run()
-                bc, _ = sp._kernel_copy(b, p)
-                out = torch.empty(g.n_edges_padded, device=device)
-                rc = base_fn(g.rows.data_ptr(), g.cols.data_ptr(),
-                             a.data_ptr(), bc.data_ptr(), out.data_ptr(),
-                             g.nnz, g.n_edges_padded, F, ld,
-                             int(p == "bf16"), kernels.stream_of(a))
-                kernels.check_launch(rc, "baseline sddmm")
-                return out
-
-            def emit_baseline(when):
-                got = run_baseline()
-                emit({"kernel": "D", "case": name, "variant": "baseline",
-                      "when": when, "precision": p, "F": F,
-                      "ms": time_ms(run_baseline, reps),
-                      "rel_err": rel_err(got, want)})
-
-            if base_fn is not None:
-                emit_baseline("before")
             b_ms, b_by, _, nbytes = rf.sddmm_bound(g, F, 2 if p == "bf16"
                                                    else 4)
             for variant, (_, over) in D_VARIANTS.items():
@@ -851,8 +712,6 @@ def kernel_d(data, device, reps: int, seed: int,
                         and row["padding_zero"]):
                     mismatched.append((name, p, variant))
                 del got, again
-            if base_fn is not None:
-                emit_baseline("after")
             if p == "bf16":
                 ac, bct = sp.bf16_round(a), sp.bf16_round(b).t()
                 emit({"kernel": "D", "case": name, "variant": "bf16_copy_b",
@@ -910,7 +769,7 @@ def profiled_launch_ms(fn, calls: int) -> dict:
             for key, ms, n in _profiled(fn, calls) if n}
 
 
-def kernel_g(device, reps: int, baseline: Path | None) -> None:
+def kernel_g(device, reps: int) -> None:
     import torch
 
     from sgc_tpu_torch.ops import edge_accumulate as ea
@@ -978,22 +837,6 @@ def kernel_g(device, reps: int, baseline: Path | None) -> None:
             del buf
             if not exact:
                 raise AssertionError(f"kernel G {name} {m}: bits differ")
-    if baseline is None:
-        return
-    base_fn = build_variants(baseline, {"baseline": []}, BASELINE_G_ARGS,
-                             out_dir / "baseline",
-                             "edge_accumulate")["baseline"][0]
-    for m in ea.MODES:
-        def run_old(m=m):
-            rc = base_fn(rows.data_ptr(), cols.data_ptr(), vals.data_ptr(),
-                         x.data_ptr(), out.data_ptr(), E, R, x.shape[0], F,
-                         256, bits[m], kernels.stream_of(x))
-            kernels.check_launch(rc, "baseline edge_accumulate")
-        run_old()
-        torch.cuda.synchronize()
-        emit({"kernel": "G", "mode": m, "variant": "baseline",
-              "ms": time_ms(run_old, reps),
-              "exact": bool(torch.equal(out, want[m]))})
 
 
 # kernels E and F: the probes' shapes, the calls timed back to back
@@ -1075,61 +918,7 @@ def host_split(x) -> dict:
     return {k: host_us(fn, SPLIT_CALLS) for k, fn in steps.items()}
 
 
-def pr16_scale2(old_fn):
-    """Kernel E's wrapper as PR 16 wrote it (a ``Stream`` object for the
-    stream, the entry looked up, the checks and the counter in calls of
-    their own) around ``old_fn``, PR 16's C entry: its host path, for a
-    comparison in one call."""
-    import torch
-
-    from sgc_tpu_torch.ops import kernels
-
-    count = {"launches": 0}
-
-    def scale2(x):
-        if x.device.type == "cpu":
-            return x * 2.0
-        kernels.require_cuda_f32(x, "x")
-        y = torch.empty_like(x)
-        if x.numel() == 0:
-            return y
-        kernels.entry("probe_copy", "probe_scale2")
-        rc = old_fn(x.data_ptr(), y.data_ptr(), x.numel(),
-                    torch.cuda.current_stream(x.device).cuda_stream)
-        kernels.check_launch(rc, "probe_scale2")
-        count["launches"] += 1
-        return y
-    return scale2
-
-
-def pr16_select_blocks(old_fn):
-    """``select_blocks``'s wrapper as PR 16 wrote it, around PR 16's C
-    entry ``old_fn`` (see :func:`pr16_scale2`)."""
-    import torch
-
-    from sgc_tpu_torch.ops import kernels
-
-    def select_blocks(x, sel, block):
-        if x.dim() != 2 or block <= 0 or x.shape[0] % block:
-            raise ValueError("x must be 2-D with rows a multiple of block")
-        if sel.dim() != 1 or sel.dtype != torch.int32:
-            raise ValueError("sel must be a 1-D int32 tensor")
-        if sel.device != x.device:
-            raise ValueError("sel and x on different devices")
-        kernels.require_cuda_f32(x, "x")
-        sel = sel.contiguous()
-        out = torch.empty((sel.shape[0] * block, x.shape[1]),
-                          dtype=torch.float32, device=x.device)
-        kernels.entry("probe_copy", "probe_select_blocks")
-        rc = old_fn(x.data_ptr(), sel.data_ptr(), out.data_ptr(),
-                    sel.shape[0], x.shape[0] // block, block * x.shape[1],
-                    torch.cuda.current_stream(x.device).cuda_stream)
-        kernels.check_launch(rc, "probe_select_blocks")
-        return out
-    return select_blocks
-
-
-def kernel_e(device, baseline: Path | None) -> None:
+def kernel_e(device) -> None:
     import torch
 
     from sgc_tpu_torch.ops import probe_copy as pe
@@ -1142,19 +931,6 @@ def kernel_e(device, baseline: Path | None) -> None:
     floor = launch_floor(x)
     emit({"kernel": "E", "launch_floor": floor})
     emit({"kernel": "E", "host_split_us": host_split(x)})
-    old = {}
-    if baseline is not None:
-        out_dir = ROOT / "build" / "sgc_tpu_torch" / "ab" / "baseline_e"
-        old_scale2 = build_variants(baseline, {"baseline": []},
-                                    [V, V, L, V], out_dir,
-                                    "probe_scale2")["baseline"][0]
-        old_select = build_variants(baseline, {"baseline": []},
-                                    [V, V, V, I, I, L, V], out_dir,
-                                    "probe_select_blocks")["baseline"][0]
-        old_s2, old_sb = pr16_scale2(old_scale2), pr16_select_blocks(
-            old_select)
-        old = {"scale2": lambda: old_s2(x),
-               "select_blocks": lambda: old_sb(sx, sel, p2.B)}
     cases = {"scale2": (lambda: pe.scale2(x), lambda: pe.scale2_plain(x),
                         lambda: torch.mul(x, 2.0),
                         rf.copy_bound(x.numel(), x.numel(), 0, 1,
@@ -1171,8 +947,6 @@ def kernel_e(device, baseline: Path | None) -> None:
         runs = {"current": fn}
         if lib is not None:
             runs["library"] = lib
-        if name in old:
-            runs["baseline"] = old[name]
         for k, run in runs.items():
             if not torch.equal(run(), want):
                 raise AssertionError(f"kernel E {name} {k}: bits differ")
@@ -1218,10 +992,9 @@ F_ARGS = {"row_gather_load": [V, V, V, L] + [I] * 6 + [V],
           "row_gather_async": [V, V, V, L] + [I] * 7 + [V]}
 
 
-def kernel_f(device, baseline: Path | None) -> None:
+def kernel_f(device) -> None:
     import torch
 
-    from sgc_tpu_torch.ops import kernels
     from sgc_tpu_torch.ops import roofline as rf
     from sgc_tpu_torch.ops import row_gather as rg
     from sgc_tpu_torch.scripts import exp_dma_gather_probe as dp
@@ -1242,14 +1015,6 @@ def kernel_f(device, baseline: Path | None) -> None:
     async_fns = build_variants(src, F_ASYNC_VARIANTS,
                                F_ARGS["row_gather_async"], out_dir,
                                "row_gather_async")
-    if baseline is not None:
-        old_load = build_variants(baseline, {"baseline": []},
-                                  [V, V, V, L, I, I, V], out_dir / "baseline",
-                                  "row_gather_load")["baseline"][0]
-        old_async = build_variants(baseline, {"baseline": []},
-                                   [V, V, V, L, I, I, I, V],
-                                   out_dir / "baseline",
-                                   "row_gather_async")["baseline"][0]
     sms = rg.sms_of(shapes["take"][0])
     for shape, (x, idx) in shapes.items():
         calls = F_CALLS if shape == "take" else E_CALLS
@@ -1275,26 +1040,6 @@ def kernel_f(device, baseline: Path | None) -> None:
                 raise AssertionError(f"kernel F {name} {variant} {shape}: "
                                      "bits differ")
 
-        def run_baseline(tag):
-            """PR 16's kernel F in every entry, before any launch of the
-            current kernel (whose evict-last loads leave the table
-            favoured in L2) and after them."""
-            old = {"load": lambda: old_load(
-                x.data_ptr(), idx.data_ptr(), out.data_ptr(), n_out, F,
-                x.shape[0], kernels.stream_of(x))}
-            old.update({f"async_{n}": (lambda n=n: old_async(
-                x.data_ptr(), idx.data_ptr(), out.data_ptr(), n_out, F,
-                x.shape[0], n, kernels.stream_of(x)))
-                for n in rg.IN_FLIGHT})
-            for name, fn in old.items():
-                def run_old(fn=fn, name=name):
-                    kernels.check_launch(fn(), f"baseline row_gather {name}")
-                out.zero_()
-                run_old()
-                torch.cuda.synchronize()
-                record(name, tag, run_old, bool(torch.equal(out, want)))
-        if baseline is not None:
-            run_baseline("baseline_before")
         # the wrappers, as the probes call them
         runs = {"load": lambda: rg.row_gather(x, idx, "load")}
         runs.update({f"async_{n}": (lambda n=n: rg.row_gather(x, idx,
@@ -1327,11 +1072,9 @@ def kernel_f(device, baseline: Path | None) -> None:
                   "plan": plan.__dict__})
             record(name, "plan", run, bool(torch.equal(out, want)),
                    fn_regs[1])
-        if baseline is not None:
-            run_baseline("baseline_after")
 
 
-def kernel_h(data, device, reps: int, baseline: Path | None) -> None:
+def kernel_h(data, device, reps: int) -> None:
     import torch
 
     from sgc_tpu_torch.graph.locality import LocalityPlan
@@ -1397,20 +1140,6 @@ def kernel_h(data, device, reps: int, baseline: Path | None) -> None:
               "timing_only": name in H_TIMING_ONLY})
         if name not in H_TIMING_ONLY | {"row_block_sum"} and not err <= 1e-5:
             raise AssertionError(f"kernel H {name}: rel err {err:.3e}")
-    if baseline is not None:
-        old = build_variants(baseline, BASELINE_H_VARIANTS, BASELINE_H_ARGS,
-                             out_dir / "baseline", "blockdense_int8_cells")
-        for name, (fn, regs) in old.items():
-            def run_old(fn=fn):
-                rc = fn(*common, cells.n_rb, cells.n_st, f_pad, R, W,
-                        kernels.stream_of(xp))
-                kernels.check_launch(rc, f"baseline H {name}")
-            run_old()
-            torch.cuda.synchronize()
-            emit({"kernel": "H", "variant": f"baseline_{name}",
-                  "registers": regs, "ms": time_ms(run_old, reps),
-                  "rel_err": rel_err(out, want),
-                  "timing_only": name == "copy"})
     # the same index over random dense cells: each output a long sum
     g = torch.Generator(device=device).manual_seed(0)
     rand = h.int8_cells(
@@ -1440,13 +1169,6 @@ def main() -> int:
     ap.add_argument("--reps", type=int, default=5)
     ap.add_argument("--kernels", default="a,b,b_order,c,d,e,f,g,h",
                     help="comma-separated kernels to run")
-    ap.add_argument("--baseline-b", type=Path, default=None)
-    ap.add_argument("--baseline-c", type=Path, default=None)
-    ap.add_argument("--baseline-d", type=Path, default=None)
-    ap.add_argument("--baseline-e", type=Path, default=None)
-    ap.add_argument("--baseline-f", type=Path, default=None)
-    ap.add_argument("--baseline-g", type=Path, default=None)
-    ap.add_argument("--baseline-h", type=Path, default=None)
     args = ap.parse_args()
 
     import torch
@@ -1469,9 +1191,9 @@ def main() -> int:
                        ("g", "edge_accumulate"), ("h", "blockdense_int8"))
         if k in chosen))
     if "e" in chosen:
-        kernel_e(device, args.baseline_e)
+        kernel_e(device)
     if "f" in chosen:
-        kernel_f(device, args.baseline_f)
+        kernel_f(device)
     if not chosen & {"a", "b", "b_order", "c", "d", "h"}:
         return 0
     data = synthetic_reddit_clustered(args.scale, seed=args.seed,
@@ -1479,17 +1201,17 @@ def main() -> int:
     if "a" in chosen:
         kernel_a(data, device, args.reps)
     if "b" in chosen:
-        kernel_b(data, device, args.reps, args.seed, args.baseline_b)
+        kernel_b(data, device, args.reps, args.seed)
     if "b_order" in chosen:
         kernel_b_orders(data, device, args.reps, args.seed)
     if "c" in chosen:
-        kernel_c(data, device, args.reps, args.baseline_c)
+        kernel_c(data, device, args.reps)
     if "d" in chosen:
-        kernel_d(data, device, args.reps, args.seed, args.baseline_d)
+        kernel_d(data, device, args.reps, args.seed)
     if "g" in chosen:
-        kernel_g(device, args.reps, args.baseline_g)
+        kernel_g(device, args.reps)
     if "h" in chosen:
-        kernel_h(data, device, args.reps, args.baseline_h)
+        kernel_h(data, device, args.reps)
     return 0
 
 

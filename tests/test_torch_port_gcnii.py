@@ -232,6 +232,7 @@ def test_scaled_operator_backward_reads_cached_values():
     s = port_gcnii.scaled_operator(g, 0.25)
     torch.testing.assert_close(s.vals, g.vals * 0.75)
     first = port_ag.on_transpose(s, s.vals)
+    assert first is s.prepared_transpose
     assert port_ag.on_transpose(s, s.vals) is first
     want = torch.zeros_like(s.vals)
     want[:g.nnz] = s.vals[perm]

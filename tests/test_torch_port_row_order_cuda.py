@@ -1,9 +1,10 @@
 """Kernel B's row order on the card: the kernel walking a permuted CSR
 with a row map gives the bits of the kernel in index order, at every
 width class, with and without the dense operand, with the CTA order on
-and off; ``spmm_segment`` engages the order where ``ops.spmm.row_walk``
-says so (at a run of ``ORDER_RUN`` launches) and counts it; GCNII
-trains to the same bits with the order forced on and off.
+and off; ``spmm_segment`` walks a prepared operator's order
+(``ops.autograd.prepare_operator``) from its first launch where
+``ops.spmm.row_walk`` says so, and counts it; GCNII trains to the same
+bits with the order forced on and off.
 
 Every test is marked ``cuda`` and skips without a CUDA device. The file
 imports neither JAX nor the reference package, so on a machine with only
@@ -18,12 +19,13 @@ import numpy as np
 import pytest
 import torch
 
+from sgc_tpu_torch.graph import reorder
 from sgc_tpu_torch.graph.sparse import SparseGraph
 from sgc_tpu_torch.models import gcnii as port_gcnii
+from sgc_tpu_torch.ops.autograd import prepare_operator
 from sgc_tpu_torch.ops import spmm as sp
 from sgc_tpu_torch.train import loops as port_loops
 from sgc_tpu_torch.utils import profiling
-
 
 
 @pytest.fixture
@@ -32,19 +34,6 @@ def cuda():
         pytest.skip("needs a CUDA device (kernels have no CPU mode)")
     torch.backends.cuda.matmul.allow_tf32 = False
     return torch.device("cuda")
-
-
-def clear_orders():
-    sp._ROW_ORDERS.clear()
-    sp._ROW_WALKS.clear()
-    sp._RUN[:] = [None, 0]
-
-
-@pytest.fixture(autouse=True)
-def fresh_orders():
-    clear_orders()
-    yield
-    clear_orders()
 
 
 def hub_graph(dev, n=6000, seed=5):
@@ -97,15 +86,15 @@ def test_cuda_kernel_b_row_map_keeps_the_bits(cuda, f, with_dense):
     perm = torch.randperm(g.n_rows, device=cuda,
                           generator=torch.Generator(device=cuda)
                           .manual_seed(1))
-    ptr, cols, edge_perm, row_map = sp.walk_rows(g, perm)
-    vals = g.vals.index_select(0, edge_perm)
+    walk = sp.walk_rows(g, perm)
     n_ctas = -(-g.n_rows // plan.rows_per_cta)
-    for order in (None, sp.heavy_first(ptr, g.n_rows, plan.rows_per_cta),
+    for order in (None,
+                  sp.heavy_first(walk.row_ptr, g.n_rows, plan.rows_per_cta),
                   torch.arange(n_ctas - 1, -1, -1, device=cuda,
                                dtype=torch.int32)):
         out = torch.full_like(want, float("nan"))
-        sp.launch_csr(ptr, cols, vals, x, dense, out, plan=plan,
-                      cta_order=order, row_map=row_map)
+        sp.launch_csr(walk.row_ptr, walk.cols, walk.vals, x, dense, out,
+                      plan=plan, cta_order=order, row_map=walk.row_map)
         torch.cuda.synchronize()
         assert torch.equal(out, want)
 
@@ -113,45 +102,49 @@ def test_cuda_kernel_b_row_map_keeps_the_bits(cuda, f, with_dense):
 @pytest.mark.cuda
 def test_cuda_spmm_segment_engages_the_order_and_counts_it(cuda,
                                                           monkeypatch):
-    """With the L2 taken as 0 bytes, a shuffled community graph walks
-    LPA's order from the last launch of a run of ``ORDER_RUN``, gives
-    the first launch's bits and counts ``within.csr_spmm_ordered``; the
-    same run on a table within the L2 does not."""
+    """With the L2 taken as 0 bytes, a prepared shuffled community graph
+    walks LPA's order from its first launch, gives the unprepared
+    graph's bits and counts ``within.csr_spmm_ordered``; the unprepared
+    graph of the same pattern, however many launches, and the prepared
+    one on a table within the L2 do not."""
     g = community_graph(cuda)
-    monkeypatch.setattr(sp, "ORDER_BLOCK", 500)
+    monkeypatch.setattr(reorder, "ORDER_BLOCK", 500)
+    monkeypatch.setattr(sp, "l2_bytes", lambda dev: 0)
+    prepared = prepare_operator(g)
+    assert prepared.walk is not None
     x = torch.randn(g.n_cols, 64, device=cuda,
                     generator=torch.Generator(device=cuda).manual_seed(2))
     names = ("launch.csr_spmm", "within.csr_spmm_ordered")
-    run = sp.ORDER_RUN + 2
+    run = 34
+
+    def counted(graph):
+        before = profiling.read_counts(names)
+        outs = [sp.spmm_segment(graph, x) for _ in range(run)]
+        return outs, {k: n - before[k]
+                      for k, n in profiling.read_counts(names).items()}
+
+    plain, got = counted(g)
+    assert got == {"launch.csr_spmm": run, "within.csr_spmm_ordered": 0}
+    ordered, got = counted(prepared)
+    assert got == {"launch.csr_spmm": run, "within.csr_spmm_ordered": run}
     monkeypatch.setattr(sp, "l2_bytes", lambda dev: 4 * g.n_cols * 64)
-    before = profiling.read_counts(names)
-    fits = [sp.spmm_segment(g, x) for _ in range(run)]
-    after = profiling.read_counts(names)
-    assert after["within.csr_spmm_ordered"] == before[
-        "within.csr_spmm_ordered"]
-    assert len(sp._ROW_ORDERS) == 0
-    clear_orders()
-    monkeypatch.setattr(sp, "l2_bytes", lambda dev: 0)
-    outs = [sp.spmm_segment(g, x) for _ in range(run)]
-    got = {k: n - after[k] for k, n in profiling.read_counts(names).items()}
-    assert got == {"launch.csr_spmm": run, "within.csr_spmm_ordered": 3}
+    fits, got = counted(prepared)
+    assert got == {"launch.csr_spmm": run, "within.csr_spmm_ordered": 0}
     torch.cuda.synchronize()
-    for out in fits[1:] + outs:
-        assert torch.equal(out, fits[0])
-    assert sp._ROW_ORDERS.find((g.row_ptr, g.cols), ())
+    for out in plain[1:] + ordered + fits:
+        assert torch.equal(out, plain[0])
 
 
 @pytest.mark.cuda
 def test_cuda_gcnii_steps_keep_their_bits_with_the_order(cuda,
                                                         monkeypatch):
     """Three Adam steps of an 8-layer GCNII on a shuffled community
-    graph: the order forced on (the L2 taken as 0 bytes, a run of 4
-    enough) and off give the same parameters, bit for bit; forced on,
-    the forward and the backward each take the order at their fourth
-    product, and every product after the first step walks it."""
+    graph: the order forced on (the L2 taken as 0 bytes) and off give
+    the same parameters, bit for bit; forced on, every product of the
+    prepared operator, forward and backward, walks it from the first
+    step."""
     g = community_graph(cuda)
-    monkeypatch.setattr(sp, "ORDER_BLOCK", 500)
-    monkeypatch.setattr(sp, "ORDER_RUN", 4)
+    monkeypatch.setattr(reorder, "ORDER_BLOCK", 500)
     rng = np.random.default_rng(3)
     n, f, h, c, layers = g.n_rows, 64, 64, 8, 8
     x = torch.as_tensor(rng.standard_normal((n, f)), dtype=torch.float32,
@@ -186,14 +179,9 @@ def test_cuda_gcnii_steps_keep_their_bits_with_the_order(cuda,
         return model, counts
 
     on, counts_on = train(0)
-    clear_orders()
     off, counts_off = train(1 << 40)
     for k in ("w_in", "b_in", "w_conv", "w_out", "b_out"):
         assert torch.equal(getattr(on, k), getattr(off, k)), k
-    # the first three launches of the forward and of the backward go in
-    # index order
-    assert counts_on == [
-        {"launch.csr_spmm": 2 * layers, "within.csr_spmm_ordered":
-         2 * layers - 6}] + 2 * [{"launch.csr_spmm": 2 * layers,
-                                  "within.csr_spmm_ordered": 2 * layers}]
+    assert counts_on == 3 * [{"launch.csr_spmm": 2 * layers,
+                              "within.csr_spmm_ordered": 2 * layers}]
     assert all(c["within.csr_spmm_ordered"] == 0 for c in counts_off)
