@@ -178,7 +178,11 @@ values), each with counters zeroed just before and read just after:
                   (the same bits); the backward's kernel D and transposed
                   kernel B held against their plain versions on the
                   step's own operands and timed beside the forward
-                  kernel B, with bounds and library calls
+                  kernel B, with bounds and library calls; the attention
+                  functions (csrc/edge_softmax.cu) on a head's operands
+                  of that step at F = 8 and 41, each held to its plain
+                  version's bits and timed beside its bound (the
+                  softmax also beside torch.sparse.softmax)
     gcn_cli:      cli.citation.run(model="GCN", tuned=True) on the
                   Pubmed-shape fixture, twice (the same parameter bits),
                   and one GCN gradient held against a CPU copy
@@ -717,7 +721,7 @@ def phase_kernel_b(plan, x, launches, reps, shuffled) -> dict:
     dense term, the main path's launch) and over the whole graph in its
     shuffled order (a plain hop of ``cli.reddit``), and F = 1, 8 and 41
     on that graph (GAT's segment sums, hidden heads and output heads; x
-    a column of ones at F = 1, as ``ops.autograd.row_sums``)."""
+    a column of ones at F = 1, as ``ops.spmm.row_sums``)."""
     import torch
 
     from sgc_tpu_torch.ops import roofline as rf
@@ -1400,6 +1404,171 @@ def copy_layers(layers, device):
         m.w, m.a_src, m.a_dst, m.bias))) for m in layers)
 
 
+# the launch counters (bench.LAUNCH_COUNTERS) every GAT step must move:
+# kernels B (also over the transpose) and D, and the five entries of
+# csrc/edge_softmax.cu
+GAT_KERNELS = ("csr_spmm", "csr_spmm_transposed", "sddmm", "edge_scores",
+               "edge_softmax", "edge_softmax_grad", "edge_scores_grad_dst",
+               "edge_scores_grad_src")
+
+# the functions of ops/edge_softmax.py in a step's order
+ATTENTION_FUNCTIONS = ("edge_scores", "edge_softmax", "edge_softmax_grad",
+                       "edge_scores_grad")
+
+
+def keep_attention(kept: dict):
+    """Context of one GAT step that keeps, for the first head at each
+    width F, the operands and outputs of its attention functions
+    (``ops/edge_softmax.py``) in ``kept[F]``: the forward's by the width
+    ``models.gat._attend`` runs at, the backward's by the forward
+    tensors they come back with."""
+    from sgc_tpu_torch.models import gat as gat_mod
+    from sgc_tpu_torch.ops import edge_softmax as es
+
+    real = {k: getattr(es, k) for k in ATTENTION_FUNCTIONS}
+    real_attend = gat_mod._attend
+    width = []
+
+    def attend(h, *args, **kw):
+        width.append(int(h.shape[1]))
+        try:
+            return real_attend(h, *args, **kw)
+        finally:
+            width.pop()
+
+    def of(key, t):
+        return next((o for o in kept.values() if key in o
+                     and o[key].data_ptr() == t.data_ptr()), None)
+
+    def scores(graph, dst, src, slope):
+        out = real["edge_scores"](graph, dst, src, slope)
+        if width and width[-1] not in kept:
+            kept[width[-1]] = {"dst": dst.detach(), "src": src.detach(),
+                               "slope": slope, "logits": out[0].detach(),
+                               "mask": out[1]}
+        return out
+
+    def softmax(graph, logits):
+        alpha = real["edge_softmax"](graph, logits)
+        o = of("logits", logits)
+        if o is not None:
+            o.setdefault("alpha", alpha.detach())
+        return alpha
+
+    def softmax_grad(graph, alpha, g):
+        d = real["edge_softmax_grad"](graph, alpha, g)
+        o = of("alpha", alpha)
+        if o is not None and "g" not in o:
+            o.update(g=g.detach(), d=d)
+        return d
+
+    def scores_grad(graph, d, mask, slope, transpose=None):
+        out = real["edge_scores_grad"](graph, d, mask, slope, transpose)
+        o = of("mask", mask)
+        if o is not None and transpose is not None:
+            o.setdefault("d_in", d.detach())
+        return out
+
+    @contextlib.contextmanager
+    def context():
+        gat_mod._attend = attend
+        for k, fn in zip(ATTENTION_FUNCTIONS,
+                         (scores, softmax, softmax_grad, scores_grad)):
+            setattr(es, k, fn)
+        try:
+            yield
+        finally:
+            gat_mod._attend = real_attend
+            for k, fn in real.items():
+                setattr(es, k, fn)
+
+    return context()
+
+
+def attention_on(g, o: dict, reps: int) -> dict:
+    """Each attention function on one head's kept operands ``o``: twice,
+    held to the same bits, to the bits the step produced (logits, alpha,
+    the softmax's gradient) and to its plain version's bits; timed by
+    CUDA events beside its byte bound (``roofline.edge_softmax_bound``),
+    its plain version, and for the softmax ``torch.sparse.softmax`` over
+    the logits as a COO matrix."""
+    import torch
+
+    from sgc_tpu_torch.ops import autograd as ag
+    from sgc_tpu_torch.ops import edge_softmax as es
+    from sgc_tpu_torch.ops import roofline as rf
+
+    calls = {"edge_scores": ((g, o["dst"], o["src"], o["slope"]),
+                             o["logits"]),
+             "edge_softmax": ((g, o["logits"]), o["alpha"]),
+             "edge_softmax_grad": ((g, o["alpha"], o["g"]), o["d"]),
+             "edge_scores_grad": ((g, o["d_in"], o["mask"], o["slope"],
+                                   ag.transpose_places(g)), None)}
+    out = {}
+    for name, (args, stepped) in calls.items():
+        fn, plain = getattr(es, name), getattr(es, name + "_plain")
+        got, again, want = (t if isinstance(t, tuple) else (t,) for t in
+                            (fn(*args), fn(*args), plain(*args)))
+        torch.cuda.synchronize()
+        if not all(map(torch.equal, got, again)):
+            raise AssertionError(f"{name}: two launches differ")
+        if stepped is not None and not torch.equal(got[0], stepped):
+            raise AssertionError(f"{name}: not the step's own bits")
+        abs_err = max(float((a.float() - b.float()).abs().max())
+                      for a, b in zip(got, want))
+        if not all(map(torch.equal, got, want)):
+            raise AssertionError(f"{name} vs plain: bits differ "
+                                 f"(max abs {abs_err:.3e})")
+        b_ms, b_by, ops, nbytes = rf.edge_softmax_bound(g, name)
+        ms = time_ms(lambda: fn(*args), reps)
+        out[name] = {"max_abs_err": abs_err, "same_bits_as_plain": True,
+                     "ms": ms, "bound_ms": b_ms, "bound_by": b_by,
+                     "ops": ops, "bytes": nbytes,
+                     "achieved_gbps": nbytes / ms / 1e6,
+                     "plain_ms": time_ms(lambda: plain(*args), 1),
+                     "library_ms": None}
+        if name == "edge_softmax":
+            idx = torch.stack([g.rows[: g.nnz], g.cols[: g.nnz]]).long()
+            coo = torch.sparse_coo_tensor(
+                idx, o["logits"][: g.nnz], (g.n_rows, g.n_cols),
+                check_invariants=False).coalesce()
+            lib = torch.sparse.softmax(coo, dim=1).values()
+            out[name].update({
+                "library": "torch.sparse.softmax (COO, dim=1)",
+                "library_ms": time_ms(
+                    lambda: torch.sparse.softmax(coo, dim=1), reps),
+                "library_max_abs_gap": float(
+                    (lib - got[0][: g.nnz]).abs().max())})
+            del coo, idx, lib
+        del got, again, want
+    return out
+
+
+def attention_row(widths: dict, launches: dict) -> dict:
+    """The ``kernels`` row of ``csrc/edge_softmax.cu``: the four
+    functions (five launches) a head and layer at the hidden heads'
+    width (F = 8), per function and width beside."""
+    from sgc_tpu_torch.ops import edge_softmax as es
+
+    hidden = widths[8]["attention"]
+    row = {"name": "edge_softmax", "route": "cuda",
+           "source": "sgc_tpu_torch/csrc/edge_softmax.cu",
+           "replaces": "sgc_tpu/models/gat.py:59 (XLA segment ops)",
+           "entries": list(es.ENTRIES), "precision": "f32",
+           "launches": sum(launches[k] for k in es.ENTRIES),
+           "max_abs_err": max(f["max_abs_err"] for w in widths.values()
+                              if "attention" in w
+                              for f in w["attention"].values()),
+           "bound_by": "bytes",
+           "library_ms": hidden["edge_softmax"]["library_ms"],
+           "library": "torch.sparse.softmax, of edge_softmax alone"}
+    for k in ("ms", "plain_ms", "bound_ms"):
+        row[k] = sum(f[k] for f in hidden.values())
+    row["gat_reddit"] = {F: w["attention"] for F, w in widths.items()
+                         if "attention" in w}
+    return row
+
+
 def phase_gat_pubmed(root, device) -> dict:
     """The two-layer GAT trained for 200 Adam epochs (lr 5e-3, weight
     decay 1e-3; the paper's dropout is not in the reference's layer) on
@@ -1460,8 +1629,7 @@ def phase_gat_pubmed(root, device) -> dict:
         raise AssertionError(f"GAT gradients vs CPU: {grad_err:.3e}")
     if not run["test_accuracy"] > 2 * chance:
         raise AssertionError(f"GAT test accuracy {run['test_accuracy']}")
-    if min(launches[k] for k in ("csr_spmm", "csr_spmm_transposed",
-                                 "sddmm")) <= 0:
+    if min(launches[k] for k in GAT_KERNELS) <= 0:
         raise AssertionError(f"a kernel of the GAT path idle: {launches}")
     return launches
 
@@ -1474,12 +1642,16 @@ def phase_gat_reddit(data, device, reps) -> dict:
     (an output head); each is held against its plain version at 1e-5 and
     timed by CUDA events beside the forward kernel B on the same graph,
     with bounds and the same-function library calls
-    (``torch.sparse.mm`` on the transposed CSR, ``sampled_addmm``)."""
+    (``torch.sparse.mm`` on the transposed CSR, ``sampled_addmm``). The
+    same step keeps a head's operands of the attention functions
+    (``ops/edge_softmax.py``) at each width: each is held to its plain
+    version's bits and timed beside its bound (:func:`attention_on`)."""
     import torch
 
     from sgc_tpu_torch.ops import roofline as rf
     from sgc_tpu_torch.ops import autograd as ag
     from sgc_tpu_torch.ops.spmm import (
+        row_sums,
         sddmm,
         sddmm_plain,
         spmm_segment,
@@ -1513,13 +1685,16 @@ def phase_gat_reddit(data, device, reps) -> dict:
                             (graph_, vals.detach(), xx.detach()))
         return real_tr(graph_, vals, xx)
 
+    attention = {}
     runs = []
     for r in range(2):
         layers = copy_layers(init, device)
         if r == 0:
             ag.sddmm, ag.spmm_transposed = keep_sddmm, keep_tr
         try:
-            train_gat(layers, x, g, target, 1, 5e-3)
+            with (keep_attention(attention) if r == 0
+                  else contextlib.nullcontext()):
+                train_gat(layers, x, g, target, 1, 5e-3)
         finally:
             ag.sddmm, ag.spmm_transposed = real_sddmm, real_tr
         sync(device)
@@ -1577,21 +1752,22 @@ def phase_gat_reddit(data, device, reps) -> dict:
             "library_ms": time_ms(lambda: torch.sparse.sampled_addmm(
                 csr, a_d, b_d.t(), beta=0.0), reps),
             "plain_ms": time_ms(lambda: sddmm_plain(g, a_d, b_d), 1)})
+        out["attention"] = attention_on(g, attention.pop(F), reps)
         widths[F] = out
         del csr, csr_t, gt, att
-    # the segment sums at F = 1 (softmax denominators, their backward,
-    # the edge scores' row and column sums): one lane of a warp works
+    # kernel B's segment sums at F = 1 (degrees; GAT's softmax and score
+    # sums before csrc/edge_softmax.cu): one lane of a warp works
     _, vals, _ = kept[("bt", 8)]
     ones = torch.ones((g.n_cols, 1), device=device)
     att = g.with_vals(vals)
     b1, by1 = rf.b_bound(att, 1)
     csr = csr_of(att)
-    got = ag.row_sums(g, vals)
+    got = row_sums(g, vals)
     _, err1 = rel_err(got, spmm_segment_plain(att, ones)[:, 0])
     if not err1 <= TOLERANCE:
         raise AssertionError(f"row sums at F=1 vs plain: {err1:.3e}")
     widths["1"] = {"row_sum": {
-        "rel_err": err1, "ms": time_ms(lambda: ag.row_sums(g, vals), reps),
+        "rel_err": err1, "ms": time_ms(lambda: row_sums(g, vals), reps),
         "bound_ms": b1, "bound_by": by1,
         "library_ms": time_ms(lambda: torch.sparse.mm(csr, ones), reps)}}
     del csr, att
@@ -1604,7 +1780,7 @@ def phase_gat_reddit(data, device, reps) -> dict:
     if not bits:
         raise AssertionError("two GAT runs on the Reddit graph differ")
     n = runs[0]["launches_2_steps"]
-    if min(n[k] for k in ("csr_spmm", "csr_spmm_transposed", "sddmm")) <= 0:
+    if min(n[k] for k in GAT_KERNELS) <= 0:
         raise AssertionError(f"a kernel of the GAT path idle: {n}")
     return {"widths": widths, "launches": n}
 
@@ -4470,7 +4646,8 @@ class Holds:
 
 
 def rank_launches(per_rank: list) -> dict:
-    """The launches of kernels A-D summed over a world's ranks."""
+    """Each kernel's launches (``parallel/bodies.py::COUNTERS``) summed
+    over a world's ranks."""
     from sgc_tpu_torch.bench import LAUNCH_COUNTERS
 
     return {k: sum(r[k] for r in per_rank) for k in LAUNCH_COUNTERS}
@@ -4886,9 +5063,15 @@ def main() -> int:
     by_path.update(baselines["launches"])
     by_path["bench_path"] = phase_bench_path(args, dense_fracs)
     by_path["gat_train"]["reddit_2_steps"] = gat_reddit["launches"]
+    rows.append(attention_row(gat_reddit["widths"], gat_reddit["launches"]))
     for row in rows:
+        # a row of several C entries counts their launches together; a
+        # path that reads none of them launched none
+        names = row.get("entries")
         row["launches_by_path"] = {
-            path: {run: n[row["name"]] for run, n in runs.items()}
+            path: {run: n[row["name"]] if names is None
+                   else sum(n.get(k, 0) for k in names)
+                   for run, n in runs.items()}
             for path, runs in by_path.items()}
     # the GAT backward's operands on the Reddit-shape graph (F = 8, 41)
     rows[1]["transposed_launches_by_path"] = {

@@ -94,6 +94,12 @@ LAUNCH_COUNTERS = {
     "csr_spmm": "launch.csr_spmm",                           # kernel B
     "tiled_spmm": "launch.tiled_spmm",                       # kernel C
     "sddmm": "launch.sddmm",                                 # kernel D
+    # GAT's attention entries (csrc/edge_softmax.cu)
+    "edge_scores": "launch.edge_scores",
+    "edge_softmax": "launch.edge_softmax",
+    "edge_softmax_grad": "launch.edge_softmax_grad",
+    "edge_scores_grad_dst": "launch.edge_scores_grad_dst",
+    "edge_scores_grad_src": "launch.edge_scores_grad_src",
     # of csr_spmm's: those over a transpose (a backward)
     "csr_spmm_transposed": "within.csr_spmm_transposed",
 }

@@ -257,16 +257,16 @@ class SparseGraph:
 
     def degrees(self) -> torch.Tensor:
         """Weighted out-degree per row (padding edges contribute 0): kernel
-        B with F = 1 against a column of ones (``ops.autograd.row_sums``),
+        B with F = 1 against a column of ones (``ops.spmm.row_sums``),
         on the graph's device (the CPU for a host graph)."""
-        from sgc_tpu_torch.ops.autograd import row_sums
+        from sgc_tpu_torch.ops.spmm import row_sums
 
         g = self._on_tensors()
         return row_sums(g, g.vals)
 
     def binary_degrees(self) -> torch.Tensor:
         """Unweighted degree per row: the edges whose value is nonzero."""
-        from sgc_tpu_torch.ops.autograd import row_sums
+        from sgc_tpu_torch.ops.spmm import row_sums
 
         g = self._on_tensors()
         return row_sums(g, (g.vals != 0).float())

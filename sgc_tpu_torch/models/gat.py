@@ -7,9 +7,10 @@ Velickovic et al. 2018 formulation on the port's sparse kernels:
 
 Each sparse step is a Function of ``ops/autograd.py``, so the backward
 runs on the kernels too: the gradient of the attention values is an
-SDDMM (kernel D), that of ``h`` kernel B over the transpose, and every
-segment sum kernel B with F = 1. No gradient goes through an atomic
-scatter, so training repeats to the same bits.
+SDDMM (kernel D), that of ``h`` kernel B over the transpose, and the
+logits, the softmax and their gradients the row-walking kernels of
+``csrc/edge_softmax.cu``. No gradient goes through an atomic scatter, so
+training repeats to the same bits.
 
 Heads are a leading axis of stacked parameters (:func:`init_multi_head`),
 looped over where the reference vmaps; ``multi_head_gat`` concatenates
@@ -92,29 +93,20 @@ def params_from_jax(params, device=None) -> GATLayer:
                       for k in ("w", "a_src", "a_dst", "bias")))
 
 
-def live_edges(graph: SparseGraph) -> torch.Tensor:
-    """Bool ``[E_pad]``: True on the real edges ``[0, nnz)``. Padding is
-    positional, as in ``sddmm``: a real edge of value 0 stays live."""
-    return (torch.arange(graph.n_edges_padded, device=graph.rows.device)
-            < graph.nnz)
+def segment_softmax(logits: torch.Tensor,
+                    graph: SparseGraph) -> torch.Tensor:
+    """Softmax over each row's live edges ``[0, nnz)``, 0 on padding; the
+    reference's ``segment_softmax(logits, graph.rows, graph.n_rows,
+    live)`` with its positional ``live``."""
+    return SegmentSoftmaxFn.apply(graph, logits)
 
 
-def segment_softmax(logits: torch.Tensor, graph: SparseGraph,
-                    live: torch.Tensor) -> torch.Tensor:
-    """Softmax over the ``live`` edges of each row (``live`` False on
-    padding); the reference's ``segment_softmax(logits, graph.rows,
-    graph.n_rows, live)``, with kernel B row sums."""
-    return SegmentSoftmaxFn.apply(graph, logits, live)
-
-
-def _attend(h, a_src, a_dst, bias, graph, live, negative_slope,
-            activation, impl):
+def _attend(h, a_src, a_dst, bias, graph, negative_slope, activation,
+            impl):
     """One head on its transformed features ``h = x @ w``."""
-    logits = F.leaky_relu(EdgeScoresFn.apply(graph, h @ a_dst, h @ a_src),
-                          negative_slope)
-    alpha = segment_softmax(logits, graph, live)
-    vals = torch.where(live, alpha, 0.0)
-    out = spmm(graph.with_vals(vals), h, impl=impl,
+    logits = EdgeScoresFn.apply(graph, h @ a_dst, h @ a_src, negative_slope)
+    alpha = segment_softmax(logits, graph)
+    out = spmm(graph.with_vals(alpha), h, impl=impl,
                span_name="gat.spmm") + bias
     return activation(out) if activation is not None else out
 
@@ -126,7 +118,7 @@ def gat_layer_apply(layer: GATLayer, x: torch.Tensor, graph: SparseGraph, *,
     ``impl`` other than ``auto``/``segment``/``chunked`` serves inference
     only (those impls have no gradient)."""
     return _attend(x @ layer.w, layer.a_src, layer.a_dst, layer.bias, graph,
-                   live_edges(graph), negative_slope, activation, impl)
+                   negative_slope, activation, impl)
 
 
 def multi_head_gat(layer: GATLayer, x: torch.Tensor, graph: SparseGraph, *,
@@ -136,9 +128,8 @@ def multi_head_gat(layer: GATLayer, x: torch.Tensor, graph: SparseGraph, *,
     batched matmul: ``concat=True`` gives ``(n, H * F_out)`` head-major
     (hidden layers), ``False`` the mean over heads (output layer)."""
     hs = torch.matmul(x, layer.w)                  # (H, n, F_out)
-    live = live_edges(graph)
     outs = [_attend(hs[i], layer.a_src[i], layer.a_dst[i], layer.bias[i],
-                    graph, live, negative_slope, activation, impl)
+                    graph, negative_slope, activation, impl)
             for i in range(layer.n_heads)]
     if concat:
         return torch.cat(outs, dim=1)

@@ -22,14 +22,18 @@ CPU tests exercise the card's backward formulas.
   operator and its transpose carry the row order kernel B walks them in
   (``SparseGraph.walk``), so the forward and the backward products walk
   one order, decided at the preparation.
-* :class:`EdgeScoresFn` ``(graph, dst, src) -> dst[rows] + src[cols]``:
-  the backward is a row sum of ``g`` (kernel B, F = 1, on the graph) and
-  a column sum (kernel B, F = 1, over the transpose with ``g[perm]``).
+* :class:`EdgeScoresFn` ``(graph, dst, src, slope) -> leaky(dst[rows]
+  + src[cols])``, GAT's logits with their LeakyReLU; the backward is each
+  row's and each column's sum of the gradient through the leaky ReLU (the
+  column sums over the cached transpose), from a byte an edge the
+  forward keeps (the pre-activation over 0).
 * :class:`SegmentSoftmaxFn`: the softmax over each row's live edges with
-  the reference's constants (sgc_tpu/models/gat.py:59-77); the
-  denominator and the backward's ``rowsum(alpha * g)`` are kernel B row
-  sums, the row max an ``amax`` scatter (max does not depend on the
-  order, so its bits do not either).
+  the reference's constants (sgc_tpu/models/gat.py:59-77), 0 on padding;
+  the backward ``alpha (g - rowsum(alpha g)[rows])``. It and
+  :class:`EdgeScoresFn` run on the entries of ``ops/edge_softmax.py``
+  (``csrc/edge_softmax.cu`` on the card: one launch each way, but two
+  for the scores' backward), whose sums keep kernel B's F = 1 order and
+  bits.
 * :class:`GatherRowsFn` ``(table, ids) -> table[ids]``: the embedding
   lookup of the transformer (sgc_tpu/models/transformer.py:196); the
   backward sums each id's gradient rows into its row with kernel B over
@@ -53,8 +57,8 @@ every run.
 Padding edges ``[nnz, E_pad)``: the backwards read the live edges alone.
 ``dvals`` is 0 there (kernel D writes padding by position) where JAX's
 gradient is ``<G[n_rows-1], x[n_cols-1]>``, and ``EdgeScoresFn`` adds
-nothing from the padding's ``g``; the models mask those slots with
-``where(live, ...)``, so their parameters' gradients agree.
+nothing from the padding's ``g``; the attention values are 0 there as
+the reference masks them, so the parameters' gradients agree.
 """
 
 from __future__ import annotations
@@ -65,6 +69,7 @@ import torch
 
 from sgc_tpu_torch.graph.reorder import walk_order
 from sgc_tpu_torch.graph.sparse import SparseGraph
+from sgc_tpu_torch.ops import edge_softmax as es
 from sgc_tpu_torch.ops.spmm import (scatter_graph, sddmm, spmm_segment,
                                     walk_rows)
 from sgc_tpu_torch.utils.buildcache import placed
@@ -76,13 +81,22 @@ _TRANSPOSED = {"launch.csr_spmm": "within.csr_spmm_transposed"}
 
 
 def _transpose_entry(graph: SparseGraph):
-    """``(transpose, perm, source vals)``: the transpose is built on the
-    host once for ``graph``'s pattern and cached by the pattern's arrays
-    (``utils.buildcache.placed``), so every reweighting of one graph
-    shares it; it carries the values of the first graph that asked, held
-    (and pinned) as the third item."""
-    return placed(graph, ("transpose",), graph.device,
-                  lambda: (*graph.transpose_perm(), graph.vals),
+    """``(transpose, perm, places, source vals)``: the transpose is built
+    on the host once for ``graph``'s pattern and cached by the pattern's
+    arrays (``utils.buildcache.placed``), so every reweighting of one
+    graph shares it; ``places`` is ``perm``'s inverse, each live edge's
+    place in the transpose (built on the graph's device); the transpose
+    carries the values of the first graph that asked, held (and pinned)
+    as the last item."""
+    def build():
+        gt, perm = graph.transpose_perm()
+        idx = torch.as_tensor(perm)
+        places = torch.empty_like(idx)
+        places[idx.long()] = torch.arange(idx.numel(), dtype=idx.dtype,
+                                          device=idx.device)
+        return gt, perm, places, graph.vals
+
+    return placed(graph, ("transpose",), graph.device, build,
                   lambda t, _dev: t, by_vals=False)[1]
 
 
@@ -90,6 +104,14 @@ def transposed(graph: SparseGraph):
     """``(transpose, perm)`` of ``graph``'s pattern on its device, from
     the cache of :func:`_transpose_entry`."""
     return _transpose_entry(graph)[:2]
+
+
+def transpose_places(graph: SparseGraph):
+    """``(transpose, places)``: the cached transpose of ``graph``'s
+    pattern and int32 ``[nnz]``, each live edge's place in it (what
+    ``ops.edge_softmax.edge_scores_grad`` stores its column terms by)."""
+    gt, _, places, _ = _transpose_entry(graph)
+    return gt, places
 
 
 def _edge_vals(t: torch.Tensor) -> torch.Tensor:
@@ -104,7 +126,7 @@ def on_transpose(graph: SparseGraph, vals: torch.Tensor) -> SparseGraph:
     when ``vals`` is the tensor it was built from."""
     if graph.prepared_transpose is not None and vals is graph.vals:
         return graph.prepared_transpose
-    gt, perm, source = _transpose_entry(graph)
+    gt, perm, _, source = _transpose_entry(graph)
     if vals is source:
         return gt
     out = vals.new_zeros(gt.n_edges_padded)
@@ -137,20 +159,6 @@ def spmm_transposed(graph: SparseGraph, vals: torch.Tensor,
     ``within.csr_spmm_transposed``."""
     with within(_TRANSPOSED):
         return spmm_segment(on_transpose(graph, _edge_vals(vals)), x)
-
-
-def row_sums(graph: SparseGraph, vals: torch.Tensor) -> torch.Tensor:
-    """``out[r] = sum of vals[e]`` over row r's live edges, f32
-    ``[n_rows]``: kernel B with F = 1 against a column of ones."""
-    ones = vals.new_ones((graph.n_cols, 1))
-    return spmm_segment(graph.with_vals(_edge_vals(vals)), ones)[:, 0]
-
-
-def col_sums(graph: SparseGraph, vals: torch.Tensor) -> torch.Tensor:
-    """``out[c] = sum of vals[e]`` over column c's live edges, f32
-    ``[n_cols]``: kernel B with F = 1 over the transpose."""
-    ones = vals.new_ones((graph.n_rows, 1))
-    return spmm_transposed(graph, vals, ones)[:, 0]
 
 
 class SpmmSegmentFn(torch.autograd.Function):
@@ -194,60 +202,52 @@ class SpmmSegmentFn(torch.autograd.Function):
 
 
 class EdgeScoresFn(torch.autograd.Function):
-    """``out[e] = dst[rows[e]] + src[cols[e]]`` over the ``E_pad`` edge
-    slots (the rank-1 SDDMM of GAT's logits); the backward counts the
-    live edges only."""
+    """``out[e] = leaky(dst[rows[e]] + src[cols[e]], slope)`` over the
+    ``E_pad`` edge slots (the rank-1 SDDMM of GAT's logits with its
+    LeakyReLU); the backward counts the live edges only, from the byte
+    mask of pre-activations over 0 that the forward keeps."""
 
     @staticmethod
     def forward(ctx, graph: SparseGraph, dst: torch.Tensor,
-                src: torch.Tensor) -> torch.Tensor:
-        ctx.graph = graph
+                src: torch.Tensor, slope: float) -> torch.Tensor:
         with span("gat.scores", dst.device):
-            return (dst.index_select(0, graph.rows)
-                    + src.index_select(0, graph.cols))
+            logits, mask = es.edge_scores(graph, _edge_vals(dst),
+                                          _edge_vals(src), slope)
+            ctx.graph, ctx.slope = graph, slope
+            ctx.save_for_backward(mask)
+            return logits
 
     @staticmethod
     def backward(ctx, g: torch.Tensor):
         with span("gat.scores", g.device):
-            g = _edge_vals(g)
-            d_dst = (row_sums(ctx.graph, g) if ctx.needs_input_grad[1]
-                     else None)
-            d_src = (col_sums(ctx.graph, g) if ctx.needs_input_grad[2]
-                     else None)
-            return None, d_dst, d_src
+            (mask,) = ctx.saved_tensors
+            needs = ctx.needs_input_grad
+            d_dst, d_src = es.edge_scores_grad(
+                ctx.graph, _edge_vals(g), mask, ctx.slope,
+                transpose_places(ctx.graph) if needs[2] else None)
+            return None, d_dst if needs[1] else None, d_src, None
 
 
 class SegmentSoftmaxFn(torch.autograd.Function):
-    """Softmax of ``logits`` over each row's ``live`` edges, f32
-    ``[E_pad]``, 0 off ``live``. ``live`` must be False on the padding
-    slots. A row's max is taken with the dead slots at ``finfo(f32).min``;
-    a row with no edge at all gets max 0; the denominator is clamped at
-    1e-30 (sgc_tpu/models/gat.py:59-77)."""
+    """Softmax of ``logits`` over each row's live edges ``[0, nnz)``, f32
+    ``[E_pad]``, 0 on padding. A row's max is its live edges'; the
+    denominator is clamped at 1e-30 (sgc_tpu/models/gat.py:59-77)."""
 
     @staticmethod
-    def forward(ctx, graph: SparseGraph, logits: torch.Tensor,
-                live: torch.Tensor) -> torch.Tensor:
+    def forward(ctx, graph: SparseGraph, logits: torch.Tensor
+                ) -> torch.Tensor:
         ctx.graph = graph
         with span("gat.softmax", logits.device):
-            rows = graph.rows.long()
-            neg = torch.finfo(torch.float32).min
-            masked = torch.where(live, logits, neg)
-            seg_max = logits.new_zeros(graph.n_rows).scatter_reduce(
-                0, rows, masked, "amax", include_self=False)
-            ex = torch.where(live, torch.exp(logits - seg_max[rows]), 0.0)
-            denom = row_sums(graph, ex)
-            alpha = ex / denom[rows].clamp_min(1e-30)
+            alpha = es.edge_softmax(graph, _edge_vals(logits))
         ctx.save_for_backward(alpha)
         return alpha
 
     @staticmethod
     def backward(ctx, g: torch.Tensor):
         (alpha,) = ctx.saved_tensors
-        graph = ctx.graph
         with span("gat.softmax", g.device):
-            s = row_sums(graph, alpha * g)
-            d = alpha * (g - s.index_select(0, graph.rows))
-        return None, d, None
+            d = es.edge_softmax_grad(ctx.graph, alpha, _edge_vals(g))
+        return None, d
 
 
 class GatherRowsFn(torch.autograd.Function):

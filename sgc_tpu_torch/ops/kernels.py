@@ -27,7 +27,7 @@ from sgc_tpu_torch.utils.buildlib import (
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 # the package's paths launch these: load_all builds and loads them
-KERNEL_SOURCES = ("blockdense", "spmm_csr", "sddmm")
+KERNEL_SOURCES = ("blockdense", "spmm_csr", "sddmm", "edge_softmax")
 # only the sgc_tpu_torch.scripts probes launch these: each is built at
 # its first use, so no package path waits on (or fails with) their build
 PROBE_SOURCES = ("probe_copy", "row_gather", "edge_accumulate",
@@ -36,6 +36,7 @@ PROBE_SOURCES = ("probe_copy", "row_gather", "edge_accumulate",
 _V = ctypes.c_void_p
 _I = ctypes.c_int
 _L = ctypes.c_int64
+_F = ctypes.c_float
 # C signature of each library's entry points: {symbol: argtypes}; the
 # first symbol is the library's default entry
 _ENTRY = {
@@ -44,6 +45,11 @@ _ENTRY = {
                     _I, _I, _V]},
     "spmm_csr": {"csr_spmm": [_V] * 6 + [_I] * 9 + [_V] * 3},
     "sddmm": {"sddmm": [_V] * 5 + [_L, _L] + [_I] * 11 + [_V]},
+    "edge_softmax": {"edge_scores": [_V] * 7 + [_I] * 3 + [_F, _V],
+                     "edge_softmax": [_V] * 3 + [_I] * 3 + [_V],
+                     "edge_softmax_grad": [_V] * 4 + [_I] * 3 + [_V],
+                     "edge_scores_grad_dst": [_V] * 6 + [_I, _F, _V],
+                     "edge_scores_grad_src": [_V] * 3 + [_I, _V]},
     "probe_copy": {"probe_scale2": [_V, _V, _L, _V],
                    "probe_select_blocks": [_V, _V, _V, _I, _I, _L, _V],
                    "probe_launch_floor": [_I, _V]},

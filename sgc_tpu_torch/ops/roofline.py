@@ -32,6 +32,12 @@ Kernels (``chip_smoke.py`` reports each count beside the kernel's time):
 * D, ``csrc/sddmm.cu`` (:func:`sddmm_count`): 2 F flops an edge; bytes:
   a and b once each at the operands' width, the edges' rows and cols,
   and the padded output.
+* GAT's attention entries, ``csrc/edge_softmax.cu``
+  (:func:`edge_softmax_count`, a function of ``ops/edge_softmax.py`` a
+  call): a few FP32 operations an edge; bytes: the row pointers, each
+  edge array the function needs (columns, logits, alpha, gradients, the
+  mask, the transpose's permutation) read and each it returns written
+  once, and the node-sized scores and sums once.
 * E and F, ``csrc/probe_copy.cu`` and ``csrc/row_gather.cu``
   (:func:`copy_count`): bytes, the values the output needs read once,
   the output and the index; :func:`copy_bound` sets the launch floor
@@ -190,6 +196,39 @@ def sddmm_bound(graph, F: int, itemsize: int
                 ) -> tuple[float, str, float, int]:
     """``(ms, bound_by, ops, bytes)`` of kernel D."""
     ops, nbytes = sddmm_count(graph, F, itemsize)
+    return (*bound_ms(ops, nbytes), ops, nbytes)
+
+
+def edge_softmax_count(graph, fn: str) -> tuple[float, int]:
+    """``(ops, bytes)`` of one call of ``fn`` of ``ops/edge_softmax.py``
+    on ``graph``, at the least bytes the function needs: ``edge_scores``
+    (an add and the leaky rule an edge; the row pointers, the columns
+    and the node scores in, the logits and the mask's byte out),
+    ``edge_softmax`` (max, difference, exp, sum, quotient; the logits
+    in, the attention values out), ``edge_softmax_grad`` (two products,
+    a sum and a difference; alpha and g in, the gradient out) and
+    ``edge_scores_grad`` (the leaky rule and two sums; the gradient, the
+    mask, the transpose's permutation and both row pointers in, the
+    row and column sums out). The two launches of ``edge_scores_grad``
+    move 8 bytes an edge more, the terms stored in the transpose's order
+    and read back; the bound leaves them out."""
+    nnz, e_pad = graph.nnz, graph.n_edges_padded
+    n, m = graph.n_rows, graph.n_cols
+    counts = {
+        "edge_scores": (2, 4 * (n + 1) + 4 * nnz + 4 * (n + m)
+                        + 5 * e_pad),
+        "edge_softmax": (5, 4 * (n + 1) + 4 * nnz + 4 * e_pad),
+        "edge_softmax_grad": (4, 4 * (n + 1) + 8 * nnz + 4 * e_pad),
+        "edge_scores_grad": (3, 4 * (n + 1) + 4 * (m + 1) + 9 * nnz
+                             + 4 * (n + m)),
+    }
+    per_edge, nbytes = counts[fn]
+    return float(per_edge * nnz), nbytes
+
+
+def edge_softmax_bound(graph, fn: str) -> tuple[float, str, float, int]:
+    """``(ms, bound_by, ops, bytes)`` of one call of ``fn``."""
+    ops, nbytes = edge_softmax_count(graph, fn)
     return (*bound_ms(ops, nbytes), ops, nbytes)
 
 

@@ -480,6 +480,16 @@ def _spmm_segment_cuda(graph, x, dense):
     return out
 
 
+def row_sums(graph: SparseGraph, vals: torch.Tensor) -> torch.Tensor:
+    """``out[r] = sum of vals[e]`` over row r's live edges, f32
+    ``[n_rows]``: kernel B with F = 1 against a column of ones, each row
+    one chain in edge order."""
+    ones = torch.ones((graph.n_cols, 1), dtype=torch.float32,
+                      device=vals.device)
+    return spmm_segment(graph.with_vals(vals.contiguous().float()),
+                        ones)[:, 0]
+
+
 def scatter_graph(ids: torch.Tensor, n_rows: int,
                   value: float = 1.0) -> SparseGraph:
     """The ``[n_rows, len(ids)]`` matrix with ``value`` at ``(ids[j], j)``

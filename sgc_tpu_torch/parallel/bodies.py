@@ -77,6 +77,12 @@ COUNTERS = {"blockdense_cells": "launch.blockdense_cells",
             "tiled_spmm": "launch.tiled_spmm",
             "sddmm": "launch.sddmm",
             "csr_spmm_transposed": "within.csr_spmm_transposed",
+            # GAT's attention entries (csrc/edge_softmax.cu)
+            "edge_scores": "launch.edge_scores",
+            "edge_softmax": "launch.edge_softmax",
+            "edge_softmax_grad": "launch.edge_softmax_grad",
+            "edge_scores_grad_dst": "launch.edge_scores_grad_dst",
+            "edge_scores_grad_src": "launch.edge_scores_grad_src",
             # the sharded hops' backwards (parallel/autograd.py), also
             # counted in blockdense_cells and csr_spmm
             "blockdense_cells_backward": "within.blockdense_cells_backward",

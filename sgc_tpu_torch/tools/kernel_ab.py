@@ -4,7 +4,7 @@ smoke's full-scale clustered-Reddit splits (E, F and G at the probes'
 defaults).
 
     python3 -m sgc_tpu_torch.tools.kernel_ab [--scale 1.0] [--reps 5]
-        [--kernels a,b,b_order,c,d,e,f,g,h]
+        [--kernels a,b,b_order,c,d,edge_softmax,e,f,g,h]
 
 Kernel E (``csrc/probe_copy.cu``) at the probes' shapes ((8, 128) and 8
 blocks of (8, 128)), launch-bound: the launch floor (an empty kernel,
@@ -87,6 +87,22 @@ Variants (``D_VARIANTS``: source rewrites and the plan's overrides:
 lanes per edge, edges per warp, and for a warp that is one lane group
 its edges in flight and edges per warp) are each held to the plain
 version.
+
+GAT's attention entries (``edge_softmax``, ``csrc/edge_softmax.cu``) on
+the shuffled Reddit-shape graph, each function of ``ops/edge_softmax.py``
+alone (the scores, the softmax, its backward, the scores' backward: its
+row sums with the scattered terms, then the column sums; five launches a
+head and layer), from node scores ``h @ a`` of a head at GAT's two widths
+(F = 8 and 41; the entries' work does not depend on F, only the values
+do): each prints its time, its byte bound (``ops/roofline.py``, at
+the least bytes the function needs), its bits against the plain
+version's (the composition of PyTorch ops and kernel B's F = 1 sums it
+replaces), whether two launches agree, and the plain composition's
+time, timed first, each also as its kernels' device time under
+``torch.profiler``; the softmax also beside ``torch.sparse.softmax`` on
+the logits as a COO matrix, the one library call that computes it (its
+time and its values' largest gap to the kernel's); then the five
+together against the five plain versions.
 
 Kernel G (``csrc/edge_accumulate.cu``) on the gather probe's edges
 (65,536 into 2,048 x 768) in every mode: the whole call, the bucket pass
@@ -730,6 +746,105 @@ def kernel_d(data, device, reps: int, seed: int) -> None:
         raise AssertionError(f"kernel D off its plain version: {mismatched}")
 
 
+# the C entries each function of ops/edge_softmax.py launches
+ENTRIES_OF = {"edge_scores": ["edge_scores"],
+              "edge_softmax": ["edge_softmax"],
+              "edge_softmax_grad": ["edge_softmax_grad"],
+              "edge_scores_grad": ["edge_scores_grad_dst",
+                                   "edge_scores_grad_src"]}
+
+
+def sparse_softmax_call(g, logits):
+    """``torch.sparse.softmax`` over the rows of the logits as a COO
+    matrix of ``g``'s pattern (the one library call that computes
+    ``edge_softmax``), and its values' gap to ``alpha``: ``(call,
+    gap)``."""
+    import torch
+
+    idx = torch.stack([g.rows[: g.nnz], g.cols[: g.nnz]]).long()
+    coo = torch.sparse_coo_tensor(idx, logits[: g.nnz],
+                                  (g.n_rows, g.n_cols),
+                                  check_invariants=False).coalesce()
+
+    def call():
+        return torch.sparse.softmax(coo, dim=1)
+
+    def gap(alpha):
+        return float((call().values() - alpha[: g.nnz]).abs().max())
+
+    return call, gap
+
+
+def kernel_edge_softmax(data, device, reps: int, seed: int) -> None:
+    import torch
+
+    from sgc_tpu_torch.ops import edge_softmax as es
+    from sgc_tpu_torch.ops import roofline as rf
+    from sgc_tpu_torch.ops.autograd import transpose_places
+
+    g = data[0].to(device)
+    places = transpose_places(g)
+    gen = torch.Generator(device=device).manual_seed(seed)
+    mismatched = []
+    for F in (8, 41):
+        h = torch.randn((g.n_rows, F), device=device, generator=gen)
+        a = 0.1 * torch.randn((2, F), device=device, generator=gen)
+        dst, src = (h @ a[0]).contiguous(), (h @ a[1]).contiguous()
+        logits, mask = es.edge_scores(g, dst, src, 0.2)
+        alpha = es.edge_softmax(g, logits)
+        gr = torch.randn(g.n_edges_padded, device=device, generator=gen)
+        gr[g.nnz:] = 0.0
+        d = es.edge_softmax_grad(g, alpha, gr)
+        calls = {"edge_scores": (g, dst, src, 0.2),
+                 "edge_softmax": (g, logits),
+                 "edge_softmax_grad": (g, alpha, gr),
+                 "edge_scores_grad": (g, d, mask, 0.2, places)}
+        total = {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0,
+                 "device_ms": 0.0, "plain_device_ms": 0.0}
+        for fname, args in calls.items():
+            fn, plain = getattr(es, fname), getattr(es, fname + "_plain")
+            plain_ms = time_ms(lambda: plain(*args), reps)
+            got, again, want = (t if isinstance(t, tuple) else (t,) for t
+                                in (fn(*args), fn(*args), plain(*args)))
+            torch.cuda.synchronize()
+            b_ms, _, _, b_bytes = rf.edge_softmax_bound(g, fname)
+            row = {"kernel": "edge_softmax", "entry": fname,
+                   "launches": ENTRIES_OF[fname], "F": F, "nnz": g.nnz,
+                   "ms": time_ms(lambda: fn(*args), reps),
+                   "bound_ms": b_ms, "bound_by": "bytes",
+                   "plain_ms": plain_ms,
+                   "same_bits_as_plain": all(map(torch.equal, got, want)),
+                   "same_bits_twice": all(map(torch.equal, got, again))}
+            row["achieved_gbps"] = b_bytes / row["ms"] / 1e6
+            # device time alone, each launch's: at this size a call's host
+            # path is comparable to its kernels' time
+            per = profiled_kernels_ms(lambda: fn(*args), reps)
+            row["device_ms"] = sum(per.values())
+            row["device_ms_by_kernel"] = per
+            row["plain_device_ms"] = sum(profiled_kernels_ms(
+                lambda: plain(*args), reps).values())
+            if fname == "edge_softmax":
+                lib, gap = sparse_softmax_call(g, logits)
+                row["library"] = "torch.sparse.softmax (COO, dim=1)"
+                row["library_ms"] = time_ms(lib, reps)
+                row["library_device_ms"] = sum(
+                    profiled_kernels_ms(lib, reps).values())
+                row["library_max_abs_gap"] = gap(got[0])
+                del lib
+            emit(row)
+            for k in total:
+                total[k] += row[k]
+            if not (row["same_bits_as_plain"] and row["same_bits_twice"]):
+                mismatched.append((fname, F))
+            del got, again, want
+        emit({"kernel": "edge_softmax", "entry": "all five", "F": F,
+              **total})
+        del h, dst, src, logits, mask, alpha, gr, d
+    if mismatched:
+        raise AssertionError(f"edge_softmax off its plain version: "
+                             f"{mismatched}")
+
+
 def _profiled(fn, calls: int) -> list:
     """``(kernel, device ms in all, launches recorded)`` of every CUDA
     kernel ``torch.profiler`` saw over ``calls`` calls of ``fn`` after a
@@ -1167,7 +1282,8 @@ def main() -> int:
     ap.add_argument("--scale", type=float, default=1.0)
     ap.add_argument("--seed", type=int, default=42)
     ap.add_argument("--reps", type=int, default=5)
-    ap.add_argument("--kernels", default="a,b,b_order,c,d,e,f,g,h",
+    ap.add_argument("--kernels",
+                    default="a,b,b_order,c,d,edge_softmax,e,f,g,h",
                     help="comma-separated kernels to run")
     args = ap.parse_args()
 
@@ -1194,7 +1310,7 @@ def main() -> int:
         kernel_e(device)
     if "f" in chosen:
         kernel_f(device)
-    if not chosen & {"a", "b", "b_order", "c", "d", "h"}:
+    if not chosen & {"a", "b", "b_order", "c", "d", "edge_softmax", "h"}:
         return 0
     data = synthetic_reddit_clustered(args.scale, seed=args.seed,
                                       shuffle=True)
@@ -1208,6 +1324,8 @@ def main() -> int:
         kernel_c(data, device, args.reps)
     if "d" in chosen:
         kernel_d(data, device, args.reps, args.seed)
+    if "edge_softmax" in chosen:
+        kernel_edge_softmax(data, device, args.reps, args.seed)
     if "g" in chosen:
         kernel_g(device, args.reps)
     if "h" in chosen:

@@ -24,6 +24,7 @@ from sgc_tpu.models import gat as ref_gat
 from sgc_tpu_torch.graph.sparse import SparseGraph
 from sgc_tpu_torch.models import gat as port_gat
 from sgc_tpu_torch.ops import autograd as port_ag
+from sgc_tpu_torch.ops.spmm import row_sums
 
 CPU = "cpu"
 TOL = 1e-5
@@ -48,9 +49,10 @@ def rel_err(got, want):
                                                  1e-30)
 
 
-def _graphs(n=48, e=300, seed=0, diag=True):
+def _graphs(n=48, e=300, seed=0, diag=True, hub=None, empty=None):
     """tests/test_gat.py's graph in both packages: duplicates summed,
-    every row with a self-loop unless ``diag=False``."""
+    every row with a self-loop unless ``diag=False``; row ``hub`` (if
+    given) joined to every column, row ``empty`` left with no edge."""
     rng = np.random.default_rng(seed)
     adj = sp.coo_matrix((np.ones(e, np.float32),
                          (rng.integers(0, n, e), rng.integers(0, n, e))),
@@ -58,7 +60,13 @@ def _graphs(n=48, e=300, seed=0, diag=True):
     adj.sum_duplicates()
     if diag:
         adj.setdiag(1.0)
+    adj = adj.tolil()
+    if hub is not None:
+        adj[hub, :] = 1.0
+    if empty is not None:
+        adj[empty, :] = 0.0
     adj = adj.tocsr()
+    adj.eliminate_zeros()
     return RefGraph.from_scipy(adj), SparseGraph.from_scipy(adj).to(CPU)
 
 
@@ -67,9 +75,16 @@ def _np(seed, *shape):
         np.float32)
 
 
-@pytest.mark.parametrize("diag", [True, False])
-def test_segment_softmax_and_grad_match_reference(diag):
-    rg, pg = _graphs(seed=1, diag=diag)
+@pytest.mark.parametrize("graph", [
+    pytest.param(dict(diag=True), id="True"),
+    pytest.param(dict(diag=False), id="False"),
+    # a hub row of every column beside a row with no edge at all
+    pytest.param(dict(diag=False, hub=5, empty=9), id="hub_and_empty_row")])
+def test_segment_softmax_and_grad_match_reference(graph):
+    rg, pg = _graphs(seed=1, **graph)
+    deg = np.diff(pg.row_ptr.numpy())
+    if "hub" in graph:
+        assert deg[graph["hub"]] == pg.n_cols and deg[graph["empty"]] == 0
     logits = _np(2, pg.n_edges_padded)
     w = _np(3, pg.n_edges_padded)
     live = np.arange(pg.n_edges_padded) < pg.nnz
@@ -82,12 +97,12 @@ def test_segment_softmax_and_grad_match_reference(diag):
                                    jnp.asarray(live))
     want_grad = jax.grad(f)(jnp.asarray(logits))
     lt = torch.from_numpy(logits).requires_grad_(True)
-    got = port_gat.segment_softmax(lt, pg, torch.from_numpy(live))
+    got = port_gat.segment_softmax(lt, pg)
     assert rel_err(got.detach().numpy(), want) <= TOL
     assert not got[pg.nnz:].any()
     (got * torch.from_numpy(w)).sum().backward()
     assert rel_err(lt.grad.numpy(), want_grad) <= GRAD_TOL
-    sums = port_ag.row_sums(pg, got.detach())
+    sums = row_sums(pg, got.detach())
     has_edge = np.diff(pg.row_ptr.numpy()) > 0
     np.testing.assert_allclose(sums.numpy()[has_edge], 1.0, atol=1e-5)
 
@@ -97,17 +112,21 @@ def test_edge_scores_and_grads_match_reference():
     dst, src = _np(5, pg.n_rows), _np(6, pg.n_cols)
     g = _np(7, pg.n_edges_padded)
     g[pg.nnz:] = 0.0     # the backward reads live edges (GAT masks the rest)
+    slope = 0.2
+
+    def scores(d, s):
+        return jax.nn.leaky_relu(d[rg.rows] + s[rg.cols], slope)
 
     def f(d, s):
-        return jnp.sum((d[rg.rows] + s[rg.cols]) * g)
+        return jnp.sum(scores(d, s) * g)
 
     gd, gs = jax.grad(f, argnums=(0, 1))(jnp.asarray(dst), jnp.asarray(src))
     dt = torch.from_numpy(dst).requires_grad_(True)
     st = torch.from_numpy(src).requires_grad_(True)
-    out = port_ag.EdgeScoresFn.apply(pg, dt, st)
-    np.testing.assert_array_equal(out.detach().numpy(),
-                                  np.asarray(jnp.asarray(dst)[rg.rows]
-                                             + jnp.asarray(src)[rg.cols]))
+    out = port_ag.EdgeScoresFn.apply(pg, dt, st, slope)
+    want = np.asarray(scores(jnp.asarray(dst), jnp.asarray(src)))
+    assert (want < 0).any() and (want > 0).any()
+    np.testing.assert_array_equal(out.detach().numpy(), want)
     (out * torch.from_numpy(g)).sum().backward()
     assert rel_err(dt.grad.numpy(), gd) <= TOL
     assert rel_err(st.grad.numpy(), gs) <= TOL

@@ -166,7 +166,8 @@ def test_script_main_runs_on_the_cpu(name, capsys):
 def test_probe_kernels_build_apart_from_the_package_paths():
     """Every ``csrc/*.cu`` has an entry table and sits in exactly one
     build set: ``load_all`` (every package path) builds A-D's libraries
-    only, and E-H's are built at the probes' first use."""
+    and the attention kernels', and E-H's are built at the probes' first
+    use."""
     from sgc_tpu_torch.ops import kernels
 
     sources = {p.stem for p in kernels.CSRC.glob("*.cu")}

@@ -346,8 +346,11 @@ def test_cuda_host_sync_counts_the_profilers_host_blocks(cuda, tmp_path):
 @pytest.mark.cuda
 @pytest.mark.parametrize("heads", [(4, 2), (1, 3)])
 def test_cuda_gat_step_launch_counts(cuda, heads):
+    from sgc_tpu_torch.ops.edge_softmax import ENTRIES
+
+    edge = tuple(f"launch.{e}" for e in ENTRIES)
     names = ("launch.csr_spmm", "within.csr_spmm_transposed",
-             "launch.sddmm")
+             "launch.sddmm") + edge
     gat_step(cuda, heads)       # builds and caches the transpose
     torch.cuda.synchronize()
     before = profiling.read_counts(names)
@@ -355,8 +358,10 @@ def test_cuda_gat_step_launch_counts(cuda, heads):
     torch.cuda.synchronize()
     got = {k: n - before[k] for k, n in profiling.read_counts(names).items()}
     h = sum(heads)
-    assert got == {"launch.csr_spmm": 6 * h,
-                   "within.csr_spmm_transposed": 2 * h, "launch.sddmm": h}
+    # kernel B forward and over the transpose; each attention entry once
+    assert got == {"launch.csr_spmm": 2 * h,
+                   "within.csr_spmm_transposed": h, "launch.sddmm": h,
+                   **{k: h for k in edge}}
     profiled(lambda: gat_step(cuda, heads), cuda)
     window = profiling.trace_summary()["counts"]
     assert {k: window[k] for k in names} == got
